@@ -1,0 +1,7 @@
+"""PyTorch port of the DML federated-learning system, for NVIDIA Hopper.
+
+The JAX package ``repro`` is the reference; this package mirrors its
+module layout (``repro_torch.<path>`` is the port of ``repro.<path>``) and
+imports nothing from it.  The port grows slice by slice; this slice serves
+a stacked K-client population of dense transformers (``repro_torch.serve``).
+"""

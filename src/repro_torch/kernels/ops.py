@@ -1,0 +1,83 @@
+"""Kernel entry points and the policy of where the port runs.
+
+impl values:
+  - "ref":  the plain PyTorch version (``kernels/ref.py``); runs anywhere.
+  - "cuda": the hand-written CUDA kernels; CUDA tensors only.
+
+There is no ambient default: an entry point (an engine, a CLI) resolves
+its impl ONCE from its device with ``resolve_impl`` and passes it down as a
+plain argument to every call that can reach a kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention
+
+IMPLS = ("ref", "cuda")
+
+
+def _check_impl(impl: str) -> str:
+    """An impl string outside ``IMPLS`` is a config bug, never a fallback."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown kernel impl {impl!r}; expected one "
+                         f"of {IMPLS}")
+    return impl
+
+
+def resolve_device(device=None) -> torch.device:
+    """Entry points run on the card: ``None`` means CUDA, and raises when
+    there is none.  Only an explicit ``device="cpu"`` runs on the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cpu":
+        return device
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device for {device}: pass "
+                           "device='cpu' to run on the CPU")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def resolve_impl(impl: Optional[str], device) -> str:
+    """Resolve the kernel impl once for an entry point on ``device``:
+    ``None`` gives "cuda" on a CUDA device and "ref" on the CPU.  Asking
+    for "cuda" on the CPU raises."""
+    device = torch.device(device)
+    if impl is None:
+        return "cuda" if device.type == "cuda" else "ref"
+    _check_impl(impl)
+    if impl == "cuda" and device.type != "cuda":
+        raise ValueError(f"impl 'cuda' needs a CUDA device, got {device}")
+    return impl
+
+
+def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+              positions_q=None, positions_k=None,
+              impl: Optional[str] = None):
+    """(B, S, H, hd)-layout attention: the flash kernel or the plain version.
+
+    Explicit positions (the decode/cache path) always take the plain
+    version, as ``repro/kernels/ops.py:100-103`` does, and need no impl.
+    Self-attention (prefill and prompt scoring) runs the caller's ``impl``,
+    which it must give.
+    """
+    if impl is not None:
+        _check_impl(impl)
+    if positions_q is not None or positions_k is not None:
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             positions_q=positions_q, positions_k=positions_k)
+    if impl is None:
+        raise ValueError("self-attention needs an explicit impl; resolve "
+                         "one with resolve_impl")
+    if impl == "ref":
+        return ref.attention(q, k, v, causal=causal, window=window)
+    if not q.is_cuda:
+        raise ValueError("impl 'cuda' needs CUDA tensors, got "
+                         f"{q.device}")
+    return flash_attention(q, k, v, causal=causal, window=window)[0]

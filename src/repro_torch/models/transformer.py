@@ -1,0 +1,226 @@
+"""Decoder backbone: init, forward, and the serving prefill/decode.
+
+Layers are ``n_periods`` repetitions of ``cfg.period``; period parameters
+are stacked on a leading layer axis, which a Python loop walks (the JAX
+package's ``lax.scan``).  A population of K clients is served by the
+``*_clients`` functions, whose params and caches carry a leading client
+axis K in front of the layer axis; activations are then (K, B, S, ...) and
+each product is one batched call over the clients.  ``forward``,
+``prefill`` and ``decode_step`` serve one model (no client axis) through the
+same code with K = 1.
+
+Only dense attention/MLP layers are ported so far: SSM mixers, MoE FFNs and
+prefix-token frontends raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
+                                       init_mlp, per_client, rms_norm)
+from repro_torch.tree import tree_map
+
+Params = Dict[str, Any]
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    for spec in cfg.period:
+        if spec.mixer != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: {spec.mixer} mixers come with the SSM slice "
+                "of the port")
+        if spec.ffn == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: MoE FFNs come with the MoE slice of the port")
+    if cfg.prefix_tokens:
+        raise NotImplementedError(
+            f"{cfg.name}: prefix-token frontends come with the frontend "
+            "slice of the port")
+
+
+def _stack1(tree):
+    """A single model's tree as a population of one (a view)."""
+    return tree_map(lambda t: t[None], tree)
+
+
+def _layer(tree, idx: int):
+    """Views of layer ``idx`` of a client-stacked (K, n_periods, ...) tree."""
+    return tree_map(lambda t: t[:, idx], tree)
+
+
+# ---------------------------------------------------------------------------
+# init
+
+def _init_slot(gen, cfg: ModelConfig, spec, lead):
+    zeros = dict(dtype=cfg.pdtype(), device=gen.device)
+    p: Params = {"norm1": torch.zeros(lead + (cfg.d_model,), **zeros),
+                 "mixer": attn_mod.init_attention(gen, cfg, lead)}
+    if spec.ffn != "none":
+        p["norm2"] = torch.zeros(lead + (cfg.d_model,), **zeros)
+        p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdtype(), lead)
+    return p
+
+
+def init_model(seed: int, cfg: ModelConfig, *, n_clients: int = 0,
+               device=None) -> Params:
+    """Random params with the JAX package's distributions (truncated-normal
+    fan-in, embed N(0, 0.02), zero norms), drawn from a ``torch.Generator``
+    seeded with ``seed`` on ``device`` (default: the CUDA device).  The bits
+    differ from JAX's.  ``n_clients`` > 0 stacks that many independent
+    clients on a leading axis."""
+    _check_ported(cfg)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lead = (n_clients,) if n_clients else ()
+    params: Params = {
+        "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), cfg.pdtype(),
+                            lead),
+        "final_norm": torch.zeros(lead + (cfg.d_model,), dtype=cfg.pdtype(),
+                                  device=device),
+        "periods": {f"slot{i}": _init_slot(gen, cfg, spec,
+                                           lead + (cfg.n_periods,))
+                    for i, spec in enumerate(cfg.period)},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                       cfg.pdtype(), lead=lead)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward
+
+def _ffn(sp, cfg: ModelConfig, spec, x):
+    if spec.ffn == "none":
+        return x
+    h = rms_norm(x, per_client(sp["norm2"], x), cfg.rms_eps)
+    return x + apply_mlp(sp["ffn"], h)
+
+
+def _embed(params, cfg: ModelConfig, tokens):
+    """(K, V, d) table, (B, S) tokens -> (K, B, S, d) in the compute dtype.
+    Gathering before the cast equals the JAX cast-then-gather bitwise and
+    never casts the whole table."""
+    return params["embed"][:, tokens].to(cfg.cdtype())
+
+
+def _unembed(params, cfg: ModelConfig, x):
+    """Final norm, then the head cast to the activations' dtype."""
+    x = rms_norm(x, per_client(params["final_norm"], x), cfg.rms_eps)
+    head = (params["embed"].transpose(-1, -2) if cfg.tie_embeddings
+            else params["lm_head"])
+    K, d = x.shape[0], x.shape[-1]
+    logits = torch.matmul(x.reshape(K, -1, d), head.to(x.dtype))
+    return logits.reshape(*x.shape[:-1], head.shape[-1])
+
+
+def forward_clients(sparams, cfg: ModelConfig, tokens, *,
+                    window: Optional[int] = None, impl: str):
+    """K clients on shared tokens (B, S) -> logits (K, B, S, V).  (The JAX
+    ``forward`` also returns MoE aux losses; dense layers have none.)"""
+    _check_ported(cfg)
+    x = _embed(sparams, cfg, tokens)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for idx in range(cfg.n_periods):
+        period = _layer(sparams["periods"], idx)
+        for i, spec in enumerate(cfg.period):
+            sp = period[f"slot{i}"]
+            h = rms_norm(x, per_client(sp["norm1"], x), cfg.rms_eps)
+            x = x + attn_mod.attention_forward(sp["mixer"], cfg, h, positions,
+                                               window=window, impl=impl)
+            x = _ffn(sp, cfg, spec, x)
+    return _unembed(sparams, cfg, x)
+
+
+def forward(params, cfg: ModelConfig, tokens, *,
+            window: Optional[int] = None, impl: str):
+    """One model: tokens (B, S) -> logits (B, S, V)."""
+    return forward_clients(_stack1(params), cfg, tokens, window=window,
+                           impl=impl)[0]
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               window: Optional[int] = None, *, n_models: int = 0,
+               device) -> Params:
+    """Cache tree with leaves (n_periods, B, ...), behind a leading client
+    axis when ``n_models`` > 0."""
+    _check_ported(cfg)
+    if window is None:
+        window = cfg.sliding_window
+    lead = ((n_models,) if n_models else ()) + (cfg.n_periods,)
+    return {f"slot{i}": attn_mod.init_kv_cache(cfg, batch, max_seq, window,
+                                               lead=lead, device=device)
+            for i in range(len(cfg.period))}
+
+
+def prefill_clients(sparams, cfg: ModelConfig, tokens, *, max_seq: int,
+                    window: Optional[int] = None, impl: str
+                    ) -> Tuple[torch.Tensor, Params]:
+    """Prompt ingestion for K clients on shared tokens (B, S).
+    Returns (last-token logits (K, B, V), cache (K, n_periods, B, ...))."""
+    _check_ported(cfg)
+    if window is None:
+        window = cfg.sliding_window
+    x = _embed(sparams, cfg, tokens)
+    K, B = x.shape[:2]
+    cache = init_cache(cfg, B, max_seq, window, n_models=K, device=x.device)
+    for idx in range(cfg.n_periods):
+        period = _layer(sparams["periods"], idx)
+        layer_cache = _layer(cache, idx)
+        for i, spec in enumerate(cfg.period):
+            sp = period[f"slot{i}"]
+            h = rms_norm(x, per_client(sp["norm1"], x), cfg.rms_eps)
+            out, _ = attn_mod.attention_prefill(
+                sp["mixer"], cfg, h, layer_cache[f"slot{i}"], window=window,
+                impl=impl)
+            x = _ffn(sp, cfg, spec, x + out)
+    return _unembed(sparams, cfg, x[:, :, -1:])[:, :, 0], cache
+
+
+def prefill(params, cfg: ModelConfig, tokens, *, max_seq: int,
+            window: Optional[int] = None, impl: str):
+    """One model.  Returns (last-token logits (B, V), cache (n_periods, B,
+    ...))."""
+    logits, cache = prefill_clients(_stack1(params), cfg, tokens,
+                                    max_seq=max_seq, window=window, impl=impl)
+    return logits[0], tree_map(lambda t: t[0], cache)
+
+
+def decode_step_clients(sparams, cfg: ModelConfig, token, cache, pos, *,
+                        window: Optional[int] = None):
+    """One decode step for K clients.  token: (B, 1) shared; cache: the
+    (K, n_periods, B, ...) tree, updated IN PLACE; pos: an int or a (B,)
+    tensor of per-sequence positions.  Returns (logits (K, B, V), cache)."""
+    _check_ported(cfg)
+    if window is None:
+        window = cfg.sliding_window
+    x = _embed(sparams, cfg, token)                         # (K, B, 1, d)
+    for idx in range(cfg.n_periods):
+        period = _layer(sparams["periods"], idx)
+        layer_cache = _layer(cache, idx)
+        for i, spec in enumerate(cfg.period):
+            sp = period[f"slot{i}"]
+            h = rms_norm(x, per_client(sp["norm1"], x), cfg.rms_eps)
+            out, _ = attn_mod.attention_decode(
+                sp["mixer"], cfg, h, layer_cache[f"slot{i}"], pos,
+                window=window)
+            x = _ffn(sp, cfg, spec, x + out)
+    return _unembed(sparams, cfg, x)[:, :, 0], cache
+
+
+def decode_step(params, cfg: ModelConfig, token, cache, pos, *,
+                window: Optional[int] = None):
+    """One model: token (B, 1); cache (n_periods, B, ...), updated in place.
+    Returns (logits (B, V), cache)."""
+    logits, _ = decode_step_clients(_stack1(params), cfg, token,
+                                    _stack1(cache), pos, window=window)
+    return logits[0], cache
