@@ -5,26 +5,38 @@
 Phases, each fatal on failure:
   1. environment and kernel build: the card's name and power limit, torch
      and CUDA versions, and the seconds the CUDA kernels took to build from
-     the sources in this checkout;
+     the sources in this checkout (one ``nvcc`` per source, all at once);
   2. every kernel against its plain PyTorch version on the card, at the
-     serving path's shapes and around them, with the kernel's time beside
-     its bound, the plain version's time and a library yardstick;
+     serving and training paths' shapes and around them, with the kernel's
+     time beside its bound, the plain version's time and a library
+     yardstick: the flash-attention forward and backward, the Eq.-2
+     pair-KL forward and backward, and ``mutual_kl`` through the pair
+     forward;
   3. the serving path at the full width of qwen3-4b: a K=2 client ensemble
      from seeded random weights serves ``generate``, continuous batching
      and route mode, and the kernels' launch counts show that it ran
-     through them.
+     through them;
+  4. the training path at the full width of qwen3-4b cut to 4 of its 36
+     layers: ``Federation(LMClients(..., n_clients=3), DML())`` trains 3
+     fused DML rounds through the kernels (launch counts checked), reads
+     out Eq. 2 of the final public logits through ``mutual_kl``, and round 1
+     and each client's gradient are held against the same round at
+     ``impl="ref"``.
 The line before the last is one JSON object with the per-kernel numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 it exits non-zero and prints no result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import gc
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -37,6 +49,9 @@ from repro_torch.kernels import _build  # noqa: E402
 # and HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd",
+                  "kl_mutual_pair")
+BF16 = torch.bfloat16
 
 
 def check_cuda() -> None:
@@ -72,14 +87,21 @@ def phase_env() -> dict:
           f"python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for name in ("flash_attention_fwd",):
-        t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
+        list(ex.map(_build.build, KERNEL_SOURCES))   # raises if one fails
+    for name in KERNEL_SOURCES:
         _build.load(name)
         log = _build.library_path(name).with_suffix(".log").read_text()
-        print(f"build {name}: {time.perf_counter() - t0:.1f} s")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+        regs = [int(line.split("Used ")[1].split()[0])
+                for line in log.splitlines()
+                if "Used " in line and "registers" in line]
+        spills = sum(int(line.split("bytes spill stores")[0].split()[-1])
+                     for line in log.splitlines() if "spill stores" in line)
+        print(f"build {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+              f"registers, {spills} bytes of spill stores")
+    print(f"built {len(KERNEL_SOURCES)} libraries in parallel: "
+          f"{time.perf_counter() - t0:.1f} s")
     return {"card": card}
 
 
@@ -126,12 +148,14 @@ def _check(flash_attention, ref, q, k, v, causal, window, tol, what):
     return err, err_lse
 
 
-def phase_kernels(main_shape, admit_batch, admit_lens) -> dict:
+def phase_flash_fwd(main_shape, admit_batch, admit_lens,
+                    train_shapes) -> dict:
     """Flash forward against ``ref.attention_lse`` on the card: a sweep of
     heads, lengths, windows and dtypes, and every shape the serving run of
     phase 3 gives the kernel -- K*B sequences of the generate and route
     prompts (``main_shape``) and ``admit_batch`` = K sequences of each
-    admitted request length (``admit_lens``), bf16, causal."""
+    admitted request length (``admit_lens``), bf16, causal -- and the
+    training run's (``train_shapes``: (batch, S) pairs)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -149,6 +173,8 @@ def phase_kernels(main_shape, admit_batch, admit_lens) -> dict:
     path = [(B, (Hq, Hkv, hd), S0, None, bf16, True)]
     path += [(admit_batch, (Hq, Hkv, hd), S, None, bf16, True)
              for S in admit_lens]
+    path += [(b, (Hq, Hkv, hd), S, None, bf16, True)
+             for b, S in train_shapes]
     worst = {}
     for b, (hq, hkv, d), S, window, dtype, causal in cases + path:
         q, k, v = _qkv(b, S, hq, hkv, d, dtype, gen)
@@ -165,7 +191,8 @@ def phase_kernels(main_shape, admit_batch, admit_lens) -> dict:
               f"err| {e:.3g} (atol {t['out']}, rtol {t['rtol']}), max |lse "
               f"err| {el:.3g} (limit {t['lse']})")
     print(f"  of them at the serving path's shapes: B={B} S={S0}, and "
-          f"B={admit_batch} S in {list(admit_lens)}")
+          f"B={admit_batch} S in {list(admit_lens)}; at the training "
+          f"path's: (B, S) in {list(train_shapes)}")
 
     # time at the serving path's generate/route prefill shape
     q, k, v = _qkv(B, S0, Hq, Hkv, hd, bf16, gen)
@@ -192,6 +219,252 @@ def phase_kernels(main_shape, admit_batch, admit_lens) -> dict:
             "library_ms": library_ms}
 
 
+def _bound(flops: float, nbytes: float, dtype) -> tuple:
+    """(bound ms, "operations" or "bytes"): the larger of the operations at
+    the card's peak rate for ``dtype`` and the bytes at its HBM rate."""
+    return max((flops / PEAK_FLOPS[dtype] * 1e3, "operations"),
+               (nbytes / PEAK_BYTES * 1e3, "bytes"))
+
+
+def _grad_err(got, want, tol):
+    """max |got - want| and whether it is within tol * max(max |want|, 1):
+    the scale floor keeps gradients that are 0 up to rounding (S = 1, a
+    window of one) from making the test one of rounding noise."""
+    err = (got - want).abs().max().item()
+    return err, err <= tol * max(want.abs().max().item(), 1.0)
+
+
+def _flash_grads(fn, qkv, dout, Hq, Hkv, window):
+    """Gradient of sum(out * dout) with respect to a fused (B, S,
+    Hq + 2 Hkv, hd) QKV, through ``fn(q, k, v)`` on its strided slices:
+    the layout the training path hands the kernels."""
+    x = qkv.clone().requires_grad_(True)
+    out = fn(x[:, :, :Hq], x[:, :, Hq:Hq + Hkv], x[:, :, Hq + Hkv:],
+             window=window)[0]
+    (grad,) = torch.autograd.grad(out, x, dout)
+    return grad.float()
+
+
+def phase_flash_bwd(train_shape, train_shapes) -> dict:
+    """Flash backward (dq, dk, dv) against autograd of ``ref.attention_lse``
+    on the card: a sweep of heads, lengths, windows and dtypes, and every
+    shape the training run of phase 4 gives it (``train_shapes``: (batch,
+    S) pairs at the full width, bf16, causal).  Tolerance: max |err| <=
+    tol * max(max |grad|, 1) for each of dq, dk, dv, tol 1e-4 in fp32
+    (summation order) and 2e-2 in bf16 (the gradients are rounded to bf16
+    once, and the plain version differentiates its fp32 softmax while the
+    kernel's delta uses the bf16 out)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tol = {torch.float32: 1e-4, BF16: 2e-2}
+    B0, S0, Hq, Hkv, hd = train_shape
+    cases = [(2, heads, S, window, dtype)
+             for heads in ((Hq, Hkv, hd), (8, 2, 64), (8, 2, 32))
+             for S in (1, 17, 128, 1000)
+             for window in (None, 256)
+             for dtype in (torch.float32, BF16)]
+    cases += [(b, (Hq, Hkv, hd), S, None, BF16) for b, S in train_shapes]
+    worst, max_err = {}, None
+    for b, (hq, hkv, d), S, window, dtype in cases:
+        qkv = torch.randn(b, S, hq + 2 * hkv, d, device="cuda",
+                          generator=gen).to(dtype)
+        dout = torch.randn(b, S, hq, d, device="cuda",
+                           generator=gen).to(dtype)
+        got = _flash_grads(fa.flash_attention, qkv, dout, hq, hkv, window)
+        want = _flash_grads(ref.attention_lse, qkv, dout, hq, hkv, window)
+        errs = []
+        for sl in (slice(0, hq), slice(hq, hq + hkv), slice(hq + hkv, None)):
+            err, ok = _grad_err(got[:, :, sl], want[:, :, sl], tol[dtype])
+            if not ok:
+                raise AssertionError(
+                    f"flash backward disagrees with autograd of ref at B={b} "
+                    f"Hq={hq} Hkv={hkv} hd={d} S={S} window={window} {dtype}:"
+                    f" max |err| {err:.3g} in the grad of qkv[..., {sl}]")
+            errs.append(err)
+        n, e = worst.get(dtype, (0, 0.0))
+        worst[dtype] = (n + 1, max(e, *errs))
+        if (b, S) == (B0, S0):
+            max_err = max(errs)
+    for dtype, (n, e) in worst.items():
+        print(f"flash backward vs autograd of ref, {n} cases "
+              f"{str(dtype)[6:]}: max |dq, dk, dv err| {e:.3g} (limit "
+              f"{tol[dtype]} x max(max |grad|, 1))")
+
+    # time at the training path's private-batch shape
+    q, k, v = _qkv(B0, S0, Hq, Hkv, hd, BF16, gen)
+    out, lse = fa._forward(q, k, v, True, None)
+    dout = torch.randn(out.shape, device="cuda", generator=gen).to(BF16)
+    ms = time_ms(lambda: fa._backward(q, k, v, out, lse, dout, True, None))
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+    def plain_fb():
+        torch.autograd.grad(ref.attention_lse(*leaves)[0], leaves, dout)
+
+    def plain_f():
+        with torch.no_grad():
+            ref.attention_lse(*leaves)
+    plain_ms = time_ms(plain_fb, iters=5) - time_ms(plain_f, iters=5)
+    G = Hq // Hkv
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = [q.transpose(1, 2), k.repeat_interleave(G, dim=2).transpose(1, 2),
+           v.repeat_interleave(G, dim=2).transpose(1, 2)]
+    lib = [t.detach().requires_grad_(True) for t in lib]
+    dout_t = dout.transpose(1, 2)
+
+    def lib_fb():
+        torch.autograd.grad(sdpa(*lib, is_causal=True), lib, dout_t)
+
+    def lib_f():
+        with torch.no_grad():
+            sdpa(*lib, is_causal=True)
+    library_ms = time_ms(lib_fb) - time_ms(lib_f)
+    elt = 2
+    pairs = B0 * Hq * S0 * (S0 + 1) / 2
+    nbytes = (4 * B0 * S0 * Hq * hd + 4 * B0 * S0 * Hkv * hd) * elt \
+        + B0 * Hq * S0 * 4
+    bound_ms, bound_by = _bound(10.0 * hd * pairs, nbytes, BF16)
+    print(f"flash backward at (B={B0}, S={S0}, Hq={Hq}, Hkv={Hkv}, hd={hd}) "
+          f"bf16: {ms:.4f} ms, plain (autograd of ref, fwd+bwd - fwd) "
+          f"{plain_ms:.4f} ms, sdpa (library, fwd+bwd - fwd) "
+          f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+          f"(10 hd flops per unmasked pair / 989 TFLOP/s; q, k, v, out, "
+          f"dout, lse read and dq, dk, dv written / 3.35 TB/s); max |err| "
+          f"{max_err:.3g}")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:145",
+            "launches": None, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def _kl_ops(Kl, Kg, B, V) -> float:
+    """fp32 operations of the pair-KL forward: per (b, v) two per (i, j)
+    cross term and about four (max, exp, sum) per client on each side."""
+    return float(B) * V * (2 * Kl * Kg + 4 * (Kl + Kg))
+
+
+def phase_kl(K: int, B: int, V: int) -> list:
+    """The Eq.-2 kernels at the training path's shape (K clients, B = the
+    public batch's positions, the full vocabulary V), bf16 and fp32, with
+    participation-masked weights (M = K - 1 < K), temperature 1.5 and V not
+    a multiple of the kernel's tile: the pair forward against
+    ``ref.mutual_kl_pair`` (max |err| <= 1e-3 + 1e-4 |out|: a one-pass
+    streaming sum against a two-pass softmax over 151,936 terms), its
+    backward against autograd of it (relative norm error 1e-4 in fp32,
+    2e-2 in bf16, where the gradient is rounded to bf16 once), on the live
+    side with the fixed side detached, as training runs it, and on both
+    sides; and ``ops.mutual_kl`` (the square case through the pair
+    forward) against ``ref.mutual_kl``.  Returns the three kernels' rows."""
+    from repro_torch.core.mutual import _pair_mask
+    from repro_torch.kernels import kl_mutual, ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    w = _pair_mask(K, [1.0] * (K - 1) + [0.0], "cuda")
+    T = 1.5
+    errs = {}
+    for dtype in (torch.float32, BF16):
+        logits = (2 * torch.randn(K, B, V, device="cuda", generator=gen)) \
+            .to(dtype)
+        gbar = torch.randn(K, B, device="cuda", generator=gen)
+        res = []
+        for fn in (kl_mutual.kl_mutual_pair, ref.mutual_kl_pair):
+            live = logits.detach().requires_grad_(True)
+            out = fn(live, live.detach(), w, temperature=T)
+            (g,) = torch.autograd.grad(out, live, gbar)
+            res.append((out.detach(), g.float()))
+            del live, g
+        (out, dl), (want, want_dl) = res
+        f_err = (out - want).abs().max().item()
+        b_rel = ((dl - want_dl).norm() / want_dl.norm()).item()
+        b_err = (dl - want_dl).abs().max().item()
+        lim = 1e-4 if dtype == torch.float32 else 2e-2
+        if not (torch.allclose(out, want, atol=1e-3, rtol=1e-4)
+                and b_rel <= lim):
+            raise AssertionError(
+                f"pair KL disagrees with ref at {dtype}: forward max |err| "
+                f"{f_err:.3g}, backward relative error {b_rel:.3g}")
+        print(f"pair KL vs ref at (K={K}, B={B}, V={V}) {str(dtype)[6:]}, "
+              f"M={K - 1} of {K}, T={T}: forward max |err| {f_err:.3g} "
+              f"(limit 1e-3 + 1e-4 |out|), backward max |err| {b_err:.3g}, "
+              f"relative {b_rel:.3g} (limit {lim})")
+        errs[dtype] = (f_err, b_err)
+        del res, out, dl, want, want_dl
+        if dtype == torch.float32:     # both sides differentiable
+            fixed = logits.roll(1, dims=0)
+            grads = []
+            for fn in (kl_mutual.kl_mutual_pair, ref.mutual_kl_pair):
+                a, b = (t.detach().requires_grad_(True)
+                        for t in (logits, fixed))
+                grads.append([g.float() for g in torch.autograd.grad(
+                    fn(a, b, w, temperature=T), (a, b), gbar)])
+            rel = max(((x - y).norm() / y.norm()).item()
+                      for x, y in zip(*grads))
+            print(f"  both sides differentiable (fixed = the clients "
+                  f"rolled): relative error of dlive, dfixed {rel:.3g} "
+                  f"(limit 1e-4)")
+            if not rel <= 1e-4:
+                raise AssertionError("pair KL dfixed disagrees with ref")
+            del grads, fixed
+        del logits
+        torch.cuda.empty_cache()
+
+    # kernel 3, and the times, at the readout / training shape in bf16
+    x = (2 * torch.randn(K, B, V, device="cuda", generator=gen)).to(BF16)
+    got = ops.mutual_kl(x, temperature=T, impl="cuda")
+    want = ref.mutual_kl(x, T)
+    mk_err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, atol=1e-3, rtol=1e-4):
+        raise AssertionError(f"mutual_kl disagrees with ref: {mk_err:.3g}")
+    print(f"mutual_kl (square case through the pair forward) vs ref at "
+          f"(K={K}, B={B}, V={V}) bf16: max |err| {mk_err:.3g}")
+    gbar = torch.randn(K, B, device="cuda", generator=gen)
+    out, zl, zf = kl_mutual._forward(x, x, w, T)
+    fwd_ms = time_ms(lambda: kl_mutual._forward(x, x, w, T))
+    bwd_ms = time_ms(lambda: kl_mutual._backward(x, x, w, out, zl, zf, gbar,
+                                                 T, False))
+    mk_ms = time_ms(lambda: kl_mutual.kl_mutual(x, temperature=T))
+    live = x.detach().requires_grad_(True)
+
+    def plain_fb():
+        torch.autograd.grad(ref.mutual_kl_pair(live, live.detach(), w, T),
+                            live, gbar)
+
+    def plain_f():
+        with torch.no_grad():
+            ref.mutual_kl_pair(live, live.detach(), w, T)
+    plain_fwd = time_ms(plain_f, iters=5)
+    plain_bwd = time_ms(plain_fb, iters=5) - plain_fwd
+    plain_mk = time_ms(lambda: ref.mutual_kl(x, T), iters=5)
+    plane = K * B * V * 2                       # one (K, B, V) bf16 tensor
+    fwd_bound = _bound(_kl_ops(K, K, B, V), 2 * plane, torch.float32)
+    bwd_bound = _bound(_kl_ops(K, K, B, V), 3 * plane, torch.float32)
+    mk_bound = _bound(_kl_ops(K, K, B, V), plane, torch.float32)
+    for name, ms, plain, (bound, by) in (
+            ("forward", fwd_ms, plain_fwd, fwd_bound),
+            ("backward", bwd_ms, plain_bwd, bwd_bound),
+            ("mutual_kl", mk_ms, plain_mk, mk_bound)):
+        print(f"pair KL {name} at (K={K}, B={B}, V={V}) bf16: {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, no single library call; bound "
+              f"{bound:.4f} ms by {by}")
+    src = "src/repro_torch/kernels/csrc/kl_mutual_pair.cu"
+    row = dict(route="cuda", source=src, launches=None, library_ms=None)
+    return [
+        {"name": "kl_mutual_pair_fwd", **row,
+         "replaces": "src/repro/kernels/kl_mutual.py:68",
+         "max_abs_err": errs[BF16][0], "ms": fwd_ms, "plain_ms": plain_fwd,
+         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
+        {"name": "kl_mutual_pair_bwd", **row,
+         "replaces": "src/repro/kernels/kl_mutual.py:178",
+         "max_abs_err": errs[BF16][1], "ms": bwd_ms, "plain_ms": plain_bwd,
+         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]},
+        {"name": "mutual_kl", **row,
+         "replaces": "src/repro/kernels/kl_mutual.py:32",
+         "max_abs_err": mk_err, "ms": mk_ms, "plain_ms": plain_mk,
+         "bound_ms": mk_bound[0], "bound_by": mk_bound[1]},
+    ]
+
+
 # ---------------------------------------------------------------------------
 # phase 3
 
@@ -203,44 +476,51 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
+def device_busy(run) -> dict:
+    """{kernel name: (device microseconds, launches)} of ``run()`` under
+    ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    acc: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, cnt = acc.get(e.name, (0.0, 0))
+            acc[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
+    return acc
+
+
+def _print_top(by_name, per: float, unit: str, n: int = 6) -> None:
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    for name, (us, cnt) in top:
+        print(f"  {us / per / 1e3:7.3f} ms/{unit} {cnt / per:5.0f} x  "
+              f"{name[:90]}")
+
+
 def profile_decode(eng, prompts, step_secs: float, steps: int = 8) -> None:
     """Device time of the decode loop under ``torch.profiler``: the kernels
     of ``steps`` decode steps (a generate of ``steps`` minus one of a single
     step), their busy time per step against the unprofiled wall time per
     step ``step_secs``, and the kernels that take most of it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def kernels(n, sign, acc):
-        """Add sign * (microseconds, count) of each kernel name to acc."""
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            eng.generate(prompts, n)
-            torch.cuda.synchronize()
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                us, cnt = acc.get(e.name, (0.0, 0))
-                acc[e.name] = (us + sign * e.time_range.elapsed_us(),
-                               cnt + sign)
-
-    by_name: dict = {}
-    kernels(1 + steps, 1, by_name)
-    kernels(1, -1, by_name)
+    by_name = device_busy(lambda: eng.generate(prompts, 1 + steps))
+    for name, (us, cnt) in device_busy(
+            lambda: eng.generate(prompts, 1)).items():
+        us0, cnt0 = by_name.get(name, (0.0, 0))
+        by_name[name] = (us0 - us, cnt0 - cnt)
     busy_us = sum(us for us, _ in by_name.values()) / steps
     n_kernels = sum(cnt for _, cnt in by_name.values()) / steps
     print(f"decode step: {step_secs * 1e3:.1f} ms wall (unprofiled), "
           f"{busy_us / 1e3:.2f} ms device busy in {n_kernels:.0f} kernels "
           f"(profiled) -> device idle {1 - busy_us / 1e6 / step_secs:.1%}")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    for name, (us, cnt) in top:
-        print(f"  {us / steps / 1e3:7.3f} ms/step {cnt / steps:5.0f} x  "
-              f"{name[:90]}")
+    _print_top(by_name, steps, "step")
 
 
 def make_requests(vocab_size: int, n: int = 6, seed: int = 0) -> list:
     """``n`` (prompt, max_new) requests of 64-1024 prompt tokens and 16-64
     new ones, for continuous batching."""
-    import numpy as np
     rng = np.random.default_rng(seed)
     reqs = []
     for _ in range(n):
@@ -254,7 +534,6 @@ def phase_serve(card: str, cfg, reqs, K: int = 2, B: int = 2, S0: int = 512,
                 gen: int = 32) -> dict:
     """The port's serving path at the full width of ``cfg``.  Returns the
     kernels' launch counts over the served requests."""
-    import numpy as np
     from repro_torch.data.synthetic import make_token_stream
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer as tfm
@@ -331,19 +610,200 @@ def phase_serve(card: str, cfg, reqs, K: int = 2, B: int = 2, S0: int = 512,
     return {"flash_attention_fwd": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 4
+
+def _client_grad_errors(g_host, g_dev, K: int) -> list:
+    """Per client, ||g_host - g_dev|| / ||g_dev|| over every leaf; g_host
+    lives on the CPU and crosses to the card one leaf at a time."""
+    from repro_torch.tree import tree_leaves
+    num, den = torch.zeros(K), torch.zeros(K)
+    for a, b in zip(tree_leaves(g_host), tree_leaves(g_dev)):
+        a, b = a.to(b.device).float(), b.float()
+        num += (a - b).square().flatten(1).sum(1).cpu()
+        den += b.square().flatten(1).sum(1).cpu()
+    return (num.sqrt() / den.sqrt()).tolist()
+
+
+def _fmt(xs) -> str:
+    return "[" + ", ".join(f"{x:.5f}" for x in xs) + "]"
+
+
+def phase_train(card: str, cfg, K: int = 3, B: int = 4, S: int = 512,
+                rounds: int = 3) -> dict:
+    """The port's training path: ``Federation(LMClients(cfg, K), DML())`` at
+    the full width of ``cfg`` (depth as given), ``rounds`` fused DML rounds
+    through the kernels, then Eq. 2 of the final public logits through
+    ``mutual_kl``.  Then round 1 again at ``impl="ref"`` from the same
+    seeded weights and batches: each client's private_loss, public_ce and
+    kld_avg, and its gradient of the round's total loss, within relative
+    error 2e-2 (plus 1e-3 absolute on kld_avg).  Returns the kernels'
+    launch counts over the training run."""
+    from repro_torch.api import DML, Federation, LMClients
+    from repro_torch.core import distributed as D
+    from repro_torch.core.mutual import mutual_kl_eval
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kl_mutual as klm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_update
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def population(impl):
+        return LMClients(cfg, n_clients=K, rounds=rounds, batch=B, seq=S,
+                         seed=0, kernel_impl=impl)
+
+    torch.cuda.reset_peak_memory_stats()
+    pop, secs = _timed(lambda: population(None))
+    n = pop.params_per_client
+    state_gb = sum(t.numel() * t.element_size() for t in
+                   tree_leaves(pop.state_dict())) / 1e9
+    print(f"init {K} x {cfg.name} clients, {cfg.n_layers} of 36 layers at "
+          f"full width (seeded random weights): {n / 1e9:.3f} B params "
+          f"each, {state_gb:.1f} GB of params and AdamW moments on the card, "
+          f"{secs:.1f} s; kernels impl={pop.impl}")
+    tokens0, pub0 = pop._private_batch(0), pop._public_batch(0)
+    _, _, grads = D.value_and_grad(D.dml_total_loss, pop.client_params, cfg,
+                                   tokens0, pub0, impl=pop.impl)
+    g_cuda = tree_map(lambda t: t.cpu(), grads)
+    del grads
+
+    fed = Federation(pop, DML())
+    fa.launches = fa.bwd_launches = 0              # the main path starts here
+    klm.launches = klm.bwd_launches = klm.mutual_kl_launches = 0
+    tokens = K * (B + max(1, B // 2)) * S
+    walls = []
+    for r in range(rounds):
+        torch.cuda.reset_peak_memory_stats()
+        if r == rounds - 1:                        # profile the last round
+            t0 = time.perf_counter()
+            by_name = device_busy(lambda: fed.run(until=r + 1))
+            prof_secs = time.perf_counter() - t0
+        else:
+            _, secs = _timed(lambda: fed.run(until=r + 1))
+            walls.append(secs)
+        rl = fed.history.rounds[-1]
+        wall = walls[-1] if r < rounds - 1 else prof_secs
+        print(f"round {r}: {wall:.3f} s wall"
+              f"{' (profiled)' if r == rounds - 1 else ''}, "
+              f"{tokens / wall:.0f} trained tok/s; private_loss "
+              f"{_fmt(rl.client_loss)} public_ce {_fmt(rl.public_ce)} "
+              f"kld_avg {_fmt(rl.kl_loss)}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    with torch.no_grad():
+        pub = pop._public_batch(rounds - 1)
+        logits = tfm.forward_clients(pop.client_params, cfg, pub,
+                                     impl=pop.impl)
+        readout = mutual_kl_eval(logits.reshape(K, -1, cfg.vocab_size),
+                                 impl=pop.impl)
+    counts = {"flash_attention_fwd": fa.launches,    # ... and ends here
+              "flash_attention_bwd": fa.bwd_launches,
+              "kl_mutual_pair_fwd": klm.launches,
+              "kl_mutual_pair_bwd": klm.bwd_launches,
+              "mutual_kl": klm.mutual_kl_launches}
+    need = {"flash_attention_fwd": 2 * 2 * cfg.n_layers * rounds,
+            "flash_attention_bwd": 2 * cfg.n_layers * rounds,
+            "kl_mutual_pair_fwd": rounds, "kl_mutual_pair_bwd": rounds,
+            "mutual_kl": 1}
+    print(f"training launches {counts}; need at least {need} (private and "
+          f"public forward in each of {cfg.n_layers} layers, twice under "
+          f"remat; their backward; one Eq.-2 term per round; the readout)")
+    short = [k for k in need if counts[k] < need[k]]
+    if short:
+        raise AssertionError(f"the training path did not run through {short}")
+    if readout.shape != (K, pub.numel()) or \
+            not bool(torch.isfinite(readout).all()) or \
+            float(readout.min()) < -1e-3:
+        raise AssertionError(f"bad Eq.-2 readout {tuple(readout.shape)}")
+    hist = fed.history.rounds
+    if not all(np.isfinite(x).all() for rl in hist
+               for x in (rl.client_loss, rl.public_ce, rl.kl_loss)):
+        raise AssertionError("non-finite training losses")
+    print(f"Eq.-2 readout (mutual_kl_eval of round {rounds - 1}'s public "
+          f"logits, kernel 3): per-client mean {_fmt(readout.mean(1))}")
+    busy_us = sum(us for us, _ in by_name.values())
+    n_kernels = sum(cnt for _, cnt in by_name.values())
+    steady = walls[-1]
+    print(f"train round on {card}: {steady:.3f} s wall (round {rounds - 2}, "
+          f"unprofiled) = {tokens / steady:.0f} trained tok/s "
+          f"(K*(B + B_pub)*S = {tokens} tokens a round); round "
+          f"{rounds - 1}: {busy_us / 1e3:.1f} ms device busy in {n_kernels} "
+          f"kernels (profiled) -> device idle {1 - busy_us / 1e6 / steady:.1%}")
+    _print_top(by_name, 1, "round", n=8)
+    # the round's two halves timed apart, on a fourth update
+    (_, _, grads), grad_secs = _timed(lambda: D.value_and_grad(
+        D.dml_total_loss, pop.client_params, cfg, tokens0, pub0,
+        impl=pop.impl))
+    _, opt_secs = _timed(lambda: adamw_update(        # keep only metrics
+        pop.client_params, grads, pop.client_opts, pop.opt_cfg)[2])
+    print(f"round breakdown (a fourth update, host clock around "
+          f"synchronised work): loss, forward and backward {grad_secs:.3f} "
+          f"s; AdamW with the global-norm clip {opt_secs:.3f} s")
+    del grads
+    first = hist[0]
+    del fed, pop, logits, readout
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # round 1 again through the plain versions, from the same weights
+    torch.cuda.reset_peak_memory_stats()
+    pop = population("ref")
+    _, _, grads = D.value_and_grad(D.dml_total_loss, pop.client_params, cfg,
+                                   tokens0, pub0, impl="ref")
+    g_err = _client_grad_errors(g_cuda, grads, K)
+    del grads, g_cuda
+    ref_first = Federation(pop, DML()).run(until=1).rounds[0]
+    print(f"round 1 at impl=ref: private_loss {_fmt(ref_first.client_loss)} "
+          f"public_ce {_fmt(ref_first.public_ce)} kld_avg "
+          f"{_fmt(ref_first.kl_loss)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    rel = lambda a, b: abs(a - b) / abs(b)                  # noqa: E731
+    worst = {
+        "private_loss": max(map(rel, first.client_loss,
+                                ref_first.client_loss)),
+        "public_ce": max(map(rel, first.public_ce, ref_first.public_ce)),
+        # |a - b| <= 2e-2 |b| + 1e-3  <=>  |a - b| / (|b| + 0.05) <= 2e-2
+        "kld_avg": max(abs(a - b) / (abs(b) + 0.05) for a, b in
+                       zip(first.kl_loss, ref_first.kl_loss)),
+        "gradient": max(g_err)}
+    print(f"round 1, impl=cuda vs impl=ref: worst relative error {worst} "
+          f"(limit 2e-2; kld_avg within 2e-2 |ref| + 1e-3); per-client "
+          f"gradient relative norm error {_fmt(g_err)}")
+    if not all(v <= 2e-2 for v in worst.values()):
+        raise AssertionError("the training round disagrees with the plain "
+                             "path")
+    del pop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     check_cuda()
     env = phase_env()
     from repro_torch.configs import get_config
     cfg = get_config("qwen3-4b")
+    tcfg = cfg.replace(n_layers=4)     # full width; depth cut to fit K=3
     K, B, S0 = 2, 2, 512
+    TK, TB, TS = 3, 4, 512             # the training run of phase 4
+    train_shapes = [(TK * TB, TS), (TK * max(1, TB // 2), TS)]
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
     reqs = make_requests(cfg.vocab_size)
-    kernel = phase_kernels(
-        (K * B, S0, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_), K,
-        sorted({len(p) for p, _ in reqs}))
-    launches = phase_serve(env["card"], cfg, reqs, K=K, B=B, S0=S0)
-    kernel["launches"] = launches[kernel["name"]]
-    print(json.dumps({"kernels": [kernel]}))
+    kernels = [phase_flash_fwd((K * B, S0) + heads, K,
+                               sorted({len(p) for p, _ in reqs}),
+                               train_shapes),
+               phase_flash_bwd(train_shapes[0] + heads, train_shapes)]
+    kernels += phase_kl(TK, max(1, TB // 2) * TS, cfg.vocab_size)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    serve = phase_serve(env["card"], cfg, reqs, K=K, B=B, S0=S0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(env["card"], tcfg, K=TK, B=TB, S=TS)
+    print(f"flash_attention_fwd launches: {serve['flash_attention_fwd']} "
+          f"serving + {train['flash_attention_fwd']} training")
+    for row in kernels:
+        row["launches"] = serve.get(row["name"], 0) + train[row["name"]]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

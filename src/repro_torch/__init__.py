@@ -2,6 +2,8 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its
 module layout (``repro_torch.<path>`` is the port of ``repro.<path>``) and
-imports nothing from it.  The port grows slice by slice; this slice serves
-a stacked K-client population of dense transformers (``repro_torch.serve``).
+imports nothing from it.  The port grows slice by slice: it serves a
+stacked K-client population of dense transformers (``repro_torch.serve``)
+and trains it by distributed mutual learning (``repro_torch.api``:
+``Federation(LMClients(...), DML())``).
 """

@@ -1,0 +1,14 @@
+"""The port's public session API, one import site, as ``repro.api``:
+
+    from repro_torch.api import Federation, LMClients, DML
+
+    session = Federation(LMClients(cfg, n_clients=3), DML())
+    session.run()
+"""
+from repro_torch.core.api import Federation, History, RoundLog
+from repro_torch.core.populations import LMClients, Population
+from repro_torch.core.strategies import (DML, STRATEGIES, Payload, Strategy,
+                                         get_strategy)
+
+__all__ = ["Federation", "History", "RoundLog", "Strategy", "Payload",
+           "STRATEGIES", "get_strategy", "DML", "Population", "LMClients"]

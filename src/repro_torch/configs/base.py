@@ -120,3 +120,51 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # -- parameter counting (used by the comm accounting) ----------
+    def param_count(self) -> int:
+        """Exact parameter count of the backbone built by the JAX package's
+        ``models/transformer.py``."""
+        d, hd = self.d_model, self.head_dim_
+        n = 0
+        n += self.vocab_size * d                       # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * d                   # lm head
+        n += d                                          # final norm
+        for spec in self.period:
+            ln = 0
+            ln += d                                     # pre-mixer norm
+            if spec.mixer == "attn":
+                qkv_out = (self.n_heads + 2 * self.n_kv_heads) * hd
+                ln += d * qkv_out
+                if self.qkv_bias:
+                    ln += qkv_out
+                if self.qk_norm:
+                    ln += 2 * hd
+                ln += self.n_heads * hd * d             # o_proj
+            else:  # mamba
+                s = self.ssm
+                di = s.d_inner(d)
+                nh = s.n_heads(d)
+                conv_ch = di + 2 * s.n_groups * s.d_state
+                ln += d * (2 * di + 2 * s.n_groups * s.d_state + nh)  # in_proj
+                ln += s.d_conv * conv_ch + conv_ch      # conv1d w+b
+                ln += nh                                # A_log
+                ln += nh                                # D
+                ln += nh                                # dt_bias
+                ln += di                                # ssd norm (gated rmsnorm)
+                ln += di * d                            # out_proj
+            if spec.ffn != "none":
+                ln += d                                 # pre-ffn norm
+            if spec.ffn == "mlp":
+                ln += 3 * d * self.d_ff                 # swiglu
+            elif spec.ffn == "moe":
+                m = self.moe
+                ln += d * m.n_experts                   # router
+                ln += m.n_experts * 3 * d * m.d_expert
+                if m.n_shared_experts:
+                    ln += 3 * d * (m.n_shared_experts * m.d_expert)
+            n += ln * self.n_periods
+        if self.prefix_tokens:
+            n += self.prefix_dim * d + d               # projector
+        return n

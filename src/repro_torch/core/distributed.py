@@ -1,0 +1,240 @@
+"""Client-stacked federated mutual learning steps: the single-device part
+of ``repro/core/distributed.py``.
+
+Clients are a leading K axis on every param and optimizer leaf.  The
+cross-client interaction happens ONLY in the Eq.-2 term, on the public
+batch's logits (K, B_pub * S, V), whose bytes do not depend on the model's
+size -- the paper's bandwidth claim.
+
+Provided steps:
+  - ``make_local_train_step``: per-client CE on the private shards
+  - ``make_mutual_step``:      Eq. 1 on the public batch
+  - ``make_dml_train_step``:   local + mutual fused in one update
+Each step's loss is a plain function (``local_total_loss``,
+``mutual_total_loss``, ``dml_total_loss``) that tests and ``chip_smoke.py``
+can differentiate on their own.  A step returns ``(params, opt,
+metrics)``; it updates the params and moments IN PLACE (``adamw_update``)
+and returns the same objects.  ``fedavg_sync``, ``async_sync`` and the
+device-sharded step come with later slices of the port.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.mutual import mutual_kl_loss
+from repro_torch.models import transformer as tfm
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.tree import tree_leaves, tree_map
+
+Params = Any
+
+
+# ---------------------------------------------------------------------------
+# init
+
+def stacked_init(seed: int, cfg: ModelConfig, n_clients: int, *,
+                 device=None) -> Params:
+    """K independent initialisations on a leading client axis, drawn from
+    one ``torch.Generator`` seeded with ``seed``."""
+    return tfm.init_model(seed, cfg, n_clients=n_clients, device=device)
+
+
+def stacked_adamw_init(stacked_params: Params) -> Dict:
+    """AdamW state over the stacked params; the scalar step is shared across
+    clients (one LR schedule for the whole fleet)."""
+    return adamw_init(stacked_params)
+
+
+# ---------------------------------------------------------------------------
+# losses
+
+def _mask(part_mask, device):
+    return 1.0 if part_mask is None else torch.as_tensor(
+        part_mask, dtype=torch.float32, device=device)
+
+
+def _public_ce_and_logits(sparams, cfg: ModelConfig, tokens, remat: bool,
+                          impl: str):
+    """Public-batch CE (K,) and the logits (K, B, S, V) of ALL S positions
+    for Eq. 2 (``repro/core/distributed.py:182-194``)."""
+    logits = tfm.forward_clients(sparams, cfg, tokens, remat=remat, impl=impl)
+    return tfm.next_token_ce(logits, tokens), logits
+
+
+def local_total_loss(sparams, cfg: ModelConfig, tokens, part_mask=None, *,
+                     remat: bool = True, impl: str):
+    """Private CE summed over the participants: absentees' losses are
+    zeroed BEFORE the gradient, so their data reaches nothing, not even
+    the shared global-norm clip.  Returns (total, per-client metrics)."""
+    losses, metrics = tfm.loss_fn_clients(sparams, cfg, tokens, remat=remat,
+                                          impl=impl)
+    return torch.sum(losses * _mask(part_mask, losses.device)), metrics
+
+
+def mutual_total_loss(sparams, cfg: ModelConfig, public_tokens,
+                      part_mask=None, *, kl_weight: float = 1.0,
+                      temperature: float = 1.0, ce_weight: float = 1.0,
+                      remat: bool = True, impl: str):
+    """Eq. 1 on the public batch: CE(public) + kl_weight * KLD_avg."""
+    ce_pub, fwd = _public_ce_and_logits(sparams, cfg, public_tokens, remat,
+                                        impl)
+    K, B, S, V = fwd.shape
+    kl = mutual_kl_loss(fwd.reshape(K, B * S, V), temperature,
+                        part_mask=part_mask, impl=impl)
+    w = _mask(part_mask, kl.device)
+    total = ce_weight * torch.sum(ce_pub * w) + kl_weight * torch.sum(kl)
+    return total, {"public_ce": ce_pub.detach(), "kld_avg": kl.detach()}
+
+
+def dml_total_loss(sparams, cfg: ModelConfig, tokens, public_tokens,
+                   part_mask=None, *, kl_weight: float = 1.0,
+                   temperature: float = 1.0, remat: bool = True, impl: str):
+    """One fused DML round's loss: private CE + public CE + kl_weight *
+    Eq. 2, summed over the clients (``make_dml_train_step``'s
+    ``total_loss``, ``repro/core/distributed.py:222-250``).  ``tokens``
+    (K, B, S) private, ``public_tokens`` (B_pub, S) shared.  Returns
+    (total, {"private_loss", "public_ce", "kld_avg"} of (K,))."""
+    priv, _ = tfm.loss_fn_clients(sparams, cfg, tokens, remat=remat,
+                                  impl=impl)
+    ce_pub, fwd = _public_ce_and_logits(sparams, cfg, public_tokens, remat,
+                                        impl)
+    K, B, S, V = fwd.shape
+    kl = mutual_kl_loss(fwd.reshape(K, B * S, V), temperature,
+                        part_mask=part_mask, impl=impl)
+    w = _mask(part_mask, kl.device)
+    total = (torch.sum(priv * w) + torch.sum(ce_pub * w)
+             + kl_weight * torch.sum(kl))
+    return total, {"private_loss": priv.detach(),
+                   "public_ce": ce_pub.detach(), "kld_avg": kl.detach()}
+
+
+def value_and_grad(loss: Callable, sparams: Params, *args, **kw):
+    """``loss(sparams, *args, **kw)`` -> (total, aux), and the gradient of
+    total with respect to every leaf of ``sparams`` as a tree: the JAX
+    ``value_and_grad(has_aux=True)``.  The leaves require grad for this
+    call only."""
+    leaves = tree_leaves(sparams)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            total, aux = loss(sparams, *args, **kw)
+            grads = iter(torch.autograd.grad(total, leaves))
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    return total.detach(), aux, tree_map(lambda _: next(grads), sparams)
+
+
+# ---------------------------------------------------------------------------
+# partial participation
+
+def _absent_state(params, opt, part_mask):
+    """Copies of the absent clients' rows of params and moments, or None
+    under full participation."""
+    if part_mask is None:
+        return None
+    absent = [c for c, m in enumerate(part_mask) if not m]
+    if not absent:
+        return None
+    idx = torch.as_tensor(absent, device=tree_leaves(params)[0].device)
+    rows = lambda t: t[idx]                # a copy  # noqa: E731
+    return idx, {"params": tree_map(rows, params),
+                 "mu": tree_map(rows, opt["mu"]),
+                 "nu": tree_map(rows, opt["nu"])}
+
+
+def _mask_participation(params, opt, absent) -> None:
+    """Absent clients keep their params and AdamW moments; the (shared,
+    scalar) schedule step keeps advancing.  In place: the rows saved by
+    ``_absent_state`` are written back, which is what the JAX package's
+    ``client_lerp`` with a 0/1 mask selects."""
+    if absent is None:
+        return
+    idx, old = absent
+    for new, saved in ((params, old["params"]), (opt["mu"], old["mu"]),
+                       (opt["nu"], old["nu"])):
+        for t, s in zip(tree_leaves(new), tree_leaves(saved)):
+            t[idx] = s
+
+
+def _update(params, opt, grads, opt_cfg: AdamWConfig, part_mask):
+    absent = _absent_state(params, opt, part_mask)
+    params, opt, om = adamw_update(params, grads, opt, opt_cfg)
+    _mask_participation(params, opt, absent)
+    return params, opt, om
+
+
+# ---------------------------------------------------------------------------
+# steps
+
+def make_local_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                          remat: bool = True, *, impl: str):
+    """Per-client private-shard CE step: ``step(params, opt, tokens
+    (K, B, S), part_mask=None)``.  Absentees' params and moments ride
+    through unchanged."""
+    def step(stacked_params, opt_state, tokens, part_mask=None):
+        _, metrics, grads = value_and_grad(
+            local_total_loss, stacked_params, cfg, tokens, part_mask,
+            remat=remat, impl=impl)
+        params, opt, om = _update(stacked_params, opt_state, grads, opt_cfg,
+                                  part_mask)
+        return params, opt, {**{k: v.detach() for k, v in metrics.items()},
+                             **om}
+    return step
+
+
+def make_mutual_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                     kl_weight: float = 1.0, temperature: float = 1.0,
+                     remat: bool = True, ce_weight: float = 1.0, *,
+                     impl: str):
+    """Eq. 1 on the public batch: ``step(params, opt, public_tokens
+    (B_pub, S), part_mask=None)``.  Absentees are masked out of the Eq.-2
+    average and their params and moments pass through unchanged."""
+    def step(stacked_params, opt_state, public_tokens, part_mask=None):
+        _, metrics, grads = value_and_grad(
+            mutual_total_loss, stacked_params, cfg, public_tokens, part_mask,
+            kl_weight=kl_weight, temperature=temperature,
+            ce_weight=ce_weight, remat=remat, impl=impl)
+        params, opt, om = _update(stacked_params, opt_state, grads, opt_cfg,
+                                  part_mask)
+        return params, opt, {**metrics, **om}
+    return step
+
+
+def make_dml_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                        kl_weight: float = 1.0, temperature: float = 1.0,
+                        remat: bool = True, *, impl: str):
+    """One fused DML round-step: private CE + Eq. 1 on the public batch in
+    one AdamW update with one global-norm clip over the stacked tree.
+    ``step(params, opt, tokens (K, B, S), public_tokens (B_pub, S),
+    part_mask=None)``.  ``impl`` is the kernel impl the population resolved:
+    it runs the attention forward and backward and the Eq.-2 term."""
+    def step(stacked_params, opt_state, tokens, public_tokens,
+             part_mask=None):
+        _, metrics, grads = value_and_grad(
+            dml_total_loss, stacked_params, cfg, tokens, public_tokens,
+            part_mask, kl_weight=kl_weight, temperature=temperature,
+            remat=remat, impl=impl)
+        params, opt, om = _update(stacked_params, opt_state, grads, opt_cfg,
+                                  part_mask)
+        return params, opt, {**metrics, **om}
+    return step
+
+
+# ---------------------------------------------------------------------------
+# communication accounting (analytic)
+
+def comm_bytes(cfg: ModelConfig, n_clients: int, public_tokens: int,
+               bytes_per_el: int = 2) -> Dict[str, int]:
+    n = cfg.param_count()
+    return {
+        "fedavg_round": 2 * n_clients * n * bytes_per_el,
+        "dml_round": 2 * n_clients * public_tokens * cfg.vocab_size
+        * bytes_per_el,
+        "ratio": (n / max(public_tokens * cfg.vocab_size, 1)),
+    }
+

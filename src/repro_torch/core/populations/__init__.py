@@ -1,0 +1,8 @@
+"""Client populations for ``repro_torch.core.api.Federation``: so far
+:class:`LMClients`, the stacked same-arch LM clients over the
+``core.distributed`` steps.  ``Population`` documents the capability
+surface strategies drive."""
+from repro_torch.core.populations.base import Population
+from repro_torch.core.populations.lm import LMClients
+
+__all__ = ["Population", "LMClients"]

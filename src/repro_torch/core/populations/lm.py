@@ -1,0 +1,179 @@
+"""LLM-scale stacked client population -- the ``core.distributed`` steps
+behind the ``Federation`` session layer (``repro/core/populations/lm.py``).
+
+K same-arch clients live as a leading axis on every param and optimizer
+leaf; with the dml strategy one round is ONE fused update
+(``distributed.make_dml_train_step``): private CE + Eq. 1 on the round's
+public batch.  Private data is per-client synthetic bigram streams (one
+domain per client -- non-IID); the public batch is fresh every round.
+The batches are the JAX package's, token for token.
+
+``device=None`` means the CUDA device and raises without one; pass
+``device="cpu"`` to run on the CPU.  The kernel impl is resolved once here
+(``ops.resolve_impl``: "cuda" on the card, "ref" on the CPU) and passed
+down to every step.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from repro_torch.core import distributed as D
+from repro_torch.core.populations.base import Population
+from repro_torch.data.synthetic import make_token_stream
+from repro_torch.kernels import ops
+from repro_torch.models import transformer as tfm
+from repro_torch.optim import AdamWConfig
+from repro_torch.tree import tree_leaves, tree_map
+
+
+class LMClients(Population):
+    """K stacked same-arch LM clients on synthetic domain streams."""
+
+    engine_name = "lm"
+    supported = frozenset({"dml"})
+    fused_dml = True
+    log_participants_always = True
+
+    def __init__(self, cfg, n_clients: int = 2, rounds: int = 20,
+                 batch: int = 4, seq: int = 64, lr: float = 1e-3,
+                 seed: int = 0, device=None, kernel_impl=None):
+        self.cfg = cfg
+        self.n_clients = n_clients
+        self.rounds = rounds
+        self.batch = batch
+        self.seq = seq
+        self.seed = seed
+        self.device = ops.resolve_device(device)
+        self.impl = ops.resolve_impl(kernel_impl, self.device)
+        self.opt_cfg = AdamWConfig(lr=lr, warmup=5, total_steps=rounds)
+        self.client_params = D.stacked_init(seed, cfg, n_clients,
+                                            device=self.device)
+        self.client_opts = D.stacked_adamw_init(self.client_params)
+        self._steps = {}
+        self._last_metrics = {}
+
+    def validate_strategy(self, strategy) -> None:
+        super().validate_strategy(strategy)
+        if getattr(strategy, "mutual_epochs", 1) != 1:
+            raise ValueError(
+                "the LM population fuses the whole round into one update; "
+                "mutual_epochs must be 1")
+
+    # -- data -------------------------------------------------------------
+    def _tokens(self, toks: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(toks, dtype=torch.long, device=self.device)
+
+    def _private_batch(self, r: int) -> torch.Tensor:
+        """(K, B, S) tokens -- each client has its own bigram domain."""
+        return self._tokens(np.stack([
+            make_token_stream(self.batch, self.seq + 1, self.cfg.vocab_size,
+                              seed=1000 * r + self.seed,
+                              domain=d)[:, :self.seq]
+            for d in range(self.n_clients)]))
+
+    def _public_batch(self, r: int) -> torch.Tensor:
+        """(B_pub, S) fresh public tokens from an unseen domain."""
+        return self._tokens(make_token_stream(
+            max(1, self.batch // 2), self.seq + 1, self.cfg.vocab_size,
+            seed=1000 * (10_000 + r) + self.seed,
+            domain=self.n_clients)[:, :self.seq])
+
+    # -- cached steps -----------------------------------------------------
+    def _dml_step(self, kl_weight: float):
+        key = ("dml", kl_weight)
+        if key not in self._steps:
+            self._steps[key] = D.make_dml_train_step(
+                self.cfg, self.opt_cfg, kl_weight=kl_weight, impl=self.impl)
+        return self._steps[key]
+
+    def _local_step(self):
+        if "local" not in self._steps:
+            self._steps["local"] = D.make_local_train_step(
+                self.cfg, self.opt_cfg, impl=self.impl)
+        return self._steps["local"]
+
+    # -- strategy capabilities --------------------------------------------
+    def local_phase(self, r: int, part: List[int], pm) -> List[float]:
+        part_mask = pm if len(part) < self.n_clients else None
+        self.client_params, self.client_opts, m = self._local_step()(
+            self.client_params, self.client_opts, self._private_batch(r),
+            part_mask)
+        self._last_metrics = m
+        return [float(x) * w for x, w in zip(m["ce"].tolist(), pm)]
+
+    def public_payload(self, r: int):
+        return self._public_batch(r)
+
+    def mutual_phase(self, r, part, pm, payload, kl_weight, mutual_epochs,
+                     sparse_k: int = 0) -> dict:
+        pub = payload.data
+        if len(part) < 2:
+            # nothing to share with: participants train locally only
+            losses = self.local_phase(r, part, pm)
+            return {"ran": False, "positions": 0, "client_loss": losses,
+                    "kl_loss": [0.0] * self.n_clients}
+        if sparse_k:
+            raise NotImplementedError("sparse top-k sharing comes with "
+                                      "slice D of the port")
+        part_mask = pm if len(part) < self.n_clients else None
+        self.client_params, self.client_opts, m = self._dml_step(kl_weight)(
+            self.client_params, self.client_opts, self._private_batch(r),
+            pub, part_mask=part_mask)
+        self._last_metrics = m
+        return {"ran": True,
+                "positions": int(pub.shape[0]) * int(pub.shape[1]),
+                "client_loss": m["private_loss"].tolist(),
+                "public_ce": m["public_ce"].tolist(),
+                "kl_loss": m["kld_avg"].tolist()}
+
+    @property
+    def bytes_per_position(self) -> int:
+        return self.cfg.vocab_size * 4
+
+    @property
+    def params_per_client(self) -> int:
+        total = sum(t.numel() for t in tree_leaves(self.client_params))
+        return int(total // self.n_clients)
+
+    # -- eval / checkpoint -------------------------------------------------
+    @torch.no_grad()
+    def evaluate(self, history, split=None):
+        """Per-client CE on a fresh shared eval batch (domain K, never a
+        training domain)."""
+        if split is not None:
+            raise ValueError(
+                "the LM population evaluates on a fresh held-out synthetic "
+                "batch; call evaluate() / evaluate(split=None)")
+        toks = self._tokens(make_token_stream(
+            self.batch, self.seq + 1, self.cfg.vocab_size,
+            seed=777_000 + self.seed, domain=self.n_clients)[:, :self.seq])
+        losses, _ = tfm.loss_fn_clients(self.client_params, self.cfg, toks,
+                                        impl=self.impl)
+        history.client_eval_loss = losses.tolist()
+        return history
+
+    def state_dict(self) -> dict:
+        return {"client_params": self.client_params,
+                "client_opts": self.client_opts}
+
+    def meta_dict(self) -> dict:
+        return {"engine": self.engine_name, "arch": self.cfg.name,
+                "n_clients": self.n_clients, "n_rounds": self.rounds}
+
+    def check_meta(self, meta: dict) -> None:
+        if meta.get("arch") != self.cfg.name or \
+                meta.get("n_clients") != self.n_clients:
+            raise ValueError(
+                f"checkpoint (arch={meta.get('arch')}, "
+                f"K={meta.get('n_clients')}) != config "
+                f"(arch={self.cfg.name}, K={self.n_clients})")
+
+    def load_state_dict(self, state: dict, meta: dict) -> None:
+        """Takes trees of tensors on any device (a restored checkpoint's are
+        on the CPU) and moves them to the population's device."""
+        to = lambda t: torch.as_tensor(t).to(self.device)  # noqa: E731
+        self.client_params = tree_map(to, state["client_params"])
+        self.client_opts = tree_map(to, state["client_opts"])

@@ -1,0 +1,11 @@
+"""Sharing strategies for ``repro_torch.core.api.Federation``: so far
+:class:`DML`, dense prediction sharing (the paper, Eq. 1/2).
+``get_strategy(name, **knobs)`` resolves CLI ids and names the slice of
+the port that brings each of the JAX package's other strategies."""
+from repro_torch.core.strategies.base import (NOT_PORTED, STRATEGIES,
+                                              Payload, Strategy,
+                                              get_strategy)
+from repro_torch.core.strategies.dml import DML
+
+__all__ = ["Strategy", "Payload", "STRATEGIES", "NOT_PORTED",
+           "get_strategy", "DML"]

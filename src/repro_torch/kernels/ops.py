@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import kl_mutual, ref
 from repro_torch.kernels.flash_attention import flash_attention
 
 IMPLS = ("ref", "cuda")
@@ -64,8 +64,9 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 
     Explicit positions (the decode/cache path) always take the plain
     version, as ``repro/kernels/ops.py:100-103`` does, and need no impl.
-    Self-attention (prefill and prompt scoring) runs the caller's ``impl``,
-    which it must give.
+    Self-attention (training, prefill and prompt scoring) runs the caller's
+    ``impl``, which it must give.  Differentiable on every impl: "cuda"
+    runs the CUDA backward, "ref" gets its gradient from autograd.
     """
     if impl is not None:
         _check_impl(impl)
@@ -81,3 +82,32 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
         raise ValueError("impl 'cuda' needs CUDA tensors, got "
                          f"{q.device}")
     return flash_attention(q, k, v, causal=causal, window=window)[0]
+
+
+def mutual_kl(logits, *, temperature: float = 1.0, impl: str):
+    """(K, B, V) -> (K, B) average pairwise KL (paper Eq. 2), forward
+    only: the sharing/eval readout."""
+    _check_impl(impl)
+    if impl == "ref":
+        return ref.mutual_kl(logits, temperature=temperature)
+    if not logits.is_cuda:
+        raise ValueError("impl 'cuda' needs CUDA tensors, got "
+                         f"{logits.device}")
+    return kl_mutual.kl_mutual(logits, temperature=temperature)
+
+
+def mutual_kl_pair(live, fixed, pair_w, *, temperature: float = 1.0,
+                   impl: str):
+    """Pair-weighted rectangular Eq. 2: (Kl, B, V) live x (Kg, B, V) fixed
+    with (Kl, Kg) weights -> (Kl, B).  Differentiable on every impl: the
+    Eq.-2 training hot path (``core.mutual.mutual_kl_terms`` routes
+    here)."""
+    _check_impl(impl)
+    if impl == "ref":
+        return ref.mutual_kl_pair(live, fixed, pair_w,
+                                  temperature=temperature)
+    if not live.is_cuda:
+        raise ValueError("impl 'cuda' needs CUDA tensors, got "
+                         f"{live.device}")
+    return kl_mutual.kl_mutual_pair(live, fixed, pair_w,
+                                    temperature=temperature)

@@ -2,7 +2,9 @@
 
 They are the semantic ground truth: the CPU path runs them, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.  Each
-mirrors its counterpart in the JAX package's ``kernels/ref.py``.
+mirrors its counterpart in the JAX package's ``kernels/ref.py``; their
+gradients come from autograd, and autograd of ``attention_lse`` is the
+flash backward's plain version.
 """
 from __future__ import annotations
 
@@ -63,3 +65,41 @@ def attention_lse(q, k, v, *, causal: bool = True,
     lse = torch.logsumexp(logits, dim=-1)               # (B,Hkv,S,G)
     return (_weighted_values(logits, q, v),
             lse.permute(0, 1, 3, 2).reshape(B, Hq, S))
+
+
+# ---------------------------------------------------------------------------
+# mutual-learning KL (the paper's Eq. 2 at vocabulary scale)
+
+def mutual_kl(logits, temperature: float = 1.0) -> torch.Tensor:
+    """Average pairwise KL of each client against the rest.
+
+    logits: (K, B, V).  Returns (K, B) fp32:
+        out[i, b] = 1/(K-1) * sum_{j != i} KL(P_i(b) || P_j(b))
+    with P = softmax(logits / T).
+    """
+    K = logits.shape[0]
+    logp = torch.log_softmax(logits.float() / temperature, dim=-1)
+    p = torch.exp(logp)
+    self_term = torch.sum(p * logp, dim=-1)                   # (K,B)
+    cross = torch.einsum("ibv,jbv->ijb", p, logp)             # (i,j,B)
+    kl = self_term[:, None, :] - cross                        # KL(i||j)
+    mask = (1.0 - torch.eye(K, device=logits.device))[:, :, None]
+    return torch.sum(kl * mask, dim=1) / max(K - 1, 1)
+
+
+def mutual_kl_pair(live, fixed, pair_w, temperature: float = 1.0
+                   ) -> torch.Tensor:
+    """Pair-weighted rectangular Eq. 2.
+
+    live: (Kl, B, V), the differentiable side.  fixed: (Kg, B, V).
+    pair_w: (Kl, Kg) weights (e.g. the masked 1/(M-1) average).  Returns
+    (Kl, B) fp32: out[i, b] = sum_j pair_w[i, j] * KL(P_i(b) || Q_j(b)).
+    ``mutual_kl(x) == mutual_kl_pair(x, x, (1 - I) / (K - 1))``.
+    """
+    lp_live = torch.log_softmax(live.float() / temperature, dim=-1)
+    p_live = torch.exp(lp_live)
+    lp_fixed = torch.log_softmax(fixed.float() / temperature, dim=-1)
+    self_term = torch.sum(p_live * lp_live, dim=-1)              # (Kl,B)
+    cross = torch.einsum("ibv,jbv->ijb", p_live, lp_fixed)       # (i,j,B)
+    kl = self_term[:, None, :] - cross
+    return torch.sum(kl * pair_w.float()[:, :, None], dim=1)

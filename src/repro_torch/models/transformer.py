@@ -1,13 +1,17 @@
-"""Decoder backbone: init, forward, and the serving prefill/decode.
+"""Decoder backbone: init, forward and loss (training), and the serving
+prefill/decode.
 
 Layers are ``n_periods`` repetitions of ``cfg.period``; period parameters
 are stacked on a leading layer axis, which a Python loop walks (the JAX
-package's ``lax.scan``).  A population of K clients is served by the
-``*_clients`` functions, whose params and caches carry a leading client
-axis K in front of the layer axis; activations are then (K, B, S, ...) and
-each product is one batched call over the clients.  ``forward``,
-``prefill`` and ``decode_step`` serve one model (no client axis) through the
-same code with K = 1.
+package's ``lax.scan``).  A population of K clients is trained and served
+by the ``*_clients`` functions, whose params and caches carry a leading
+client axis K in front of the layer axis; activations are then
+(K, B, S, ...) and each product is one batched call over the clients.
+``forward``, ``loss_fn``, ``prefill`` and ``decode_step`` serve one model
+(no client axis) through the same code with K = 1.  With ``remat`` each
+period runs under ``torch.utils.checkpoint`` (the JAX package's
+``jax.checkpoint`` of the period body), so its activations are recomputed
+in the backward.
 
 Only dense attention/MLP layers are ported so far: SSM mixers, MoE FFNs and
 prefix-token frontends raise ``NotImplementedError``.
@@ -17,13 +21,14 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
                                        init_mlp, per_client, rms_norm)
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
@@ -103,46 +108,174 @@ def _ffn(sp, cfg: ModelConfig, spec, x):
 
 
 def _embed(params, cfg: ModelConfig, tokens):
-    """(K, V, d) table, (B, S) tokens -> (K, B, S, d) in the compute dtype.
+    """(K, V, d) table and tokens (B, S) shared by the clients, or
+    (K, B, S) one batch per client -> (K, B, S, d) in the compute dtype.
     Gathering before the cast equals the JAX cast-then-gather bitwise and
     never casts the whole table."""
-    return params["embed"][:, tokens].to(cfg.cdtype())
+    table = params["embed"]
+    if tokens.dim() == 3:
+        clients = torch.arange(table.shape[0], device=tokens.device)
+        return table[clients[:, None, None], tokens].to(cfg.cdtype())
+    return table[:, tokens].to(cfg.cdtype())
 
 
 def _unembed(params, cfg: ModelConfig, x):
     """Final norm, then the head cast to the activations' dtype."""
     x = rms_norm(x, per_client(params["final_norm"], x), cfg.rms_eps)
-    head = (params["embed"].transpose(-1, -2) if cfg.tie_embeddings
-            else params["lm_head"])
+    head = _head(params, cfg)
     K, d = x.shape[0], x.shape[-1]
     logits = torch.matmul(x.reshape(K, -1, d), head.to(x.dtype))
     return logits.reshape(*x.shape[:-1], head.shape[-1])
 
 
-def forward_clients(sparams, cfg: ModelConfig, tokens, *,
-                    window: Optional[int] = None, impl: str):
-    """K clients on shared tokens (B, S) -> logits (K, B, S, V).  (The JAX
-    ``forward`` also returns MoE aux losses; dense layers have none.)"""
+def _period(sparams_period, cfg: ModelConfig, x, positions,
+            window: Optional[int], impl: str):
+    """One period of layers on x (K, B, S, d)."""
+    for i, spec in enumerate(cfg.period):
+        sp = sparams_period[f"slot{i}"]
+        h = rms_norm(x, per_client(sp["norm1"], x), cfg.rms_eps)
+        x = x + attn_mod.attention_forward(sp["mixer"], cfg, h, positions,
+                                           window=window, impl=impl)
+        x = _ffn(sp, cfg, spec, x)
+    return x
+
+
+def forward_hidden_clients(sparams, cfg: ModelConfig, tokens, *,
+                           window: Optional[int] = None, remat: bool = True,
+                           impl: str):
+    """Backbone only: final hidden states (K, B, S, d), before the final
+    norm, and the aux losses {"load_balance", "router_z"} (K,) -- zeros,
+    as the JAX package returns for dense layers.  ``tokens`` is (B, S)
+    shared or (K, B, S) per client.  ``remat`` checkpoints each period
+    when autograd records a gradient of the params (not in serving or
+    under ``torch.no_grad``)."""
     _check_ported(cfg)
     x = _embed(sparams, cfg, tokens)
-    B, S = tokens.shape
+    K, B, S = x.shape[:3]
     positions = torch.arange(S, device=x.device).expand(B, S)
+    remat = remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(sparams))
     for idx in range(cfg.n_periods):
         period = _layer(sparams["periods"], idx)
-        for i, spec in enumerate(cfg.period):
-            sp = period[f"slot{i}"]
-            h = rms_norm(x, per_client(sp["norm1"], x), cfg.rms_eps)
-            x = x + attn_mod.attention_forward(sp["mixer"], cfg, h, positions,
-                                               window=window, impl=impl)
-            x = _ffn(sp, cfg, spec, x)
+        if remat:
+            x = checkpoint(_period, period, cfg, x, positions, window, impl,
+                           use_reentrant=False)
+        else:
+            x = _period(period, cfg, x, positions, window, impl)
+    zeros = torch.zeros(K, dtype=torch.float32, device=x.device)
+    return x, {"load_balance": zeros, "router_z": zeros}
+
+
+def forward_clients(sparams, cfg: ModelConfig, tokens, *,
+                    window: Optional[int] = None, remat: bool = True,
+                    impl: str):
+    """K clients on tokens (B, S) shared or (K, B, S) per client -> logits
+    (K, B, S, V).  (The JAX ``forward`` also returns the aux losses; dense
+    layers have none.)"""
+    x, _ = forward_hidden_clients(sparams, cfg, tokens, window=window,
+                                  remat=remat, impl=impl)
     return _unembed(sparams, cfg, x)
 
 
 def forward(params, cfg: ModelConfig, tokens, *,
-            window: Optional[int] = None, impl: str):
+            window: Optional[int] = None, remat: bool = True, impl: str):
     """One model: tokens (B, S) -> logits (B, S, V)."""
     return forward_clients(_stack1(params), cfg, tokens, window=window,
-                           impl=impl)[0]
+                           remat=remat, impl=impl)[0]
+
+
+def _head(params, cfg: ModelConfig):
+    """(K, d, V) output head."""
+    return (params["embed"].transpose(-1, -2) if cfg.tie_embeddings
+            else params["lm_head"])
+
+
+def chunked_ce(x, head, labels, n_chunks: int = 16):
+    """Cross-entropy WITHOUT materialising the (K, B, S, V) logits.
+
+    x: (K, B, S, d) final hidden states; head: (K, d, V); labels: (K, B, S).
+    Returns (K,) mean CE per client.  A loop over vocab chunks (slices of
+    the head, the last one ragged, so nothing is padded) carries a running
+    (max, sum-exp, label-logit); each chunk body is checkpointed, so the
+    backward recomputes its logits instead of saving them, as
+    ``repro/models/transformer.py::chunked_ce`` does with ``lax.scan``.
+    """
+    K, B, S, d = x.shape
+    V = head.shape[-1]
+    c = -(-V // n_chunks)
+    xf = x.float().reshape(K, B * S, d)
+    lab_idx = labels.reshape(K, B * S)
+
+    def body(m, se, lab, w, base):
+        lg = torch.matmul(xf, w.float())           # (K, BS, width of w)
+        m_new = torch.maximum(m, lg.max(dim=-1).values)
+        se = se * torch.exp(m - m_new) + torch.exp(lg - m_new[..., None]) \
+            .sum(dim=-1)
+        local = lab_idx - base
+        inside = (local >= 0) & (local < w.shape[-1])
+        picked = torch.gather(lg, -1,
+                              local.clamp(0, w.shape[-1] - 1)[..., None])
+        return m_new, se, torch.where(inside, picked[..., 0], lab)
+
+    m = torch.full((K, B * S), -1e30, dtype=torch.float32, device=x.device)
+    se = torch.zeros_like(m)
+    lab = torch.full_like(m, -1e30)
+    for i in range(n_chunks):
+        w = head[..., i * c:(i + 1) * c]
+        if w.shape[-1] == 0:
+            break
+        if torch.is_grad_enabled():
+            m, se, lab = checkpoint(body, m, se, lab, w, i * c,
+                                    use_reentrant=False)
+        else:
+            m, se, lab = body(m, se, lab, w, i * c)
+    return (m + torch.log(se) - lab).mean(dim=-1)
+
+
+def _labels(tokens, K: int):
+    """Next-token labels (K, B, S-1) of tokens (B, S) shared or (K, B, S)."""
+    return tokens[..., 1:].long().expand(K, *tokens.shape[-2:-1],
+                                         tokens.shape[-1] - 1)
+
+
+def next_token_ce(logits, tokens):
+    """(K,) mean next-token cross-entropy of logits (K, B, S, V), softmax
+    in fp32, on tokens (B, S) shared or (K, B, S) per client."""
+    logp = torch.log_softmax(logits[:, :, :-1].float(), dim=-1)
+    labels = _labels(tokens, logits.shape[0])
+    return -torch.gather(logp, -1, labels[..., None])[..., 0].mean(dim=(1, 2))
+
+
+def loss_fn_clients(sparams, cfg: ModelConfig, tokens, *,
+                    window: Optional[int] = None, remat: bool = True,
+                    ce_impl: str = "dense", impl: str):
+    """Next-token cross-entropy of K clients on tokens (B, S) shared or
+    (K, B, S) per client.  Returns (loss (K,), metrics {"ce",
+    "load_balance", "router_z"} of (K,)): the JAX ``loss_fn`` per client.
+    ce_impl="chunked" streams the vocabulary (``chunked_ce``)."""
+    x, aux = forward_hidden_clients(sparams, cfg, tokens, window=window,
+                                    remat=remat, impl=impl)
+    if ce_impl == "chunked":
+        x = rms_norm(x, per_client(sparams["final_norm"], x), cfg.rms_eps)
+        ce = chunked_ce(x[:, :, :-1], _head(sparams, cfg),
+                        _labels(tokens, x.shape[0]))
+    elif ce_impl == "dense":
+        ce = next_token_ce(_unembed(sparams, cfg, x), tokens)
+    else:
+        raise ValueError(f"unknown ce_impl {ce_impl!r}; expected 'dense' or "
+                         "'chunked'")
+    total = ce + aux["load_balance"] + aux["router_z"]
+    return total, {"ce": ce, **aux}
+
+
+def loss_fn(params, cfg: ModelConfig, tokens, *,
+            window: Optional[int] = None, remat: bool = True,
+            ce_impl: str = "dense", impl: str):
+    """One model: tokens (B, S) -> (loss, metrics) of 0-d tensors."""
+    loss, metrics = loss_fn_clients(_stack1(params), cfg, tokens,
+                                    window=window, remat=remat,
+                                    ce_impl=ce_impl, impl=impl)
+    return loss[0], {k: v[0] for k, v in metrics.items()}
 
 
 # ---------------------------------------------------------------------------

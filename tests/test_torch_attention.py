@@ -106,7 +106,7 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(bad):
     """The checks run before any launch on a CUDA tensor; they are plain
     Python, so they are exercised here on CPU tensors."""
     q, k, v = _t(*_inputs(1, 8, 8, 4, 2, 32))
-    window = None
+    window, dout = None, None
     if bad == "head_dim":
         q, k, v = _t(*_inputs(1, 8, 8, 4, 2, 48))
     elif bad == "dtype":
@@ -114,14 +114,14 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(bad):
     elif bad == "stride":
         v = torch.from_numpy(np.asarray(_inputs(1, 8, 8, 4, 2, 64)[2]))[
             ..., ::2]
-    elif bad == "grad":
-        q.requires_grad_(True)
+    elif bad == "grad":                 # the backward's gradient of out
+        dout = torch.zeros(1, 8, 4, 16)
     elif bad == "window":
         window = 0
     elif bad == "groups":
         q = torch.from_numpy(_inputs(1, 8, 8, 3, 2, 32)[0])
     with pytest.raises(ValueError):
-        fa._check(q, k, v, window)
+        fa._check(q, k, v, window, dout)
 
 
 def test_impl_policy():

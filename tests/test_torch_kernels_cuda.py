@@ -68,11 +68,89 @@ def test_ops_cuda_impl_reaches_the_kernel(cuda):
 @pytest.mark.parametrize("bad", ["head_dim", "grad", "device"])
 def test_flash_kernel_refuses_before_launch(cuda, bad):
     q, k, v = _qkv(cuda, torch.float32, hd=48 if bad == "head_dim" else 64)
-    if bad == "grad":
-        q = q.detach().requires_grad_(True)
     if bad == "device":
         k = k.cpu()
     before = fa.launches
     with pytest.raises(ValueError):
+        if bad == "grad":               # a gradient of out of the wrong dtype
+            fa._check(q, k, v, None, torch.zeros(q.shape, device=cuda,
+                                                 dtype=torch.bfloat16))
         fa.flash_attention(q, k, v)
     assert fa.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,window", [(2, 300, 8, 4, 64, None),
+                                                  (1, 130, 32, 8, 128, 37),
+                                                  (3, 65, 4, 1, 32, None)])
+def test_flash_backward_matches_autograd_of_plain(cuda, dtype, B, S, Hq, Hkv,
+                                                  hd, window):
+    """dq, dk, dv of the CUDA backward against autograd of
+    ``ref.attention_lse`` on the same inputs (v a strided slice of the
+    fused QKV): relative norm error 1e-5 in fp32 (summation order), 2e-2 in
+    bf16 (the gradients are rounded to bf16 once, the plain version's
+    softmax saw bf16-rounded out)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(B, S, Hq + 2 * Hkv, hd, generator=gen,
+                      device=cuda).to(dtype)
+    dout = torch.randn(B, S, Hq, hd, generator=gen, device=cuda).to(dtype)
+    grads = []
+    for fn in (lambda *a: fa.flash_attention(*a, window=window)[0],
+               lambda *a: ref.attention_lse(*a, window=window)[0]):
+        x = qkv.clone().requires_grad_(True)
+        before = fa.bwd_launches
+        fn(x[:, :, :Hq], x[:, :, Hq:Hq + Hkv], x[:, :, Hq + Hkv:]) \
+            .backward(dout)
+        grads.append(x.grad.float())
+    assert fa.bwd_launches == before           # the plain version: no launch
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    got, want = grads
+    for sl in (slice(0, Hq), slice(Hq, Hq + Hkv), slice(Hq + Hkv, None)):
+        err = (got[:, :, sl] - want[:, :, sl]).norm() / want[:, :, sl].norm()
+        assert err.item() < tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Kl,Kg,B,V,T,fixed_grad", [
+    (3, 3, 64, 151_936, 1.0, False),   # the training shape's width
+    (2, 5, 7, 1_000, 1.7, True),       # rectangular, ragged V, T != 1
+    (8, 8, 3, 4_099, 0.5, True)])      # the largest client count
+def test_kl_pair_kernels_match_plain(cuda, dtype, Kl, Kg, B, V, T,
+                                     fixed_grad):
+    """The pair-KL forward (atol 1e-4 + rtol 1e-4: fp32 streaming against
+    a two-pass softmax) and backward (relative norm 1e-5 fp32, 2e-2 bf16)
+    against ``ref.mutual_kl_pair`` and its autograd, with masked weights."""
+    from repro_torch.core.mutual import _pair_mask
+    from repro_torch.kernels import kl_mutual
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    live = (2 * torch.randn(Kl, B, V, generator=gen, device=cuda)).to(dtype)
+    fixed = (2 * torch.randn(Kg, B, V, generator=gen, device=cuda)).to(dtype)
+    w = _pair_mask(max(Kl, Kg), [1.0] * (max(Kl, Kg) - 1) + [0.0],
+                   cuda)[:Kl, :Kg]
+    gbar = torch.randn(Kl, B, generator=gen, device=cuda)
+    outs, grads = [], []
+    for fn in (kl_mutual.kl_mutual_pair, ref.mutual_kl_pair):
+        a = live.detach().clone().requires_grad_(True)
+        b = fixed.detach().clone().requires_grad_(fixed_grad)
+        before = (kl_mutual.launches, kl_mutual.bwd_launches)
+        out = fn(a, b, w, temperature=T)
+        out.backward(gbar)
+        outs.append(out.detach())
+        grads.append([a.grad.float()] + ([b.grad.float()] if fixed_grad
+                                         else []))
+    assert (kl_mutual.launches, kl_mutual.bwd_launches) == before
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-4, rtol=1e-4)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for got, want in zip(*grads):
+        assert ((got - want).norm() / want.norm()).item() < tol
+
+
+def test_mutual_kl_through_the_pair_kernel(cuda):
+    from repro_torch.kernels import kl_mutual
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(3, 33, 5_000, generator=gen, device=cuda)
+    before = kl_mutual.mutual_kl_launches
+    got = ops.mutual_kl(x, temperature=1.3, impl="cuda")
+    assert kl_mutual.mutual_kl_launches == before + 1
+    torch.testing.assert_close(got, ref.mutual_kl(x, 1.3), atol=1e-4,
+                               rtol=1e-4)

@@ -313,9 +313,20 @@ def test_serve_cli_on_cpu(capsys):
     assert "served 3 requests" in out and "impl=ref" in out
 
 
+# the training slice's modules, named so that the walk below cannot miss one
+TRAINING_MODULES = (
+    "repro_torch.api", "repro_torch.core.api", "repro_torch.core.distributed",
+    "repro_torch.core.mutual", "repro_torch.core.stacking",
+    "repro_torch.core.strategies.base", "repro_torch.core.strategies.dml",
+    "repro_torch.core.populations.base", "repro_torch.core.populations.lm",
+    "repro_torch.data.federated", "repro_torch.kernels.kl_mutual",
+    "repro_torch.optim", "repro_torch.launch.train")
+
+
 def test_port_imports_no_jax_and_no_repro():
-    """Every module of the port, and chip_smoke.py, import without JAX or
-    the JAX package (run in a fresh interpreter)."""
+    """Every module of the port (the training slice's by name), and
+    chip_smoke.py, import without JAX or the JAX package (run in a fresh
+    interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -326,10 +337,12 @@ def test_port_imports_no_jax_and_no_repro():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
+        f"missing = sorted(set({TRAINING_MODULES!r}) - set(sys.modules))\n"
+        "assert not missing, missing\n"
         "print(sum(m.startswith('repro_torch') for m in sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20
+    assert int(proc.stdout.split()[-1]) >= 20 + len(TRAINING_MODULES)
