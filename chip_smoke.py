@@ -10,18 +10,28 @@ Phases, each fatal on failure:
      serving and training paths' shapes and around them, with the kernel's
      time beside its bound, the plain version's time and a library
      yardstick: the flash-attention forward and backward, the Eq.-2
-     pair-KL forward and backward, and ``mutual_kl`` through the pair
-     forward;
+     pair-KL forward and backward (at qwen3-4b's and mamba2-780m's
+     vocabularies), ``mutual_kl`` through the pair forward, and the SSD
+     chunked scan's forward and backward;
   3. the serving path at the full width of qwen3-4b: a K=2 client ensemble
      from seeded random weights serves ``generate``, continuous batching
-     and route mode, and the kernels' launch counts show that it ran
-     through them;
+     and route mode, and the flash kernel's launch count shows that it ran
+     through it;
   4. the training path at the full width of qwen3-4b cut to 4 of its 36
      layers: ``Federation(LMClients(..., n_clients=3), DML())`` trains 3
      fused DML rounds through the kernels (launch counts checked), reads
      out Eq. 2 of the final public logits through ``mutual_kl``, and round 1
      and each client's gradient are held against the same round at
-     ``impl="ref"``.
+     ``impl="ref"``;
+  5. phase 3 for K=2 full-width, full-depth (48-layer) mamba2-780m clients
+     on 1024-token prompts, through the SSD forward kernel;
+  6. phase 4 for K=3 full-width, full-depth mamba2-780m clients at seq 1024
+     (18,432 trained tokens a round), through the SSD forward and backward
+     kernels and the pair KL.
+Phases 3-6 hold the prefill logits and the per-client gradients to the
+plain path by one parity rule (``_parity``): in fp32 on the same weights,
+and in bf16 against the bf16 plain path's own distance from fp32.
+Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is one JSON object with the per-kernel numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 it exits non-zero and prints no result.  It imports nothing of JAX.
@@ -50,8 +60,11 @@ from repro_torch.kernels import _build  # noqa: E402
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd",
-                  "kl_mutual_pair")
+                  "kl_mutual_pair", "ssd_scan_fwd", "ssd_scan_bwd")
 BF16 = torch.bfloat16
+# the SSD sweep of phase 2: (H, P, N, G), sequence lengths, chunks
+SSD_SWEEP = dict(heads=((48, 64, 128, 1), (8, 32, 16, 2), (4, 16, 8, 4)),
+                 lengths=(1, 100, 256, 1000, 1024), chunks=(256, 64))
 
 
 def check_cuda() -> None:
@@ -465,6 +478,191 @@ def phase_kl(K: int, B: int, V: int) -> list:
     ]
 
 
+def _ssd_inputs(B, S, H, P, G, N, dtype, gen):
+    """SSD inputs at mamba2's scale: x, B, C ~ N(0, 1) in ``dtype``; dt in
+    [1e-3, 0.1] and A = -(1..48) per client (repeated over H / 48 clients),
+    fp32, so the decay reaches e^-1200 within a 256-token chunk."""
+    x = torch.randn(B, S, H, P, device="cuda", generator=gen).to(dtype)
+    dt = (0.1 * torch.rand(B, S, H, device="cuda", generator=gen) + 1e-3)
+    A = -(torch.arange(H, device="cuda") % 48 + 1).float()
+    Bm = torch.randn(B, S, G, N, device="cuda", generator=gen).to(dtype)
+    Cm = torch.randn(B, S, G, N, device="cuda", generator=gen).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_ops(B, S, H, P, G, N, chunk, backward: bool) -> float:
+    """Multiply-add operations (x2) the scan needs on these inputs: per
+    chunk of l positions and l(l+1)/2 causal pairs, the scores C.B^T once
+    per group, and per head the weighted product with x, the inter-chunk
+    C.state and the state update.  The backward needs the scores again
+    (per group); per head over the pairs dM = dy.x^T and dx = M^T.dy; per
+    group over the pairs dB and dC (C and B are shared by a group's heads,
+    so the score cotangent is summed over them first); and per head four
+    (l, P, N) products: dC from the entry state, the entry state's
+    cotangent, dB from the carried state cotangent, and that cotangent
+    times B, which gives dx and ddt.  The inter-chunk term of ddt is the
+    elementwise product of C with dC, so C.state need not be recomputed;
+    elementwise work is not counted."""
+    ops = 0.0
+    for c0 in range(0, S, chunk):
+        l = min(chunk, S - c0)
+        pairs = l * (l + 1) / 2
+        if backward:
+            ops += 2 * pairs * N * G + 2 * pairs * 2 * P * H \
+                + 2 * pairs * 2 * N * G + 4 * 2 * l * N * P * H
+        else:
+            ops += 2 * pairs * N * G + 2 * pairs * P * H + 2 * 2 * l * N * P * H
+    return B * ops
+
+
+def _ssd_bytes(B, S, H, P, G, N, chunk, dtype, backward: bool) -> float:
+    """Each input read once and each output written once: x, dt, B, C in;
+    y, the final state and the fp32 entry states out (forward); x, dt, B,
+    C, dy and the entry states in, dx, ddt, dB, dC out (backward)."""
+    e = torch.finfo(dtype).bits // 8
+    nc = -(-S // chunk)
+    xs, bcs, dts = B * S * H * P * e, 2 * B * S * G * N * e, B * S * H * 4
+    states = B * H * nc * P * N * 4
+    if backward:
+        return 2 * xs + bcs + dts + states + xs + dts + bcs
+    return xs + bcs + dts + xs + B * H * P * N * 4 + states
+
+
+def _ssd_check(fn_pair, ins, chunk, tol, what, backward, gen,
+               state_grad: bool):
+    """The kernel against ``ref.ssd`` on ``ins``: y and the final state by
+    relative norm, and with ``backward`` the five gradients by relative
+    norm, under a cotangent on y and, with ``state_grad``, on the final
+    state too (training gives y's only).  Raises outside ``tol``; returns
+    (max |y err|, max |grad err| or 0, worst relative error)."""
+    kern, plain = fn_pair
+    res = []
+    cts = None
+    for fn in (kern, plain):
+        leaves = [t.clone().requires_grad_(backward) for t in ins]
+        y, st = fn(*leaves, chunk=chunk)
+        if backward:
+            if cts is None:
+                cts = (torch.randn(y.shape, device="cuda",
+                                   generator=gen).to(y.dtype),
+                       torch.randn(st.shape, device="cuda", generator=gen))
+            outs = (y, st) if state_grad else (y,)
+            grads = torch.autograd.grad(outs, leaves, cts[:len(outs)])
+        else:
+            grads = ()
+        res.append((y.detach().float(), st.detach(),
+                    [g.float() for g in grads]))
+        del leaves, y, st, grads
+    (y, st, gs), (wy, wst, wgs) = res
+    # relative norm error, the norm floored at 1: a gradient that is 0 up
+    # to rounding (dA at S = 1) must not make the check one of noise
+    rel = lambda a, b: ((a - b).norm() / b.norm().clamp_min(1.0)).item()  # noqa
+    errs = [rel(y, wy), rel(st, wst)] + [rel(g, w) for g, w in zip(gs, wgs)]
+    if not max(errs) <= tol:
+        raise AssertionError(f"SSD kernels disagree with ref at {what}: "
+                             f"relative errors (y, state, dx, ddt, dA, dB, "
+                             f"dC) {[f'{e:.3g}' for e in errs]}")
+    g_err = max([(g - w).abs().max().item() for g, w in zip(gs, wgs)],
+                default=0.0)
+    return (y - wy).abs().max().item(), g_err, max(errs)
+
+
+def phase_ssd(train_shapes, serve_shapes) -> list:
+    """The SSD scan's forward and backward kernels against ``ref.ssd`` and
+    its autograd on the card: the sweep ``SSD_SWEEP`` of (H, P, N, G),
+    lengths and chunks, fp32 and bf16, with cotangents on y and the final
+    state; then
+    every shape the mamba2 paths give them, with training's cotangent on y
+    (``train_shapes``: forward and backward; ``serve_shapes``: forward),
+    bf16, chunk 256.  Each shape is (B, S, H, P, G, N).  Tolerance: every
+    relative norm error (y, final state, the five gradients; norms floored
+    at 1) within 1e-4 in fp32 (summation order) and 2e-2 in bf16 (y and
+    dx, dB, dC are rounded to bf16 once).  Returns the two kernels' rows, timed at the training
+    path's private-batch shape."""
+    from repro_torch.kernels import ref, ssd_scan
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tol = {torch.float32: 1e-4, BF16: 2e-2}
+    pair = (ssd_scan.ssd_scan, ref.ssd)
+    cases = [((2, S, H, P, G, N), chunk, dtype, True)
+             for H, P, N, G in SSD_SWEEP["heads"]
+             for S in SSD_SWEEP["lengths"]
+             for chunk in SSD_SWEEP["chunks"]
+             for dtype in (torch.float32, BF16)]
+    path = [(shape, 256, BF16, True) for shape in train_shapes]
+    path += [(shape, 256, BF16, False) for shape in serve_shapes]
+    worst = {}
+    for shape, chunk, dtype, backward in cases + path:
+        ins = _ssd_inputs(*shape, dtype, gen)
+        what = f"(B, S, H, P, G, N) = {shape} chunk {chunk} {dtype}"
+        on_path = (shape, chunk, dtype, backward) in path
+        y_err, g_err, rel = _ssd_check(pair, ins, chunk, tol[dtype], what,
+                                       backward, gen, not on_path)
+        key = (dtype, on_path)
+        n, e = worst.get(key, (0, 0.0))
+        worst[key] = (n + 1, max(e, rel))
+        if shape == train_shapes[0]:
+            fwd_err, bwd_err = y_err, g_err
+        del ins
+    for (dtype, on_path), (n, e) in sorted(worst.items(), key=str):
+        print(f"SSD kernels vs ref{' (the mamba2 paths)' if on_path else ''},"
+              f" {n} cases {str(dtype)[6:]}: worst relative error of y, "
+              f"state and the five gradients {e:.3g} (limit {tol[dtype]})")
+    print(f"  the mamba2 paths' shapes (B, S, H, P, G, N): training "
+          f"{list(train_shapes)} forward and backward, serving "
+          f"{list(serve_shapes)} forward")
+    torch.cuda.empty_cache()
+
+    rows = []
+    for shape, name in ((train_shapes[0], "training"),
+                        (serve_shapes[0], "prefill")):
+        ins = _ssd_inputs(*shape, BF16, gen)
+        y, fin, states = ssd_scan._forward(*ins, 256)
+        dy = torch.randn(y.shape, device="cuda", generator=gen).to(BF16)
+        fwd_ms = time_ms(lambda: ssd_scan._forward(*ins, 256), iters=10)
+        bwd_ms = time_ms(lambda: ssd_scan._backward(*ins, states, dy, None,
+                                                    256), iters=10)
+        leaves = [t.detach().requires_grad_(True) for t in ins]
+
+        def plain_f():
+            with torch.no_grad():
+                ref.ssd(*leaves, chunk=256)
+
+        def plain_fb():
+            torch.autograd.grad(ref.ssd(*leaves, chunk=256)[0], leaves, dy)
+        plain_fwd = time_ms(plain_f, iters=3, warmup=1)
+        plain_bwd = time_ms(plain_fb, iters=3, warmup=1) - plain_fwd
+        fb = _bound(_ssd_ops(*shape, 256, False),
+                    _ssd_bytes(*shape, 256, BF16, False), BF16)
+        bb = _bound(_ssd_ops(*shape, 256, True),
+                    _ssd_bytes(*shape, 256, BF16, True), BF16)
+        print(f"SSD forward at the {name} shape (B, S, H, P, G, N) = {shape} "
+              f"bf16 chunk 256: {fwd_ms:.4f} ms, plain {plain_fwd:.4f} ms, "
+              f"no single library call; bound {fb[0]:.4f} ms by {fb[1]} "
+              f"({_ssd_ops(*shape, 256, False) / 1e9:.1f} GFLOP / 989 "
+              f"TFLOP/s, {_ssd_bytes(*shape, 256, BF16, False) / 1e6:.0f} MB "
+              f"/ 3.35 TB/s)")
+        print(f"SSD backward at the {name} shape: {bwd_ms:.4f} ms, plain "
+              f"(autograd of ref, fwd+bwd - fwd) {plain_bwd:.4f} ms; bound "
+              f"{bb[0]:.4f} ms by {bb[1]} "
+              f"({_ssd_ops(*shape, 256, True) / 1e9:.1f} GFLOP, "
+              f"{_ssd_bytes(*shape, 256, BF16, True) / 1e6:.0f} MB)")
+        if not rows:
+            src = "src/repro_torch/kernels/csrc/ssd_scan_{}.cu"
+            row = dict(route="cuda", launches=None, library_ms=None)
+            rows = [
+                {"name": "ssd_scan_fwd", **row, "source": src.format("fwd"),
+                 "replaces": "src/repro/kernels/ssd_scan.py:35",
+                 "max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": plain_fwd,
+                 "bound_ms": fb[0], "bound_by": fb[1]},
+                {"name": "ssd_scan_bwd", **row, "source": src.format("bwd"),
+                 "replaces": "src/repro/kernels/ssd_scan.py:154",
+                 "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": plain_bwd,
+                 "bound_ms": bb[0], "bound_by": bb[1]}]
+        del ins, y, fin, states, dy, leaves
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3
 
@@ -530,12 +728,70 @@ def make_requests(vocab_size: int, n: int = 6, seed: int = 0) -> list:
     return reqs
 
 
-def phase_serve(card: str, cfg, reqs, K: int = 2, B: int = 2, S0: int = 512,
-                gen: int = 32) -> dict:
-    """The port's serving path at the full width of ``cfg``.  Returns the
-    kernels' launch counts over the served requests."""
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+# The parity rule of every path (serving prefill logits, training
+# gradients).  Over many bf16 layers from random weights any difference in
+# rounding -- even a 1e-7 relative change of one product -- grows to a
+# few percent of the output: two correct bf16 paths of mamba2's 48 layers
+# disagree at the level of bf16 itself.  So each path is held three ways:
+# the kernel path against the plain path on the same weights cast to fp32
+# within 2e-2; the bf16 kernel path no farther from that fp32 plain path
+# than FLOOR_FACTOR x the bf16 plain path is, plus 1e-3 (both carry bf16's
+# noise, the kernels none of their own); and, where the path gives one
+# (``bf16_limit``), the bf16 kernel path against the bf16 plain path.
+FLOOR_FACTOR = 1.1
+
+
+def _parity(what, e32, e16, floor, e_bf16, bf16_limit) -> None:
+    """Applies the parity rule to per-client (or single) relative errors:
+    ``e32`` kernel vs plain in fp32, ``e16`` and ``floor`` the bf16 kernel
+    and plain paths against the fp32 plain path, ``e_bf16`` kernel vs
+    plain in bf16."""
+    lim = "no limit" if bf16_limit is None else f"limit {bf16_limit}"
+    print(f"  {what}, impl=cuda vs impl=ref: bf16 {_fmt(e_bf16, '.4g')} "
+          f"({lim}); on the same weights cast to fp32 {_fmt(e32, '.3g')} "
+          f"(limit 2e-2); against the fp32 plain path, bf16 impl=cuda "
+          f"{_fmt(e16)} and bf16 impl=ref {_fmt(floor)} (the bf16 floor; "
+          f"limit {FLOOR_FACTOR} x floor + 1e-3)")
+    if not (max(e32) <= 2e-2
+            and all(a <= FLOOR_FACTOR * f + 1e-3 for a, f in zip(e16, floor))
+            and (bf16_limit is None or max(e_bf16) <= bf16_limit)):
+        raise AssertionError(f"{what} disagree with the plain path")
+
+
+def _prefill_parity(cfg, params, ids, kw, kernel_bf16, plain_bf16,
+                    bf16_limit) -> None:
+    """The parity rule on the engine's prefill last-token logits:
+    ``kernel_bf16`` and ``plain_bf16`` come from the bf16 engines at
+    impl "cuda" and "ref"; the fp32 engines run here."""
+    from repro_torch.serve import ServeEngine
+    from repro_torch.tree import tree_map
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    out = {}
+    for impl in ("cuda", "ref"):
+        eng = ServeEngine(cfg32, p32, mode="average", impl=impl, **kw)
+        out[impl] = eng._prefill(ids)[0].float()
+        del eng
+    del p32
+    _parity("prefill last-token logits", [_rel(out["cuda"], out["ref"])],
+            [_rel(kernel_bf16, out["ref"])], [_rel(plain_bf16, out["ref"])],
+            [_rel(kernel_bf16, plain_bf16)], bf16_limit)
+
+
+def phase_serve(card: str, cfg, reqs, kernel, K: int = 2, B: int = 2,
+                S0: int = 512, gen: int = 32,
+                bf16_limit: float | None = 2e-2) -> dict:
+    """The port's serving path at the full width and depth of ``cfg``.
+    ``kernel`` = (name, module): the mixer kernel whose module counter
+    ``launches`` must show that every prefill and router call ran through
+    it.  The prefill is held against an ``impl="ref"`` engine on the same
+    weights by the parity rule (``_parity``).  Returns the launch count
+    over the served requests."""
     from repro_torch.data.synthetic import make_token_stream
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer as tfm
     from repro_torch.serve import ServeEngine
     from repro_torch.tree import tree_leaves
@@ -553,7 +809,8 @@ def phase_serve(card: str, cfg, reqs, K: int = 2, B: int = 2, S0: int = 512,
     route = ServeEngine(cfg, params, mode="route", **kw)
     prompts = make_token_stream(B, S0, cfg.vocab_size, seed=0)
 
-    fa.launches = 0                    # the main path starts here
+    name, mod = kernel
+    mod.launches = 0                   # the main path starts here
     (toks, lg), warm = _timed(lambda: avg.generate(prompts, gen,
                                                    return_logits=True))
     steady_toks, steady = _timed(lambda: avg.generate(prompts, gen))
@@ -561,19 +818,19 @@ def phase_serve(card: str, cfg, reqs, K: int = 2, B: int = 2, S0: int = 512,
     rids = [avg.submit(p, n_new) for p, n_new in reqs]
     done, cb_secs = _timed(avg.run)
     rtoks, route_secs = _timed(lambda: route.generate(prompts, 16))
-    launches = fa.launches             # ... and ends here
+    launches = mod.launches            # ... and ends here
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     calls = {}
     for eng in (avg, route):
-        for name, c in eng.dispatch_counts().items():
-            calls[name] = calls.get(name, 0) + c
+        for prog, c in eng.dispatch_counts().items():
+            calls[prog] = calls.get(prog, 0) + c
     need = cfg.n_layers * (calls["prefill"] + calls["router"])
-    print(f"program calls {calls}; flash_attention launches {launches} "
+    print(f"program calls {calls}; {name} launches {launches} "
           f"(need >= {need} = {cfg.n_layers} layers x (prefill + router))")
     if launches < need:
-        raise AssertionError("a prefill or router call did not run "
-                             "through the flash kernel")
+        raise AssertionError(f"a prefill or router call did not run "
+                             f"through {name}")
     outs = [toks, steady_toks, rtoks] + [done[r] for r in rids]
     if not all(((o >= 0) & (o < cfg.vocab_size)).all() for o in outs):
         raise AssertionError("token id out of range")
@@ -590,16 +847,16 @@ def phase_serve(card: str, cfg, reqs, K: int = 2, B: int = 2, S0: int = 512,
     ids = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
     a, _ = avg._prefill(ids)
     b, _ = plain._prefill(ids)
-    rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
-    print(f"prefill last-token logits, engine impl={avg.impl} vs engine "
-          f"impl={plain.impl}: rel err {rel:.3g} (limit 2e-2)")
-    if not rel <= 2e-2:
-        raise AssertionError("prefill logits disagree with the plain path")
+    del plain
+    print(f"prefill parity, engine impl={avg.impl} vs engine impl=ref on "
+          f"the same weights (relative norm errors):")
+    _prefill_parity(cfg, params, ids, kw, a, b, bf16_limit)
 
     step = (steady - ttft) / (gen - 1)
     profile_decode(avg, prompts, step)
     n_cb = sum(len(done[r]) for r in rids)
-    print(f"serve on {card}: average K={K} B={B} prompt {S0}: warmup "
+    print(f"serve {cfg.name} on {card}: average K={K} B={B} prompt {S0}: "
+          f"warmup "
           f"{warm:.3f} s, steady {steady:.3f} s = {B * gen / steady:.1f} "
           f"tok/s; time to first token {ttft * 1e3:.1f} ms (generate with "
           f"gen_len=1: prefill + first token); continuous "
@@ -607,7 +864,7 @@ def phase_serve(card: str, cfg, reqs, K: int = 2, B: int = 2, S0: int = 512,
           f"{cb_secs:.3f} s = {n_cb / cb_secs:.1f} tok/s; decode step "
           f"{step * 1e3:.1f} ms; route generate "
           f"{route_secs:.3f} s; peak memory {peak_gb:.1f} GB")
-    return {"flash_attention_fwd": launches}
+    return {name: launches}
 
 
 # ---------------------------------------------------------------------------
@@ -625,24 +882,55 @@ def _client_grad_errors(g_host, g_dev, K: int) -> list:
     return (num.sqrt() / den.sqrt()).tolist()
 
 
-def _fmt(xs) -> str:
-    return "[" + ", ".join(f"{x:.5f}" for x in xs) + "]"
+def _fmt(xs, spec: str = ".5f") -> str:
+    return "[" + ", ".join(f"{x:{spec}}" for x in xs) + "]"
 
 
-def phase_train(card: str, cfg, K: int = 3, B: int = 4, S: int = 512,
-                rounds: int = 3) -> dict:
+def _grad_parity(cfg, K: int, tokens, pub, g_kernel_bf16, g_plain_bf16,
+                 bf16_limit) -> None:
+    """The parity rule on each client's gradient of round 1's loss, by
+    relative norm: ``g_kernel_bf16`` and ``g_plain_bf16`` (on the host)
+    come from the bf16 population at impl "cuda" and "ref"; the fp32
+    gradients run here."""
+    from repro_torch.core import distributed as D
+    from repro_torch.tree import tree_map
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(),
+                   D.stacked_init(0, cfg, K, device="cuda"))
+    _, _, g = D.value_and_grad(D.dml_total_loss, p32, cfg32, tokens, pub,
+                               impl="cuda")
+    g_kernel32 = tree_map(lambda t: t.cpu(), g)
+    del g
+    _, _, g_plain32 = D.value_and_grad(D.dml_total_loss, p32, cfg32, tokens,
+                                       pub, impl="ref")
+    del p32
+    e32 = _client_grad_errors(g_kernel32, g_plain32, K)
+    floor = _client_grad_errors(g_plain_bf16, g_plain32, K)
+    e16 = _client_grad_errors(g_kernel_bf16, g_plain32, K)
+    del g_plain32, g_kernel32
+    print(f"  fp32 gradients: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    _parity("per-client gradients", e32, e16, floor,
+            _client_grad_errors(g_kernel_bf16, g_plain_bf16, K), bf16_limit)
+
+
+def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
+                rounds: int = 3, bf16_limit: float | None = 2e-2) -> dict:
     """The port's training path: ``Federation(LMClients(cfg, K), DML())`` at
     the full width of ``cfg`` (depth as given), ``rounds`` fused DML rounds
     through the kernels, then Eq. 2 of the final public logits through
-    ``mutual_kl``.  Then round 1 again at ``impl="ref"`` from the same
+    ``mutual_kl``.  ``mixer`` = (forward name, backward name, module): the
+    mixer kernels, counted by the module's ``launches`` and
+    ``bwd_launches``.  Then round 1 again at ``impl="ref"`` from the same
     seeded weights and batches: each client's private_loss, public_ce and
-    kld_avg, and its gradient of the round's total loss, within relative
-    error 2e-2 (plus 1e-3 absolute on kld_avg).  Returns the kernels'
-    launch counts over the training run."""
+    kld_avg within relative error 2e-2 (plus 1e-3 absolute on kld_avg),
+    and its gradient of the round's total loss by the parity rule
+    (``_parity``).  Returns the kernels' launch counts over the training
+    run."""
     from repro_torch.api import DML, Federation, LMClients
     from repro_torch.core import distributed as D
+    from repro_torch.configs import get_config
     from repro_torch.core.mutual import mutual_kl_eval
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import kl_mutual as klm
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import adamw_update
@@ -657,7 +945,8 @@ def phase_train(card: str, cfg, K: int = 3, B: int = 4, S: int = 512,
     n = pop.params_per_client
     state_gb = sum(t.numel() * t.element_size() for t in
                    tree_leaves(pop.state_dict())) / 1e9
-    print(f"init {K} x {cfg.name} clients, {cfg.n_layers} of 36 layers at "
+    print(f"init {K} x {cfg.name} clients, {cfg.n_layers} of "
+          f"{get_config(cfg.name).n_layers} layers at "
           f"full width (seeded random weights): {n / 1e9:.3f} B params "
           f"each, {state_gb:.1f} GB of params and AdamW moments on the card, "
           f"{secs:.1f} s; kernels impl={pop.impl}")
@@ -668,7 +957,8 @@ def phase_train(card: str, cfg, K: int = 3, B: int = 4, S: int = 512,
     del grads
 
     fed = Federation(pop, DML())
-    fa.launches = fa.bwd_launches = 0              # the main path starts here
+    fwd_name, bwd_name, mod = mixer
+    mod.launches = mod.bwd_launches = 0            # the main path starts here
     klm.launches = klm.bwd_launches = klm.mutual_kl_launches = 0
     tokens = K * (B + max(1, B // 2)) * S
     walls = []
@@ -695,13 +985,13 @@ def phase_train(card: str, cfg, K: int = 3, B: int = 4, S: int = 512,
                                      impl=pop.impl)
         readout = mutual_kl_eval(logits.reshape(K, -1, cfg.vocab_size),
                                  impl=pop.impl)
-    counts = {"flash_attention_fwd": fa.launches,    # ... and ends here
-              "flash_attention_bwd": fa.bwd_launches,
+    counts = {fwd_name: mod.launches,                # ... and ends here
+              bwd_name: mod.bwd_launches,
               "kl_mutual_pair_fwd": klm.launches,
               "kl_mutual_pair_bwd": klm.bwd_launches,
               "mutual_kl": klm.mutual_kl_launches}
-    need = {"flash_attention_fwd": 2 * 2 * cfg.n_layers * rounds,
-            "flash_attention_bwd": 2 * cfg.n_layers * rounds,
+    need = {fwd_name: 2 * 2 * cfg.n_layers * rounds,
+            bwd_name: 2 * cfg.n_layers * rounds,
             "kl_mutual_pair_fwd": rounds, "kl_mutual_pair_bwd": rounds,
             "mutual_kl": 1}
     print(f"training launches {counts}; need at least {need} (private and "
@@ -749,8 +1039,8 @@ def phase_train(card: str, cfg, K: int = 3, B: int = 4, S: int = 512,
     pop = population("ref")
     _, _, grads = D.value_and_grad(D.dml_total_loss, pop.client_params, cfg,
                                    tokens0, pub0, impl="ref")
-    g_err = _client_grad_errors(g_cuda, grads, K)
-    del grads, g_cuda
+    g_ref = tree_map(lambda t: t.cpu(), grads)
+    del grads
     ref_first = Federation(pop, DML()).run(until=1).rounds[0]
     print(f"round 1 at impl=ref: private_loss {_fmt(ref_first.client_loss)} "
           f"public_ce {_fmt(ref_first.public_ce)} kld_avg "
@@ -763,15 +1053,18 @@ def phase_train(card: str, cfg, K: int = 3, B: int = 4, S: int = 512,
         "public_ce": max(map(rel, first.public_ce, ref_first.public_ce)),
         # |a - b| <= 2e-2 |b| + 1e-3  <=>  |a - b| / (|b| + 0.05) <= 2e-2
         "kld_avg": max(abs(a - b) / (abs(b) + 0.05) for a, b in
-                       zip(first.kl_loss, ref_first.kl_loss)),
-        "gradient": max(g_err)}
+                       zip(first.kl_loss, ref_first.kl_loss))}
     print(f"round 1, impl=cuda vs impl=ref: worst relative error {worst} "
-          f"(limit 2e-2; kld_avg within 2e-2 |ref| + 1e-3); per-client "
-          f"gradient relative norm error {_fmt(g_err)}")
+          f"(limit 2e-2; kld_avg within 2e-2 |ref| + 1e-3)")
     if not all(v <= 2e-2 for v in worst.values()):
         raise AssertionError("the training round disagrees with the plain "
                              "path")
     del pop
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _grad_parity(cfg, K, tokens0, pub0, g_cuda, g_ref, bf16_limit)
+    del g_ref, g_cuda
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -781,28 +1074,58 @@ def main() -> int:
     check_cuda()
     env = phase_env()
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
     cfg = get_config("qwen3-4b")
     tcfg = cfg.replace(n_layers=4)     # full width; depth cut to fit K=3
     K, B, S0 = 2, 2, 512
-    TK, TB, TS = 3, 4, 512             # the training run of phase 4
+    TK, TB, TS = 3, 4, 512             # the qwen3-4b training run
     train_shapes = [(TK * TB, TS), (TK * max(1, TB // 2), TS)]
     heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
     reqs = make_requests(cfg.vocab_size)
+    mcfg = get_config("mamba2-780m")   # full width and depth
+    MK, MB, MS0 = 2, 2, 1024           # mamba2 serving: 4 chunks a prompt
+    MTK, MTB, MTS = 3, 4, 1024         # the mamba2 training run
+    mreqs = make_requests(mcfg.vocab_size)
+    s = mcfg.ssm
+    nh, P, G, N = s.n_heads(mcfg.d_model), s.head_dim, s.n_groups, s.d_state
+    # the scan sees the K clients as K * nh heads in K * G groups
+    ssd_train = [(b, MTS, MTK * nh, P, MTK * G, N)
+                 for b in (MTB, max(1, MTB // 2))]
+    ssd_serve = [(MB, MS0, MK * nh, P, MK * G, N)]
+    ssd_serve += [(1, n, MK * nh, P, MK * G, N)
+                  for n in sorted({len(p) for p, _ in mreqs})]
+
     kernels = [phase_flash_fwd((K * B, S0) + heads, K,
                                sorted({len(p) for p, _ in reqs}),
                                train_shapes),
                phase_flash_bwd(train_shapes[0] + heads, train_shapes)]
     kernels += phase_kl(TK, max(1, TB // 2) * TS, cfg.vocab_size)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    serve = phase_serve(env["card"], cfg, reqs, K=K, B=B, S0=S0)
-    gc.collect()
-    torch.cuda.empty_cache()
-    train = phase_train(env["card"], tcfg, K=TK, B=TB, S=TS)
-    print(f"flash_attention_fwd launches: {serve['flash_attention_fwd']} "
-          f"serving + {train['flash_attention_fwd']} training")
+    # the mamba2 round's Eq.-2 term: checked, its rows kept at qwen3-4b's
+    phase_kl(MTK, max(1, MTB // 2) * MTS, mcfg.vocab_size)
+    kernels += phase_ssd(ssd_train, ssd_serve)
+    paths = []
+    for phase, args in (
+            (phase_serve, (env["card"], cfg, reqs,
+                           ("flash_attention_fwd", fa), K, B, S0)),
+            (phase_train, (env["card"], tcfg,
+                           ("flash_attention_fwd", "flash_attention_bwd",
+                            fa), TK, TB, TS)),
+            (phase_serve, (env["card"], mcfg, mreqs, ("ssd_scan_fwd",
+                                                      ssd_scan),
+                           MK, MB, MS0, 32, None)),
+            (phase_train, (env["card"], mcfg,
+                           ("ssd_scan_fwd", "ssd_scan_bwd", ssd_scan),
+                           MTK, MTB, MTS, 3, None))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        paths.append(phase(*args))
+    print("launches on each path (qwen3-4b serving, qwen3-4b training, "
+          "mamba2-780m serving, mamba2-780m training): "
+          + json.dumps(paths))
     for row in kernels:
-        row["launches"] = serve.get(row["name"], 0) + train[row["name"]]
+        row["launches"] = sum(p.get(row["name"], 0) for p in paths)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """Config registry: ``get_config(arch_id)`` / ``get_reduced(arch_id)``.
 
-Lists the archs the port serves so far.  The JAX package's other archs
-need the SSM, MoE or prefix-frontend slices of the port.
+Lists the archs the port serves and trains so far.  The JAX package's
+other archs need the MoE or prefix-frontend slices of the port.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig  # noqa: F401
 
 _MODULES: Dict[str, str] = {
     "qwen3-4b": "qwen3_4b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

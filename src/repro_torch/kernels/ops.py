@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import kl_mutual, ref
+from repro_torch.kernels import kl_mutual, ref, ssd_scan
 from repro_torch.kernels.flash_attention import flash_attention
 
 IMPLS = ("ref", "cuda")
@@ -111,3 +111,30 @@ def mutual_kl_pair(live, fixed, pair_w, *, temperature: float = 1.0,
                          f"{live.device}")
     return kl_mutual.kl_mutual_pair(live, fixed, pair_w,
                                     temperature=temperature)
+
+
+def ssd(x, dt, A, B_mat, C_mat, *, chunk: int = 256, initial_state=None,
+        impl: Optional[str] = None):
+    """Mamba2 SSD chunked scan -> (y, final_state): the CUDA kernels or
+    the plain version, as the caller's ``impl`` says.
+
+    The CUDA kernels start from the zero state, so a continuation from
+    ``initial_state`` runs only at impl "ref" and "cuda" refuses it (the
+    JAX package sends it to the plain version on every impl).
+    Differentiable on every impl: "cuda" runs the CUDA backward, "ref"
+    gets its gradient from autograd.
+    """
+    if impl is None:
+        raise ValueError("the SSD scan needs an explicit impl; resolve one "
+                         "with resolve_impl")
+    _check_impl(impl)
+    if impl == "ref":
+        return ref.ssd(x, dt, A, B_mat, C_mat, chunk=chunk,
+                       initial_state=initial_state)
+    if initial_state is not None:
+        raise ValueError("the CUDA SSD kernels start from the zero state; "
+                         "a continuation from initial_state runs at impl "
+                         "'ref'")
+    if not x.is_cuda:
+        raise ValueError(f"impl 'cuda' needs CUDA tensors, got {x.device}")
+    return ssd_scan.ssd_scan(x, dt, A, B_mat, C_mat, chunk=chunk)

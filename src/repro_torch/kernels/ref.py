@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -103,3 +104,66 @@ def mutual_kl_pair(live, fixed, pair_w, temperature: float = 1.0
     cross = torch.einsum("ibv,jbv->ijb", p_live, lp_fixed)       # (i,j,B)
     kl = self_term[:, None, :] - cross
     return torch.sum(kl * pair_w.float()[:, :, None], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality) chunked scan
+
+def ssd(x, dt, A, B_mat, C_mat, *, chunk: int = 256,
+        initial_state=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan oracle (``repro/kernels/ref.py:201-260``).
+
+    x:     (B, S, H, P)   pre-gated inputs
+    dt:    (B, S, H)      positive step sizes (softplus already applied)
+    A:     (H,)           negative decay rates
+    B_mat: (B, S, G, N)   input projections (G groups, H % G == 0)
+    C_mat: (B, S, G, N)   output projections
+    Returns (y (B,S,H,P) in x.dtype, final_state (B,H,P,N) fp32); the
+    arithmetic is fp32 and the gradients come from autograd.
+    """
+    Bb, S, H, Pd = x.shape
+    G, N = B_mat.shape[2], B_mat.shape[3]
+    rep = H // G
+    pad = (-S) % chunk
+    if pad:
+        zf = lambda a: F.pad(a, [0, 0] * (a.dim() - 2) + [0, pad])  # noqa
+        x, dt, B_mat, C_mat = map(zf, (x, dt, B_mat, C_mat))
+    Sp = S + pad
+    nc = Sp // chunk
+    xc = x.reshape(Bb, nc, chunk, H, Pd).float()
+    dtc = dt.reshape(Bb, nc, chunk, H).float()
+    Bc = B_mat.reshape(Bb, nc, chunk, G, N).repeat_interleave(rep, 3).float()
+    Cc = C_mat.reshape(Bb, nc, chunk, G, N).repeat_interleave(rep, 3).float()
+    Af = A.float()
+
+    dA = dtc * Af                                        # (B,nc,L,H) <= 0
+    cs = torch.cumsum(dA, dim=2)                         # within-chunk cumsum
+
+    state = initial_state
+    if state is None:
+        state = torch.zeros((Bb, H, Pd, N), dtype=torch.float32,
+                            device=x.device)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32,
+                                device=x.device))
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        xc_, dtc_, Bc_, Cc_, cs_ = (t[:, c] for t in (xc, dtc, Bc, Cc, cs))
+        # intra-chunk: M[t,s] = C_t.B_s * exp(cs_t - cs_s) * dt_s,  s <= t
+        scores = torch.einsum("blhn,bshn->bhls", Cc_, Bc_)
+        # the exponent is <= 0 only on the causal (t >= s) triangle; clamp
+        # the masked half before exp so inf * 0 never produces NaN
+        expo = cs_[:, :, None, :] - cs_[:, None, :, :]             # (B,t,s,H)
+        decay = torch.exp(torch.minimum(expo, zero)).permute(0, 3, 1, 2)
+        w = scores * decay * dtc_.permute(0, 2, 1)[:, :, None, :] * tri
+        y_intra = torch.einsum("bhls,bshp->blhp", w, xc_)
+        # inter-chunk: y += exp(cs_t) * C_t . state
+        y_inter = torch.einsum("blhn,bhpn->blhp", Cc_, state) \
+            * torch.exp(cs_)[..., None]
+        # state update
+        tail = torch.exp(cs_[:, -1:, :] - cs_) * dtc_                # (B,L,H)
+        state = torch.exp(cs_[:, -1, :])[:, :, None, None] * state + \
+            torch.einsum("blhn,blhp,blh->bhpn", Bc_, xc_, tail)
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(Bb, Sp, H, Pd)[:, :S]
+    return y.to(x.dtype), state

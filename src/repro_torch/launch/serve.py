@@ -12,6 +12,10 @@
   # continuous batching: more requests than slots, mixed budgets
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 --slots 2
 
+  # a random-init reduced mamba2 (SSD) model on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+      --device cpu
+
 It runs on the CUDA device unless ``--device cpu`` is given, and fails
 without one.  Timing separates WARMUP (the first call, which builds the
 kernels when they are not built yet) from STEADY STATE (a repeat), each

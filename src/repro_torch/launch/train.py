@@ -7,6 +7,8 @@ LM clients through ``repro_torch.api.Federation`` (the JAX package's
       --clients 3 --steps 8                      # on the CUDA device
   PYTHONPATH=src python -m repro_torch.launch.train --method dml \
       --clients 3 --steps 2 --device cpu         # plain PyTorch on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
+      --method dml --device cpu                  # reduced mamba2 (SSD) clients
 
 Only the dml strategy is ported; the JAX CLI's other strategies, the
 single-model and heterogeneous methods and ``--mesh`` raise, naming the

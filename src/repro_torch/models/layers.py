@@ -1,4 +1,4 @@
-"""Shared transformer building blocks: RMSNorm, RoPE, SwiGLU MLP, init.
+"""Shared building blocks: RMSNorm (plain and gated), RoPE, SwiGLU MLP, init.
 
 The port writes the stacked client axis out: model weights carry a leading
 client axis K and activations are (K, B, S, ...), so one batched product
@@ -64,6 +64,12 @@ def rms_norm(x, weight, eps: float = 1e-5):
     var = xf.square().mean(dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
     return (xf * (1.0 + weight.float())).to(dtype)
+
+
+def gated_rms_norm(x, gate, weight, eps: float = 1e-5):
+    """Mamba2's norm(x * silu(z)) fused gate (``repro/models/layers.py:37-40``):
+    the gate's SiLU in fp32, cast to x's dtype before the product."""
+    return rms_norm(x * F.silu(gate.float()).to(x.dtype), weight, eps)
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,10 @@ period runs under ``torch.utils.checkpoint`` (the JAX package's
 ``jax.checkpoint`` of the period body), so its activations are recomputed
 in the backward.
 
-Only dense attention/MLP layers are ported so far: SSM mixers, MoE FFNs and
-prefix-token frontends raise ``NotImplementedError``.
+The slot program dispatches on each slot's mixer: attention
+(``models/attention.py``) or a Mamba2 SSD block (``models/ssm.py``).  MoE
+FFNs and prefix-token frontends are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
                                        init_mlp, per_client, rms_norm)
 from repro_torch.tree import tree_leaves, tree_map
@@ -35,10 +38,6 @@ Params = Dict[str, Any]
 
 def _check_ported(cfg: ModelConfig) -> None:
     for spec in cfg.period:
-        if spec.mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: {spec.mixer} mixers come with the SSM slice "
-                "of the port")
         if spec.ffn == "moe":
             raise NotImplementedError(
                 f"{cfg.name}: MoE FFNs come with the MoE slice of the port")
@@ -63,8 +62,11 @@ def _layer(tree, idx: int):
 
 def _init_slot(gen, cfg: ModelConfig, spec, lead):
     zeros = dict(dtype=cfg.pdtype(), device=gen.device)
-    p: Params = {"norm1": torch.zeros(lead + (cfg.d_model,), **zeros),
-                 "mixer": attn_mod.init_attention(gen, cfg, lead)}
+    p: Params = {"norm1": torch.zeros(lead + (cfg.d_model,), **zeros)}
+    if spec.mixer == "attn":
+        p["mixer"] = attn_mod.init_attention(gen, cfg, lead)
+    else:
+        p["mixer"] = ssm_mod.init_mamba(gen, cfg, lead)
     if spec.ffn != "none":
         p["norm2"] = torch.zeros(lead + (cfg.d_model,), **zeros)
         p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdtype(), lead)
@@ -134,9 +136,12 @@ def _period(sparams_period, cfg: ModelConfig, x, positions,
     for i, spec in enumerate(cfg.period):
         sp = sparams_period[f"slot{i}"]
         h = rms_norm(x, per_client(sp["norm1"], x), cfg.rms_eps)
-        x = x + attn_mod.attention_forward(sp["mixer"], cfg, h, positions,
+        if spec.mixer == "attn":
+            h = attn_mod.attention_forward(sp["mixer"], cfg, h, positions,
                                            window=window, impl=impl)
-        x = _ffn(sp, cfg, spec, x)
+        else:
+            h = ssm_mod.mamba_forward(sp["mixer"], cfg, h, impl=impl)
+        x = _ffn(sp, cfg, spec, x + h)
     return x
 
 
@@ -290,16 +295,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     if window is None:
         window = cfg.sliding_window
     lead = ((n_models,) if n_models else ()) + (cfg.n_periods,)
-    return {f"slot{i}": attn_mod.init_kv_cache(cfg, batch, max_seq, window,
-                                               lead=lead, device=device)
-            for i in range(len(cfg.period))}
+    return {f"slot{i}": (
+        attn_mod.init_kv_cache(cfg, batch, max_seq, window, lead=lead,
+                               device=device) if spec.mixer == "attn"
+        else ssm_mod.init_mamba_cache(cfg, batch, lead=lead, device=device))
+        for i, spec in enumerate(cfg.period)}
 
 
 def prefill_clients(sparams, cfg: ModelConfig, tokens, *, max_seq: int,
                     window: Optional[int] = None, impl: str
                     ) -> Tuple[torch.Tensor, Params]:
-    """Prompt ingestion for K clients on shared tokens (B, S).
-    Returns (last-token logits (K, B, V), cache (K, n_periods, B, ...))."""
+    """Prompt ingestion for K clients on shared tokens (B, S): attention
+    and SSD scans through ``impl``.  (The JAX prefill passes no impl to
+    either, so it runs the ambient one.)  Returns (last-token logits
+    (K, B, V), cache (K, n_periods, B, ...))."""
     _check_ported(cfg)
     if window is None:
         window = cfg.sliding_window
@@ -312,9 +321,15 @@ def prefill_clients(sparams, cfg: ModelConfig, tokens, *, max_seq: int,
         for i, spec in enumerate(cfg.period):
             sp = period[f"slot{i}"]
             h = rms_norm(x, per_client(sp["norm1"], x), cfg.rms_eps)
-            out, _ = attn_mod.attention_prefill(
-                sp["mixer"], cfg, h, layer_cache[f"slot{i}"], window=window,
-                impl=impl)
+            c = layer_cache[f"slot{i}"]
+            if spec.mixer == "attn":
+                out, _ = attn_mod.attention_prefill(
+                    sp["mixer"], cfg, h, c, window=window, impl=impl)
+            else:
+                out, (conv, ssm_state) = ssm_mod.mamba_forward(
+                    sp["mixer"], cfg, h, return_state=True, impl=impl)
+                c["conv"].copy_(conv)
+                c["ssm"].copy_(ssm_state)
             x = _ffn(sp, cfg, spec, x + out)
     return _unembed(sparams, cfg, x[:, :, -1:])[:, :, 0], cache
 
@@ -343,9 +358,13 @@ def decode_step_clients(sparams, cfg: ModelConfig, token, cache, pos, *,
         for i, spec in enumerate(cfg.period):
             sp = period[f"slot{i}"]
             h = rms_norm(x, per_client(sp["norm1"], x), cfg.rms_eps)
-            out, _ = attn_mod.attention_decode(
-                sp["mixer"], cfg, h, layer_cache[f"slot{i}"], pos,
-                window=window)
+            if spec.mixer == "attn":
+                out, _ = attn_mod.attention_decode(
+                    sp["mixer"], cfg, h, layer_cache[f"slot{i}"], pos,
+                    window=window)
+            else:
+                out, _ = ssm_mod.mamba_decode(sp["mixer"], cfg, h,
+                                              layer_cache[f"slot{i}"])
             x = _ffn(sp, cfg, spec, x + out)
     return _unembed(sparams, cfg, x)[:, :, 0], cache
 

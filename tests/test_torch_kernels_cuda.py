@@ -154,3 +154,104 @@ def test_mutual_kl_through_the_pair_kernel(cuda):
     assert kl_mutual.mutual_kl_launches == before + 1
     torch.testing.assert_close(got, ref.mutual_kl(x, 1.3), atol=1e-4,
                                rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the SSD chunked scan
+
+def _ssd_inputs(device, dtype, B=2, S=300, H=8, P=64, G=2, N=128, seed=0):
+    """x, B, C in ``dtype``; dt, A fp32 at mamba2's scale (A = -(1..H))."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=gen, device=device).to(dtype)
+    dt = 0.1 * torch.rand(B, S, H, generator=gen, device=device) + 1e-3
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=device)
+    Bm = torch.randn(B, S, G, N, generator=gen, device=device).to(dtype)
+    Cm = torch.randn(B, S, G, N, generator=gen, device=device).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,P,G,N,chunk", [(300, 8, 64, 2, 128, 256),
+                                             (100, 4, 32, 4, 16, 64),
+                                             (1, 2, 16, 1, 8, 64)])
+def test_ssd_kernels_match_plain(cuda, dtype, S, H, P, G, N, chunk):
+    """y and final state against ``ref.ssd`` (fp32: atol/rtol 1e-4, the
+    summation order; bf16: y within 2e-2 relative norm, one rounding of y),
+    and the five gradients under cotangents on both outputs against
+    autograd of ``ref.ssd`` (relative norm 1e-4 in fp32, 2e-2 in bf16; the
+    norm floored at 1, since dA is 0 up to rounding at S = 1)."""
+    from repro_torch.kernels import ssd_scan
+    ins = _ssd_inputs(cuda, dtype, S=S, H=H, P=P, G=G, N=N)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    dy = torch.randn(ins[0].shape, generator=gen, device=cuda).to(dtype)
+    ds = torch.randn(ins[0].shape[0], H, P, N, generator=gen, device=cuda)
+    outs, grads = [], []
+    before = ssd_scan.launches, ssd_scan.bwd_launches
+    for fn in (ssd_scan.ssd_scan, ref.ssd):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        y, st = fn(*leaves, chunk=chunk)
+        grads.append(torch.autograd.grad(
+            (y.float() * dy.float()).sum() + (st * ds).sum(), leaves))
+        outs.append((y.float(), st))
+    # one launch each way for the kernel, none for the plain version
+    assert (ssd_scan.launches, ssd_scan.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    (y, st), (wy, wst) = outs
+    assert ((y - wy).norm() / wy.norm()).item() < tol
+    torch.testing.assert_close(st, wst, atol=1e-3 if tol > 1e-4 else 1e-4,
+                               rtol=tol)
+    for got, want in zip(*grads):
+        assert ((got.float() - want.float()).norm()
+                / want.float().norm().clamp_min(1.0)).item() < tol
+
+
+def test_ssd_entry_states(cuda):
+    """The forward's chunk-entry states (B, H, nc, P, N) fp32: chunk c's is
+    the plain scan's final state over the first c chunks."""
+    from repro_torch.kernels import ssd_scan
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, torch.float32, S=200, H=4, P=32,
+                                   G=1, N=16)
+    y, final, states = ssd_scan._forward(x, dt, A, Bm, Cm, 64)
+    assert states.shape == (2, 4, 4, 32, 16) and states.dtype == torch.float32
+    assert not states[:, :, 0].any()
+    for c in range(1, 4):
+        _, want = ref.ssd(x[:, :64 * c], dt[:, :64 * c], A, Bm[:, :64 * c],
+                          Cm[:, :64 * c], chunk=64)
+        torch.testing.assert_close(states[:, :, c], want, atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_ops_ssd_cuda_impl_reaches_the_kernel(cuda):
+    from repro_torch.kernels import ssd_scan
+    ins = _ssd_inputs(cuda, torch.bfloat16, S=130, H=4, P=32, G=1, N=16)
+    f = ssd_scan.launches
+    y, st = ops.ssd(*ins, chunk=64, impl="cuda")
+    assert ssd_scan.launches == f + 1
+    wy, wst = ref.ssd(*ins, chunk=64)
+    assert ((y.float() - wy.float()).norm() / wy.float().norm()) < 2e-2
+    with pytest.raises(ValueError, match="zero state"):
+        ops.ssd(*ins, chunk=64, initial_state=st, impl="cuda")
+    assert ssd_scan.launches == f + 1       # refused before any launch
+
+
+@pytest.mark.parametrize("bad", ["dtype", "dt_dtype", "contiguous",
+                                 "groups", "state_dim"])
+def test_ssd_kernel_refuses_before_launch(cuda, bad):
+    from repro_torch.kernels import ssd_scan
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, torch.float32, S=64, H=4, P=32,
+                                   G=2, N=16)
+    if bad == "dtype":
+        Bm = Bm.to(torch.bfloat16)
+    elif bad == "dt_dtype":
+        dt = dt.to(torch.bfloat16)
+    elif bad == "contiguous":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "groups":
+        Bm, Cm = (torch.cat([t, t[:, :, :1]], dim=2) for t in (Bm, Cm))
+    else:
+        Bm, Cm = (t.repeat(1, 1, 1, 9) for t in (Bm, Cm))     # N = 144
+    f = ssd_scan.launches
+    with pytest.raises(ValueError):
+        ssd_scan.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+    assert ssd_scan.launches == f

@@ -253,7 +253,8 @@ def test_checkpoint_schema_both_ways(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    dict(period=(LayerSpec("mamba", "none"),)),
+    dict(period=(LayerSpec("mamba", "none"), LayerSpec("mamba", "moe")),
+         n_layers=4),
     dict(period=(LayerSpec("attn", "moe"),)),
     dict(prefix_tokens=4, prefix_dim=8),
 ])

@@ -286,8 +286,8 @@ def test_load_serving_params_rejects_unservable(tmp_path):
                                          "arch": "qwen3-4b"})
     with pytest.raises(ValueError, match="not servable"):
         load_serving_params(bad, device="cpu")
-    other = str(tmp_path / "mamba.npz")
-    jckpt.save(other, {"x": np.zeros(2)}, {"arch": "mamba2-780m"})
+    other = str(tmp_path / "dbrx.npz")
+    jckpt.save(other, {"x": np.zeros(2)}, {"arch": "dbrx-132b"})
     with pytest.raises(ValueError, match="not in"):
         load_serving_params(other, device="cpu")
 
@@ -313,14 +313,17 @@ def test_serve_cli_on_cpu(capsys):
     assert "served 3 requests" in out and "impl=ref" in out
 
 
-# the training slice's modules, named so that the walk below cannot miss one
+# the training and SSM slices' modules, named so that the walk below cannot
+# miss one
 TRAINING_MODULES = (
     "repro_torch.api", "repro_torch.core.api", "repro_torch.core.distributed",
     "repro_torch.core.mutual", "repro_torch.core.stacking",
     "repro_torch.core.strategies.base", "repro_torch.core.strategies.dml",
     "repro_torch.core.populations.base", "repro_torch.core.populations.lm",
     "repro_torch.data.federated", "repro_torch.kernels.kl_mutual",
-    "repro_torch.optim", "repro_torch.launch.train")
+    "repro_torch.optim", "repro_torch.launch.train",
+    "repro_torch.configs.mamba2_780m", "repro_torch.kernels.ssd_scan",
+    "repro_torch.models.ssm")
 
 
 def test_port_imports_no_jax_and_no_repro():
