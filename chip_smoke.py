@@ -11,8 +11,9 @@ Phases, each fatal on failure:
      time beside its bound, the plain version's time and a library
      yardstick: the flash-attention forward and backward, the Eq.-2
      pair-KL forward and backward (at qwen3-4b's and mamba2-780m's
-     vocabularies), ``mutual_kl`` through the pair forward, and the SSD
-     chunked scan's forward and backward;
+     vocabularies), ``mutual_kl`` through the pair forward, the SSD
+     chunked scan's forward and backward, and the sparse (top-k) KL's
+     forward and backward (at both vocabularies);
   3. the serving path at the full width of qwen3-4b: a K=2 client ensemble
      from seeded random weights serves ``generate``, continuous batching
      and route mode, and the flash kernel's launch count shows that it ran
@@ -27,8 +28,18 @@ Phases, each fatal on failure:
      on 1024-token prompts, through the SSD forward kernel;
   6. phase 4 for K=3 full-width, full-depth mamba2-780m clients at seq 1024
      (18,432 trained tokens a round), through the SSD forward and backward
-     kernels and the pair KL.
-Phases 3-6 hold the prefill logits and the per-client gradients to the
+     kernels and the pair KL;
+  7. phase 4 with ``SparseDML(k=64)``: each client shares the top-64
+     (index, log-prob) sets of its public logits, and the Eq.-2 term runs
+     through the sparse-KL forward and backward kernels (no pair-KL
+     launch); round 1 and each client's gradient are held against
+     ``impl="ref"`` as in phase 4;
+  8. the weight-sharing baselines on phase 4's population: 2 rounds of
+     ``FedAvg()`` (every leaf identical across clients after each) and 3 of
+     ``AsyncWeights(delta=2, min_round=1)`` (shallow, deep, shallow: the
+     scheduled group synced, the other not), comm bytes against the
+     analytic value, through the flash kernels' local steps.
+Phases 3-7 hold the prefill logits and the per-client gradients to the
 plain path by one parity rule (``_parity``): in fp32 on the same weights,
 and in bf16 against the bf16 plain path's own distance from fp32.
 Each path's launch counts are set to 0 just before it and read just after.
@@ -60,7 +71,8 @@ from repro_torch.kernels import _build  # noqa: E402
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd",
-                  "kl_mutual_pair", "ssd_scan_fwd", "ssd_scan_bwd")
+                  "kl_mutual_pair", "ssd_scan_fwd", "ssd_scan_bwd",
+                  "sparse_kl")
 BF16 = torch.bfloat16
 # the SSD sweep of phase 2: (H, P, N, G), sequence lengths, chunks
 SSD_SWEEP = dict(heads=((48, 64, 128, 1), (8, 32, 16, 2), (4, 16, 8, 4)),
@@ -478,6 +490,146 @@ def phase_kl(K: int, B: int, V: int) -> list:
     ]
 
 
+def _sparse_case(gen, Kl, J, B, V, k, T, dtype, tie: bool):
+    """Inputs of the sparse KL as the SparseDML path makes them: live
+    logits in ``dtype``; the received (idx, logp) the top-k sets of the
+    senders' logits (with Kl == J the live clients' own, detached, and
+    w = (1 - I) / (K - 1); else J fresh senders and uniform 1/J); with
+    ``tie`` row 0 of every client's and sender's logits all tie."""
+    from repro_torch.core.mutual import _pair_mask, topk_predictions
+    live = (2 * torch.randn(Kl, B, V, device="cuda", generator=gen)) \
+        .to(dtype)
+    if tie:
+        live[:, 0] = 0.5
+    if Kl == J:
+        senders, w = live, _pair_mask(Kl, None, "cuda")
+    else:
+        senders = (2 * torch.randn(J, B, V, device="cuda", generator=gen)) \
+            .to(dtype)
+        if tie:
+            senders[:, 0] = -1.0
+        w = torch.full((Kl, J), 1.0 / J, device="cuda")
+    idx, lp = topk_predictions(senders, k, T)
+    gbar = torch.randn(Kl, B, device="cuda", generator=gen)
+    return live, idx, lp, w, gbar
+
+
+def _sparse_bound(Kl, J, B, V, k, dtype, backward: bool) -> tuple:
+    """The least time of the sparse KL on these inputs: live read once
+    (and dlive written once), the received idx and logp and the weights
+    read once, out and the three per-row statistics written once (read by
+    the backward, with the cotangent); against about 6 fp32 operations per
+    live element (scale, max, subtract, exp, sum, fma; 8 in the backward)
+    and 6 per received entry per live client, at the fp32 rate."""
+    e = torch.finfo(dtype).bits // 8
+    plane, rows = Kl * B * V, Kl * B
+    # live (+ dlive), idx and logp, w; out and the statistics written by the
+    # forward, the statistics and the cotangent read by the backward
+    nbytes = (1 + int(backward)) * plane * e + J * B * k * 8 + Kl * J * 4 \
+        + 4 * rows * 4
+    flops = (8 if backward else 6) * plane + 6 * Kl * J * B * k
+    return _bound(flops, nbytes, torch.float32)
+
+
+def phase_sparse_kl(path_shapes, K: int) -> list:
+    """The sparse-KL forward and backward against ``ref.sparse_kl_pair``
+    and its autograd on the card, on the same idx and logp: fp32 and bf16
+    at the SparseDML paths' shapes (``path_shapes``: (B, V) with K clients
+    sharing their own top-64 sets), and around them Kl = 1 with J = 2,
+    k = V on a small vocabulary, temperatures 0.5 and 2, and a row whose
+    logits all tie.  Tolerance: relative norm error of out and of dlive
+    1e-4 in fp32 (a one-pass streaming sum against a two-pass softmax) and
+    2e-2 in bf16 (dlive is rounded to bf16 once).  Returns the two
+    kernels' rows, timed at the first path shape in bf16."""
+    from repro_torch.kernels import ref, sparse_kl
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tol = {torch.float32: 1e-4, BF16: 2e-2}
+    B0, V0 = path_shapes[0]
+    cases = [(K, K, B, V, 64, 1.0, dtype, False)
+             for B, V in path_shapes for dtype in (torch.float32, BF16)]
+    cases += [(1, 2, 256, V0, 64, 1.0, dtype, False)
+              for dtype in (torch.float32, BF16)]
+    cases += [(K, K, 64, 1000, 1000, 1.0, torch.float32, False),
+              (2, 3, 33, 1000, 1000, 1.0, BF16, False),
+              (K, K, 256, V0, 64, 0.5, torch.float32, False),
+              (K, K, 256, V0, 64, 2.0, BF16, False),
+              (K, K, 128, V0, 64, 1.0, torch.float32, True),
+              (2, 3, 128, 5000, 64, 1.0, BF16, True)]
+    worst = {}
+    for Kl, J, B, V, k, T, dtype, tie in cases:
+        live, idx, lp, w, gbar = _sparse_case(gen, Kl, J, B, V, k, T, dtype,
+                                              tie)
+        res = []
+        for fn in (sparse_kl.sparse_kl_topk, ref.sparse_kl_pair):
+            a = live.detach().requires_grad_(True)
+            out = fn(a, idx, lp, w, temperature=T)
+            (g,) = torch.autograd.grad(out, a, gbar)
+            res.append((out.detach(), g.float()))
+            del a, out, g
+        (out, dl), (want, want_dl) = res
+        f_rel = ((out - want).norm() / want.norm()).item()
+        b_rel = ((dl - want_dl).norm() / want_dl.norm()).item()
+        f_err = (out - want).abs().max().item()
+        b_err = (dl - want_dl).abs().max().item()
+        what = (f"Kl={Kl} J={J} B={B} V={V} k={k} T={T} {dtype}"
+                f"{' tied row' if tie else ''}")
+        if not (f_rel <= tol[dtype] and b_rel <= tol[dtype]):
+            raise AssertionError(
+                f"sparse KL disagrees with ref at {what}: relative error "
+                f"of out {f_rel:.3g}, of dlive {b_rel:.3g}")
+        n, fr, br = worst.get(dtype, (0, 0.0, 0.0))
+        worst[dtype] = (n + 1, max(fr, f_rel), max(br, b_rel))
+        if (Kl, J, B, V, k, T, dtype) == (K, K, B0, V0, 64, 1.0, BF16):
+            errs = (f_err, b_err)
+        del live, idx, lp, res, out, dl, want, want_dl
+    for dtype, (n, fr, br) in worst.items():
+        print(f"sparse KL vs ref, {n} cases {str(dtype)[6:]}: worst "
+              f"relative error of out {fr:.3g}, of dlive {br:.3g} (limit "
+              f"{tol[dtype]})")
+    print(f"  the SparseDML paths' shapes (K={K}, B, V, k=64): "
+          f"{list(path_shapes)}; around them Kl = 1 with J = 2, k = V, "
+          f"T 0.5 and 2, and rows whose logits all tie")
+    torch.cuda.empty_cache()
+
+    live, idx, lp, w, gbar = _sparse_case(gen, K, K, B0, V0, 64, 1.0, BF16,
+                                          False)
+    out, stats = sparse_kl._forward(live, idx, lp, w, 1.0)
+    fwd_ms = time_ms(lambda: sparse_kl._forward(live, idx, lp, w, 1.0))
+    bwd_ms = time_ms(lambda: sparse_kl._backward(live, idx, lp, w, stats,
+                                                 gbar, 1.0))
+    a = live.detach().requires_grad_(True)
+
+    def plain_f():
+        with torch.no_grad():
+            ref.sparse_kl_pair(a, idx, lp, w)
+
+    def plain_fb():
+        torch.autograd.grad(ref.sparse_kl_pair(a, idx, lp, w), a, gbar)
+    plain_fwd = time_ms(plain_f, iters=5)
+    plain_bwd = time_ms(plain_fb, iters=5) - plain_fwd
+    fb = _sparse_bound(K, K, B0, V0, 64, BF16, False)
+    bb = _sparse_bound(K, K, B0, V0, 64, BF16, True)
+    for name, ms, plain, (bound, by) in (("forward", fwd_ms, plain_fwd, fb),
+                                         ("backward", bwd_ms, plain_bwd, bb)):
+        print(f"sparse KL {name} at (Kl=J={K}, B={B0}, V={V0}, k=64) bf16: "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, no single library call; "
+              f"bound {bound:.4f} ms by {by}")
+    del live, idx, lp, w, gbar, out, stats, a
+    torch.cuda.empty_cache()
+    src = "src/repro_torch/kernels/csrc/sparse_kl.cu"
+    row = dict(route="cuda", source=src, launches=None, library_ms=None)
+    return [
+        {"name": "sparse_kl_fwd", **row,
+         "replaces": "src/repro/kernels/sparse_kl.py:47",
+         "max_abs_err": errs[0], "ms": fwd_ms, "plain_ms": plain_fwd,
+         "bound_ms": fb[0], "bound_by": fb[1]},
+        {"name": "sparse_kl_bwd", **row,
+         "replaces": "src/repro/kernels/sparse_kl.py:167",
+         "max_abs_err": errs[1], "ms": bwd_ms, "plain_ms": plain_bwd,
+         "bound_ms": bb[0], "bound_by": bb[1]},
+    ]
+
+
 def _ssd_inputs(B, S, H, P, G, N, dtype, gen):
     """SSD inputs at mamba2's scale: x, B, C ~ N(0, 1) in ``dtype``; dt in
     [1e-3, 0.1] and A = -(1..48) per client (repeated over H / 48 clients),
@@ -887,22 +1039,23 @@ def _fmt(xs, spec: str = ".5f") -> str:
 
 
 def _grad_parity(cfg, K: int, tokens, pub, g_kernel_bf16, g_plain_bf16,
-                 bf16_limit) -> None:
+                 bf16_limit, loss_kw) -> None:
     """The parity rule on each client's gradient of round 1's loss, by
     relative norm: ``g_kernel_bf16`` and ``g_plain_bf16`` (on the host)
     come from the bf16 population at impl "cuda" and "ref"; the fp32
-    gradients run here."""
+    gradients run here.  ``loss_kw`` (SparseDML's ``sparse_k`` and
+    ``received`` sets) goes to every gradient's loss alike."""
     from repro_torch.core import distributed as D
     from repro_torch.tree import tree_map
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
     p32 = tree_map(lambda t: t.float(),
                    D.stacked_init(0, cfg, K, device="cuda"))
     _, _, g = D.value_and_grad(D.dml_total_loss, p32, cfg32, tokens, pub,
-                               impl="cuda")
+                               impl="cuda", **loss_kw)
     g_kernel32 = tree_map(lambda t: t.cpu(), g)
     del g
     _, _, g_plain32 = D.value_and_grad(D.dml_total_loss, p32, cfg32, tokens,
-                                       pub, impl="ref")
+                                       pub, impl="ref", **loss_kw)
     del p32
     e32 = _client_grad_errors(g_kernel32, g_plain32, K)
     floor = _client_grad_errors(g_plain_bf16, g_plain32, K)
@@ -915,26 +1068,39 @@ def _grad_parity(cfg, K: int, tokens, pub, g_kernel_bf16, g_plain_bf16,
 
 
 def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
-                rounds: int = 3, bf16_limit: float | None = 2e-2) -> dict:
-    """The port's training path: ``Federation(LMClients(cfg, K), DML())`` at
-    the full width of ``cfg`` (depth as given), ``rounds`` fused DML rounds
-    through the kernels, then Eq. 2 of the final public logits through
-    ``mutual_kl``.  ``mixer`` = (forward name, backward name, module): the
-    mixer kernels, counted by the module's ``launches`` and
-    ``bwd_launches``.  Then round 1 again at ``impl="ref"`` from the same
+                rounds: int = 3, bf16_limit: float | None = 2e-2,
+                strategy=None, eq2=None) -> dict:
+    """The port's training path: ``Federation(LMClients(cfg, K), strategy)``
+    (``DML()`` by default) at the full width of ``cfg`` (depth as given),
+    ``rounds`` fused rounds through the kernels, then Eq. 2 of the final
+    public logits: through ``mutual_kl``, or for SparseDML through the
+    sparse-KL forward against the clients' top-k sets.  ``mixer`` and
+    ``eq2`` = (forward name, backward name, module): the mixer kernels and
+    the Eq.-2 kernels (the pair KL by default), counted by the module's
+    ``launches`` and ``bwd_launches``; a SparseDML run must launch no
+    pair-KL kernel.  Then round 1 again at ``impl="ref"`` from the same
     seeded weights and batches: each client's private_loss, public_ce and
     kld_avg within relative error 2e-2 (plus 1e-3 absolute on kld_avg),
     and its gradient of the round's total loss by the parity rule
-    (``_parity``).  Returns the kernels' launch counts over the training
-    run."""
+    (``_parity``).  The two impls' bf16 logits differ in rounding, so their
+    top-k sets can differ at near-ties: the SparseDML round 1 of each impl
+    shares its own sets, but every gradient of the parity runs on one
+    (idx, logp) computed once, from the kernel path's logits.  Returns the
+    kernels' launch counts over the training run."""
     from repro_torch.api import DML, Federation, LMClients
     from repro_torch.core import distributed as D
     from repro_torch.configs import get_config
-    from repro_torch.core.mutual import mutual_kl_eval
+    from repro_torch.core.mutual import (_pair_mask, mutual_kl_eval,
+                                         topk_predictions)
     from repro_torch.kernels import kl_mutual as klm
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import adamw_update
     from repro_torch.tree import tree_leaves, tree_map
+
+    strategy = strategy or DML()
+    sparse_k = strategy.sparse_k
+    eq2 = eq2 or ("kl_mutual_pair_fwd", "kl_mutual_pair_bwd", klm)
 
     def population(impl):
         return LMClients(cfg, n_clients=K, rounds=rounds, batch=B, seq=S,
@@ -951,14 +1117,23 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
           f"each, {state_gb:.1f} GB of params and AdamW moments on the card, "
           f"{secs:.1f} s; kernels impl={pop.impl}")
     tokens0, pub0 = pop._private_batch(0), pop._public_batch(0)
+    received = None
+    if sparse_k:                  # one (idx, logp) for every gradient below
+        with torch.no_grad():
+            received = topk_predictions(tfm.forward_clients(
+                pop.client_params, cfg, pub0, impl=pop.impl).reshape(
+                    K, -1, cfg.vocab_size), sparse_k)
+    loss_kw = {"sparse_k": sparse_k, "received": received}
     _, _, grads = D.value_and_grad(D.dml_total_loss, pop.client_params, cfg,
-                                   tokens0, pub0, impl=pop.impl)
+                                   tokens0, pub0, impl=pop.impl, **loss_kw)
     g_cuda = tree_map(lambda t: t.cpu(), grads)
     del grads
 
-    fed = Federation(pop, DML())
+    fed = Federation(pop, strategy)
     fwd_name, bwd_name, mod = mixer
+    eq2_fwd, eq2_bwd, eq2_mod = eq2
     mod.launches = mod.bwd_launches = 0            # the main path starts here
+    eq2_mod.launches = eq2_mod.bwd_launches = 0
     klm.launches = klm.bwd_launches = klm.mutual_kl_launches = 0
     tokens = K * (B + max(1, B // 2)) * S
     walls = []
@@ -983,23 +1158,31 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
         pub = pop._public_batch(rounds - 1)
         logits = tfm.forward_clients(pop.client_params, cfg, pub,
                                      impl=pop.impl)
-        readout = mutual_kl_eval(logits.reshape(K, -1, cfg.vocab_size),
-                                 impl=pop.impl)
+        flat = logits.reshape(K, -1, cfg.vocab_size)
+        if sparse_k:
+            readout = ops.sparse_mutual_kl(
+                flat, *topk_predictions(flat, sparse_k),
+                _pair_mask(K, None, flat.device), impl=pop.impl)
+        else:
+            readout = mutual_kl_eval(flat, impl=pop.impl)
     counts = {fwd_name: mod.launches,                # ... and ends here
               bwd_name: mod.bwd_launches,
+              eq2_fwd: eq2_mod.launches, eq2_bwd: eq2_mod.bwd_launches,
               "kl_mutual_pair_fwd": klm.launches,
               "kl_mutual_pair_bwd": klm.bwd_launches,
               "mutual_kl": klm.mutual_kl_launches}
     need = {fwd_name: 2 * 2 * cfg.n_layers * rounds,
             bwd_name: 2 * cfg.n_layers * rounds,
-            "kl_mutual_pair_fwd": rounds, "kl_mutual_pair_bwd": rounds,
-            "mutual_kl": 1}
+            eq2_fwd: rounds + int(bool(sparse_k)), eq2_bwd: rounds,
+            "mutual_kl": int(not sparse_k)}
     print(f"training launches {counts}; need at least {need} (private and "
           f"public forward in each of {cfg.n_layers} layers, twice under "
           f"remat; their backward; one Eq.-2 term per round; the readout)")
     short = [k for k in need if counts[k] < need[k]]
     if short:
         raise AssertionError(f"the training path did not run through {short}")
+    if sparse_k and klm.launches + klm.bwd_launches + klm.mutual_kl_launches:
+        raise AssertionError("the SparseDML path launched a pair-KL kernel")
     if readout.shape != (K, pub.numel()) or \
             not bool(torch.isfinite(readout).all()) or \
             float(readout.min()) < -1e-3:
@@ -1008,8 +1191,10 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
     if not all(np.isfinite(x).all() for rl in hist
                for x in (rl.client_loss, rl.public_ce, rl.kl_loss)):
         raise AssertionError("non-finite training losses")
-    print(f"Eq.-2 readout (mutual_kl_eval of round {rounds - 1}'s public "
-          f"logits, kernel 3): per-client mean {_fmt(readout.mean(1))}")
+    how = (f"the sparse-KL forward against their top-{sparse_k} sets"
+           if sparse_k else "mutual_kl_eval, kernel 3")
+    print(f"Eq.-2 readout of round {rounds - 1}'s public logits ({how}): "
+          f"per-client mean {_fmt(readout.mean(1))}")
     busy_us = sum(us for us, _ in by_name.values())
     n_kernels = sum(cnt for _, cnt in by_name.values())
     steady = walls[-1]
@@ -1022,15 +1207,20 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
     # the round's two halves timed apart, on a fourth update
     (_, _, grads), grad_secs = _timed(lambda: D.value_and_grad(
         D.dml_total_loss, pop.client_params, cfg, tokens0, pub0,
-        impl=pop.impl))
+        impl=pop.impl, sparse_k=sparse_k))
     _, opt_secs = _timed(lambda: adamw_update(        # keep only metrics
         pop.client_params, grads, pop.client_opts, pop.opt_cfg)[2])
     print(f"round breakdown (a fourth update, host clock around "
           f"synchronised work): loss, forward and backward {grad_secs:.3f} "
           f"s; AdamW with the global-norm clip {opt_secs:.3f} s")
+    if sparse_k:
+        topk_ms = time_ms(lambda: topk_predictions(flat, sparse_k), iters=5)
+        print(f"  of it, the top-{sparse_k} payload of the public logits "
+              f"{tuple(flat.shape)} (topk_predictions, CUDA events): "
+              f"{topk_ms:.3f} ms")
     del grads
     first = hist[0]
-    del fed, pop, logits, readout
+    del fed, pop, logits, flat, readout
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1038,10 +1228,10 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
     torch.cuda.reset_peak_memory_stats()
     pop = population("ref")
     _, _, grads = D.value_and_grad(D.dml_total_loss, pop.client_params, cfg,
-                                   tokens0, pub0, impl="ref")
+                                   tokens0, pub0, impl="ref", **loss_kw)
     g_ref = tree_map(lambda t: t.cpu(), grads)
     del grads
-    ref_first = Federation(pop, DML()).run(until=1).rounds[0]
+    ref_first = Federation(pop, strategy).run(until=1).rounds[0]
     print(f"round 1 at impl=ref: private_loss {_fmt(ref_first.client_loss)} "
           f"public_ce {_fmt(ref_first.public_ce)} kld_avg "
           f"{_fmt(ref_first.kl_loss)}; peak memory "
@@ -1063,8 +1253,124 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    _grad_parity(cfg, K, tokens0, pub0, g_cuda, g_ref, bf16_limit)
+    _grad_parity(cfg, K, tokens0, pub0, g_cuda, g_ref, bf16_limit, loss_kw)
     del g_ref, g_cuda
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8
+
+def _group_sizes(cfg, params, K: int) -> tuple:
+    """(shallow, deep) parameters per client, from the config's rule:
+    embed and projector, and the first half of the periods, are shallow."""
+    from repro_torch.tree import tree_leaves
+    shallow = deep = 0
+    for name, sub in params.items():
+        for t in tree_leaves(sub):
+            n = t.numel() // K
+            if name == "periods":
+                half = n // cfg.n_periods * (cfg.n_periods // 2)
+                shallow, deep = shallow + half, deep + n - half
+            elif name in ("embed", "projector"):
+                shallow += n
+            else:
+                deep += n
+    return shallow, deep
+
+
+def _synced(params, mask, K: int, group: str) -> bool:
+    """Whether every client holds the same values in ``group`` ('all',
+    'shallow' or 'deep' of the float lerp ``mask``, whose leaves vary only
+    along the period axis)."""
+    from repro_torch.tree import tree_leaves
+    for p, m in zip(tree_leaves(params), tree_leaves(mask)):
+        keep = m.reshape(-1) > 0.5
+        if group == "deep":
+            keep = ~keep
+        elif group == "all":
+            keep = torch.ones_like(keep)
+        if not bool(keep.any()):
+            continue
+        x = p if keep.numel() == 1 else p[:, keep]
+        if not all(torch.equal(x[c], x[0]) for c in range(1, K)):
+            return False
+    return True
+
+
+def phase_weights(card: str, cfg, mixer, K: int = 3, B: int = 4,
+                  S: int = 512, fedavg_rounds: int = 2,
+                  async_rounds: int = 3) -> dict:
+    """The weight-sharing baselines at the full width of ``cfg`` (depth as
+    given): ``fedavg_rounds`` rounds of ``FedAvg()``, after each of which
+    every leaf is identical across the K clients, then ``async_rounds``
+    rounds of ``AsyncWeights(delta=2, min_round=1)`` (shallow, deep,
+    shallow), after each of which the scheduled group is identical across
+    clients and the other is not.  Each round's comm_bytes must equal the
+    analytic value from the config's shallow/deep rule, and the local
+    step's mixer launches (``mixer`` as in ``phase_train``) at least
+    2 * n_layers forward (remat) and n_layers backward a round.  Returns
+    the mixer's launch counts."""
+    from repro_torch.api import AsyncWeights, FedAvg, Federation, LMClients
+    from repro_torch.core import distributed as D
+    from repro_torch.core.async_fl import layer_schedule
+
+    torch.cuda.reset_peak_memory_stats()
+    pop = LMClients(cfg, n_clients=K, rounds=fedavg_rounds + async_rounds,
+                    batch=B, seq=S, seed=0)
+    n = pop.params_per_client
+    shallow, deep = _group_sizes(cfg, pop.client_params, K)
+    mask = D.transformer_shallow_mask(cfg, pop.client_params)
+    print(f"weight baselines: {K} x {cfg.name}, {cfg.n_layers} layers at "
+          f"full width, {n / 1e9:.3f} B params each ({shallow / 1e9:.3f} B "
+          f"shallow, {deep / 1e9:.3f} B deep)")
+    fwd_name, bwd_name, mod = mixer
+    mod.launches = mod.bwd_launches = 0            # the main path starts here
+    tokens = K * B * S
+    for strategy, rounds in ((FedAvg(), fedavg_rounds),
+                             (AsyncWeights(delta=2, min_round=1),
+                              async_rounds)):
+        fed = Federation(pop, strategy)
+        for r in range(rounds):
+            before = (mod.launches, mod.bwd_launches)
+            torch.cuda.reset_peak_memory_stats()
+            _, secs = _timed(lambda: fed.run(until=r + 1))
+            rl = fed.history.rounds[-1]
+            if strategy.name == "fedavg":
+                want = 2 * K * n * 4
+                ok = _synced(pop.client_params, mask, K, "all")
+                what = "every leaf identical across clients"
+            else:
+                layer = layer_schedule(r, 2, 1)
+                other = "deep" if layer == "shallow" else "shallow"
+                want = 2 * K * (shallow if layer == "shallow" else deep) * 4
+                ok = rl.layer == layer \
+                    and _synced(pop.client_params, mask, K, layer) \
+                    and not _synced(pop.client_params, mask, K, other)
+                what = (f"{layer} group identical across clients, {other} "
+                        f"group not")
+            got = (mod.launches - before[0], mod.bwd_launches - before[1])
+            print(f"{strategy.name} round {r}"
+                  f"{' (' + rl.layer + ')' if rl.layer else ''}: {secs:.3f} "
+                  f"s wall, {tokens / secs:.0f} trained tok/s; local loss "
+                  f"{_fmt(rl.client_loss)}; comm_bytes {rl.comm_bytes} "
+                  f"(analytic {want}); {what}: {ok}; {fwd_name} / "
+                  f"{bwd_name} launches {got[0]} / {got[1]}; peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+            if not ok or rl.comm_bytes != want:
+                raise AssertionError(f"{strategy.name} round {r} failed its "
+                                     f"checks")
+            if got[0] < 2 * cfg.n_layers or got[1] < cfg.n_layers:
+                raise AssertionError(f"the local step did not run through "
+                                     f"{fwd_name} / {bwd_name}")
+            if not np.isfinite(rl.client_loss).all():
+                raise AssertionError("non-finite local losses")
+    counts = {fwd_name: mod.launches, bwd_name: mod.bwd_launches}
+    print(f"weight baselines on {card}: launches {counts} over "
+          f"{fedavg_rounds + async_rounds} rounds")
+    del fed, pop, mask
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -1073,9 +1379,10 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
 def main() -> int:
     check_cuda()
     env = phase_env()
+    from repro_torch.api import SparseDML
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels import sparse_kl, ssd_scan
     cfg = get_config("qwen3-4b")
     tcfg = cfg.replace(n_layers=4)     # full width; depth cut to fit K=3
     K, B, S0 = 2, 2, 512
@@ -1104,26 +1411,34 @@ def main() -> int:
     # the mamba2 round's Eq.-2 term: checked, its rows kept at qwen3-4b's
     phase_kl(MTK, max(1, MTB // 2) * MTS, mcfg.vocab_size)
     kernels += phase_ssd(ssd_train, ssd_serve)
+    # the SparseDML rounds' Eq.-2 term at qwen3-4b's and mamba2's shapes
+    kernels += phase_sparse_kl([(max(1, TB // 2) * TS, cfg.vocab_size),
+                                (max(1, MTB // 2) * MTS, mcfg.vocab_size)],
+                               TK)
+    flash = ("flash_attention_fwd", "flash_attention_bwd", fa)
     paths = []
-    for phase, args in (
-            (phase_serve, (env["card"], cfg, reqs,
-                           ("flash_attention_fwd", fa), K, B, S0)),
-            (phase_train, (env["card"], tcfg,
-                           ("flash_attention_fwd", "flash_attention_bwd",
-                            fa), TK, TB, TS)),
-            (phase_serve, (env["card"], mcfg, mreqs, ("ssd_scan_fwd",
-                                                      ssd_scan),
-                           MK, MB, MS0, 32, None)),
-            (phase_train, (env["card"], mcfg,
-                           ("ssd_scan_fwd", "ssd_scan_bwd", ssd_scan),
-                           MTK, MTB, MTS, 3, None))):
+    for phase in (
+            lambda: phase_serve(env["card"], cfg, reqs,
+                                ("flash_attention_fwd", fa), K, B, S0),
+            lambda: phase_train(env["card"], tcfg, flash, TK, TB, TS),
+            lambda: phase_serve(env["card"], mcfg, mreqs,
+                                ("ssd_scan_fwd", ssd_scan), MK, MB, MS0, 32,
+                                None),
+            lambda: phase_train(env["card"], mcfg,
+                                ("ssd_scan_fwd", "ssd_scan_bwd", ssd_scan),
+                                MTK, MTB, MTS, 3, None),
+            lambda: phase_train(env["card"], tcfg, flash, TK, TB, TS,
+                                strategy=SparseDML(k=64),
+                                eq2=("sparse_kl_fwd", "sparse_kl_bwd",
+                                     sparse_kl)),
+            lambda: phase_weights(env["card"], tcfg, flash, TK, TB, TS)):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        paths.append(phase(*args))
-    print("launches on each path (qwen3-4b serving, qwen3-4b training, "
-          "mamba2-780m serving, mamba2-780m training): "
-          + json.dumps(paths))
+        paths.append(phase())
+    print("launches on each path (qwen3-4b serving, qwen3-4b DML training, "
+          "mamba2-780m serving, mamba2-780m training, qwen3-4b SparseDML "
+          "training, qwen3-4b FedAvg + AsyncWeights): " + json.dumps(paths))
     for row in kernels:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)
     print(json.dumps({"kernels": kernels}))

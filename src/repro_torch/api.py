@@ -7,8 +7,10 @@
 """
 from repro_torch.core.api import Federation, History, RoundLog
 from repro_torch.core.populations import LMClients, Population
-from repro_torch.core.strategies import (DML, STRATEGIES, Payload, Strategy,
-                                         get_strategy)
+from repro_torch.core.strategies import (DML, STRATEGIES, AsyncWeights,
+                                         FedAvg, Payload, SparseDML,
+                                         Strategy, get_strategy)
 
 __all__ = ["Federation", "History", "RoundLog", "Strategy", "Payload",
-           "STRATEGIES", "get_strategy", "DML", "Population", "LMClients"]
+           "STRATEGIES", "get_strategy", "DML", "SparseDML", "FedAvg",
+           "AsyncWeights", "Population", "LMClients"]

@@ -14,8 +14,14 @@ Each step's loss is a plain function (``local_total_loss``,
 ``mutual_total_loss``, ``dml_total_loss``) that tests and ``chip_smoke.py``
 can differentiate on their own.  A step returns ``(params, opt,
 metrics)``; it updates the params and moments IN PLACE (``adamw_update``)
-and returns the same objects.  ``fedavg_sync``, ``async_sync`` and the
-device-sharded step come with later slices of the port.
+and returns the same objects.  With ``sparse_k`` the Eq.-2 term is
+SparseDML's: each client's top-k (index, log-prob) sets of the detached
+public logits, against which every client descends (``_mutual_term``).
+
+The weight-sharing baselines on the client axis: ``fedavg_sync`` and
+``async_sync`` (with ``transformer_shallow_mask``) average in fp32 and
+write the params IN PLACE.  The device-sharded step comes with a later
+slice of the port.
 """
 from __future__ import annotations
 
@@ -24,7 +30,10 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.mutual import mutual_kl_loss
+from repro_torch.core.async_fl import layer_schedule
+from repro_torch.core.fedavg import client_mean, normalised_scores
+from repro_torch.core.mutual import (mutual_kl_loss, sparse_mutual_kl_loss,
+                                     topk_predictions)
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
@@ -64,6 +73,24 @@ def _public_ce_and_logits(sparams, cfg: ModelConfig, tokens, remat: bool,
     return tfm.next_token_ce(logits, tokens), logits
 
 
+def _mutual_term(flat, temperature: float, sparse_k: int, part_mask,
+                 received, impl: str):
+    """Eq. 2 term (K,) of the public logits ``flat`` (K, B*S, V): dense (the
+    full logits shared) or SparseDML's top-k sharing
+    (``repro/core/distributed.py:118-131``).  The top-k sets are taken from
+    the detached logits unless the caller passes the ``received`` (idx,
+    logp) sets that crossed the wire."""
+    if not sparse_k:
+        return mutual_kl_loss(flat, temperature, part_mask=part_mask,
+                              impl=impl)
+    if part_mask is not None:
+        raise ValueError("sparse top-k sharing + partial participation is "
+                         "not supported by the fused LM step")
+    if received is None:
+        received = topk_predictions(flat.detach(), sparse_k, temperature)
+    return sparse_mutual_kl_loss(flat, *received, temperature, impl=impl)
+
+
 def local_total_loss(sparams, cfg: ModelConfig, tokens, part_mask=None, *,
                      remat: bool = True, impl: str):
     """Private CE summed over the participants: absentees' losses are
@@ -77,13 +104,14 @@ def local_total_loss(sparams, cfg: ModelConfig, tokens, part_mask=None, *,
 def mutual_total_loss(sparams, cfg: ModelConfig, public_tokens,
                       part_mask=None, *, kl_weight: float = 1.0,
                       temperature: float = 1.0, ce_weight: float = 1.0,
-                      remat: bool = True, impl: str):
-    """Eq. 1 on the public batch: CE(public) + kl_weight * KLD_avg."""
+                      remat: bool = True, sparse_k: int = 0, impl: str):
+    """Eq. 1 on the public batch: CE(public) + kl_weight * KLD_avg, the
+    latter against top-k sets when ``sparse_k`` (``_mutual_term``)."""
     ce_pub, fwd = _public_ce_and_logits(sparams, cfg, public_tokens, remat,
                                         impl)
     K, B, S, V = fwd.shape
-    kl = mutual_kl_loss(fwd.reshape(K, B * S, V), temperature,
-                        part_mask=part_mask, impl=impl)
+    kl = _mutual_term(fwd.reshape(K, B * S, V), temperature, sparse_k,
+                      part_mask, None, impl)
     w = _mask(part_mask, kl.device)
     total = ce_weight * torch.sum(ce_pub * w) + kl_weight * torch.sum(kl)
     return total, {"public_ce": ce_pub.detach(), "kld_avg": kl.detach()}
@@ -91,19 +119,21 @@ def mutual_total_loss(sparams, cfg: ModelConfig, public_tokens,
 
 def dml_total_loss(sparams, cfg: ModelConfig, tokens, public_tokens,
                    part_mask=None, *, kl_weight: float = 1.0,
-                   temperature: float = 1.0, remat: bool = True, impl: str):
+                   temperature: float = 1.0, remat: bool = True,
+                   sparse_k: int = 0, received=None, impl: str):
     """One fused DML round's loss: private CE + public CE + kl_weight *
     Eq. 2, summed over the clients (``make_dml_train_step``'s
     ``total_loss``, ``repro/core/distributed.py:222-250``).  ``tokens``
-    (K, B, S) private, ``public_tokens`` (B_pub, S) shared.  Returns
-    (total, {"private_loss", "public_ce", "kld_avg"} of (K,))."""
+    (K, B, S) private, ``public_tokens`` (B_pub, S) shared; ``sparse_k``
+    and ``received`` as in ``_mutual_term``.  Returns (total,
+    {"private_loss", "public_ce", "kld_avg"} of (K,))."""
     priv, _ = tfm.loss_fn_clients(sparams, cfg, tokens, remat=remat,
                                   impl=impl)
     ce_pub, fwd = _public_ce_and_logits(sparams, cfg, public_tokens, remat,
                                         impl)
     K, B, S, V = fwd.shape
-    kl = mutual_kl_loss(fwd.reshape(K, B * S, V), temperature,
-                        part_mask=part_mask, impl=impl)
+    kl = _mutual_term(fwd.reshape(K, B * S, V), temperature, sparse_k,
+                      part_mask, received, impl)
     w = _mask(part_mask, kl.device)
     total = (torch.sum(priv * w) + torch.sum(ce_pub * w)
              + kl_weight * torch.sum(kl))
@@ -189,8 +219,8 @@ def make_local_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
 def make_mutual_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                      kl_weight: float = 1.0, temperature: float = 1.0,
-                     remat: bool = True, ce_weight: float = 1.0, *,
-                     impl: str):
+                     remat: bool = True, ce_weight: float = 1.0,
+                     sparse_k: int = 0, *, impl: str):
     """Eq. 1 on the public batch: ``step(params, opt, public_tokens
     (B_pub, S), part_mask=None)``.  Absentees are masked out of the Eq.-2
     average and their params and moments pass through unchanged."""
@@ -198,7 +228,7 @@ def make_mutual_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         _, metrics, grads = value_and_grad(
             mutual_total_loss, stacked_params, cfg, public_tokens, part_mask,
             kl_weight=kl_weight, temperature=temperature,
-            ce_weight=ce_weight, remat=remat, impl=impl)
+            ce_weight=ce_weight, remat=remat, sparse_k=sparse_k, impl=impl)
         params, opt, om = _update(stacked_params, opt_state, grads, opt_cfg,
                                   part_mask)
         return params, opt, {**metrics, **om}
@@ -207,22 +237,94 @@ def make_mutual_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
 def make_dml_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                         kl_weight: float = 1.0, temperature: float = 1.0,
-                        remat: bool = True, *, impl: str):
+                        remat: bool = True, sparse_k: int = 0, *,
+                        impl: str):
     """One fused DML round-step: private CE + Eq. 1 on the public batch in
     one AdamW update with one global-norm clip over the stacked tree.
     ``step(params, opt, tokens (K, B, S), public_tokens (B_pub, S),
     part_mask=None)``.  ``impl`` is the kernel impl the population resolved:
-    it runs the attention forward and backward and the Eq.-2 term."""
+    it runs the attention forward and backward and the Eq.-2 term, which
+    is SparseDML's with ``sparse_k`` > 0."""
     def step(stacked_params, opt_state, tokens, public_tokens,
              part_mask=None):
         _, metrics, grads = value_and_grad(
             dml_total_loss, stacked_params, cfg, tokens, public_tokens,
             part_mask, kl_weight=kl_weight, temperature=temperature,
-            remat=remat, impl=impl)
+            remat=remat, sparse_k=sparse_k, impl=impl)
         params, opt, om = _update(stacked_params, opt_state, grads, opt_cfg,
                                   part_mask)
         return params, opt, {**metrics, **om}
     return step
+
+
+# ---------------------------------------------------------------------------
+# weight-sharing baselines on the client axis (in place)
+
+def fedavg_sync(stacked_params: Params, part_mask=None) -> Params:
+    """All-reduce(params)/K over the client axis (a vanilla FL round),
+    averaged in fp32 and cast back, IN PLACE.  With ``part_mask`` (K,) 0/1
+    only participants are averaged and only participants receive the
+    aggregate (absentees are offline): the JAX package's
+    ``weighted_average_weights`` then ``client_lerp``."""
+    leaves = tree_leaves(stacked_params)
+    device = leaves[0].device
+    rows = w = None
+    if part_mask is not None:
+        rows = torch.as_tensor([c for c, m in enumerate(part_mask) if m],
+                               dtype=torch.long, device=device)
+        w = normalised_scores(part_mask, device)
+    for p in leaves:
+        avg = client_mean(p, w).to(p.dtype)
+        if rows is None:
+            p.copy_(avg.expand(p.shape))
+        else:
+            p[rows] = avg.expand((len(rows),) + tuple(p.shape[1:]))
+    return stacked_params
+
+
+def transformer_shallow_mask(cfg: ModelConfig, stacked_params: Params):
+    """Float lerp-mask tree, each leaf (1, ...) broadcast against its param:
+    embed/projector and the first half of the periods are 'shallow'
+    (synced every round); the rest is 'deep'."""
+    half = cfg.n_periods // 2
+
+    def mask_like(names, p):
+        if "periods" in names:
+            per = (torch.arange(cfg.n_periods, device=p.device) < half)
+            return per.float().reshape((1, cfg.n_periods)
+                                       + (1,) * (p.dim() - 2))
+        fill = 1.0 if ("embed" in names or "projector" in names) else 0.0
+        return torch.full((1,) * p.dim(), fill, device=p.device)
+
+    def walk(tree, names):
+        if isinstance(tree, dict):
+            return {k: walk(v, names + (k,)) for k, v in tree.items()}
+        return mask_like(names, tree)
+
+    return walk(stacked_params, ())
+
+
+def async_sync(stacked_params: Params, scores, shallow_mask,
+               round_idx: int, delta: int = 3, min_round: int = 5,
+               part_mask=None) -> Params:
+    """Metric-weighted partial sync (the async baseline) on the client
+    axis, IN PLACE: this round's scheduled group (``layer_schedule``) takes
+    the ``scores``-weighted average, in fp32, cast back.  With
+    ``part_mask`` (K,) 0/1 absentees keep their params (the JAX
+    population's ``client_lerp`` after ``async_sync``)."""
+    layer = layer_schedule(round_idx, delta, min_round)
+    leaves = tree_leaves(stacked_params)
+    w = normalised_scores(scores, leaves[0].device)
+    pm = None if part_mask is None else torch.as_tensor(
+        part_mask, dtype=torch.float32, device=leaves[0].device)
+    for p, m in zip(leaves, tree_leaves(shallow_mask)):
+        pf = p.float()
+        avg = client_mean(p, w)
+        lerp = m if layer == "shallow" else 1.0 - m
+        if pm is not None:
+            lerp = lerp * pm.reshape((-1,) + (1,) * (p.dim() - 1))
+        p.copy_(pf * (1 - lerp) + avg * lerp)
+    return stacked_params
 
 
 # ---------------------------------------------------------------------------

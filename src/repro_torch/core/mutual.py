@@ -11,7 +11,12 @@ Two gradient semantics:
     "cuda" runs the pair-KL kernel and its backward.
   - ``mutual_kl_eval``: forward-only, the sharing/eval readout.
 
-The sparse (top-k), robust and Bernoulli halves come with their slices.
+The sparse half: clients publish only the top-k (index, log-prob) pairs of
+their predictions (``topk_predictions``) and the receiver rebuilds each
+distribution with a uniform tail over the other V - k entries
+(``sparse_mutual_kl_loss``, ``sparse_kl_to_received``); impl "cuda" runs
+the sparse-KL kernel and its backward.  The robust and Bernoulli halves
+come with their slices.
 """
 from __future__ import annotations
 
@@ -100,3 +105,126 @@ def mutual_kl_eval(all_logits, temperature: float = 1.0, *, impl: str):
     """Forward-only Eq. 2 (the sharing/benchmark readout): (K, B, V) ->
     (K, B); "cuda" runs the square case through the pair-KL forward."""
     return ops.mutual_kl(all_logits, temperature=temperature, impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# sparse (top-k) prediction sharing: clients publish only (indices,
+# log-probs) of their top-k tokens; the receiver treats the residual mass as
+# uniform over the tail.  Cross-client bytes drop by V/(2k).
+
+def _log_softmax(x):
+    """``jax.nn.log_softmax``'s arithmetic (shifted - log sum exp(shifted)),
+    so that which values tie is decided as in the JAX package."""
+    shifted = x - torch.amax(x, dim=-1, keepdim=True)
+    return shifted - torch.log(torch.sum(torch.exp(shifted), dim=-1,
+                                         keepdim=True))
+
+
+def _topk_lax_order(x, k: int):
+    """The k largest entries along the last axis in ``lax.top_k``'s order:
+    values descending, ties toward the lower index.  Returns (values,
+    indices (int64)).
+
+    ``torch.topk`` promises no order among ties, which are common at the
+    k-th place of bf16 logits over a wide vocabulary.  Its k-th value
+    bounds the set: every entry above it is in, and where ties at it cross
+    the k-th place, every entry at or above it is a candidate.  A stable
+    sort of the candidates by index, then by value, gives the order.
+    """
+    vals, idx = torch.topk(x, k, dim=-1)
+    n_ge = torch.sum(x >= vals[..., -1:], dim=-1)
+    wide = int(n_ge.max())
+    if wide > k:
+        vals, idx = torch.topk(x, wide, dim=-1)
+    idx, order = torch.sort(idx, dim=-1)
+    vals = torch.gather(vals, -1, order)
+    vals, order = torch.sort(vals, dim=-1, descending=True, stable=True)
+    return vals[..., :k], torch.gather(idx, -1, order)[..., :k]
+
+
+def topk_predictions(logits, k: int, temperature: float = 1.0):
+    """What a client publishes: (indices (..., k) int32, log-probs
+    (..., k) fp32) of its top-k tokens, in ``lax.top_k``'s order."""
+    logp = _log_softmax(logits.float() / temperature)
+    vals, idx = _topk_lax_order(logp, k)
+    return idx.to(torch.int32), vals
+
+
+def sparse_mutual_kl_loss(live_logits, idx, logp_top,
+                          temperature: float = 1.0, *, impl: str):
+    """Eq. 2 against RECEIVED sparse predictions.
+
+    live_logits: (K, B, V), local and differentiable.  idx, logp_top:
+    (K, B, k), the received top-k sets (detached here).  Per pair
+
+        KL(P_i || ~P_j) = -H(P_i) - c_j (1 - s_ij) - sum_t p_i[idx_j,t] logp_j[t]
+
+    with s_ij = sum_t p_i[idx_j,t] and c_j = log(residual_j / (V - k)).
+    Returns (K,) per-client means over B.  ``impl`` "cuda" runs the
+    sparse-KL kernel with w = (1 - I) / (K - 1); "ref" the plain graph.
+    """
+    K, B, V = live_logits.shape
+    k = idx.shape[-1]
+    idx = idx.detach()
+    logp_top = logp_top.detach().float()
+    if impl != "ref":
+        pair_w = _pair_mask(K, None, live_logits.device)
+        terms = ops.sparse_mutual_kl(live_logits, idx, logp_top, pair_w,
+                                     temperature=temperature, impl=impl)
+        return torch.mean(terms, dim=-1)
+    lp_live = torch.log_softmax(live_logits.float() / temperature, dim=-1)
+    p_live = torch.exp(lp_live)                                  # (K,B,V)
+    neg_h = torch.sum(p_live * lp_live, dim=-1)                  # (K,B)
+    residual = torch.clamp(1.0 - torch.sum(torch.exp(logp_top), dim=-1),
+                           1e-9, 1.0)                            # (K,B)
+    c = torch.log(residual / max(V - k, 1))                      # (K,B)
+    # one (K, B, k) gather per sender j: no (K, K, B, V) operand
+    p_at = torch.stack([torch.gather(p_live, -1, idx[j].long()[None]
+                                     .expand(K, B, k))
+                        for j in range(K)], dim=1)               # (i,j,B,k)
+    s = torch.sum(p_at, dim=-1)                                  # (i,j,B)
+    cross_top = torch.sum(p_at * logp_top[None], dim=-1)         # (i,j,B)
+    kl = neg_h[:, None, :] - c[None] * (1.0 - s) - cross_top
+    mask = (1.0 - torch.eye(K, device=kl.device))[:, :, None]
+    terms = torch.sum(kl * mask, dim=1) / max(K - 1, 1)          # (K,B)
+    return torch.mean(terms, dim=-1)
+
+
+def sparse_kl_to_received(live_logits, idx, logp_top,
+                          temperature: float = 1.0, *, impl: str):
+    """Eq. 2 for ONE client against RECEIVED sparse (top-k) predictions.
+
+    live_logits: (B, V), local and differentiable.  idx, logp_top:
+    (J, B, k), the J other participants' top-k sets (detached here).
+    Returns (B,) = 1/J * sum_j KL_j, with the tail model of
+    ``sparse_mutual_kl_loss``.  ``impl`` "cuda" runs the sparse-KL kernel
+    with Kl = 1 and uniform 1/J weights.
+    """
+    J, B, k = idx.shape
+    V = live_logits.shape[-1]
+    idx = idx.detach()
+    logp_top = logp_top.detach().float()
+    if impl != "ref":
+        pair_w = torch.full((1, J), 1.0 / max(J, 1), dtype=torch.float32,
+                            device=live_logits.device)
+        terms = ops.sparse_mutual_kl(live_logits[None], idx, logp_top,
+                                     pair_w, temperature=temperature,
+                                     impl=impl)
+        return terms[0]
+    lp_live = torch.log_softmax(live_logits.float() / temperature, dim=-1)
+    p_live = torch.exp(lp_live)                                  # (B,V)
+    neg_h = torch.sum(p_live * lp_live, dim=-1)                  # (B,)
+    residual = torch.clamp(1.0 - torch.sum(torch.exp(logp_top), dim=-1),
+                           1e-9, 1.0)                            # (J,B)
+    c = torch.log(residual / max(V - k, 1))                      # (J,B)
+    p_at = torch.gather(p_live[None].expand(J, B, V), -1, idx.long())
+    s = torch.sum(p_at, dim=-1)                                  # (J,B)
+    cross_top = torch.sum(p_at * logp_top, dim=-1)               # (J,B)
+    kl = neg_h[None] - c * (1.0 - s) - cross_top                 # (J,B)
+    return torch.sum(kl, dim=0) / max(J, 1)
+
+
+def sparse_share_bytes(n_clients: int, n_examples: int, k: int) -> int:
+    """Per-round traffic of top-k sharing (int32 idx + fp32 logp, up and
+    down)."""
+    return 2 * n_clients * n_examples * k * 8

@@ -14,6 +14,7 @@ from typing import List
 import numpy as np
 
 from repro_torch.core.strategies.base import NOT_PORTED, not_ported
+from repro_torch.tree import tree_leaves
 
 
 class Population:
@@ -54,8 +55,22 @@ class Population:
         """Materialise the round's shared public data."""
         raise NotImplementedError
 
+    def weights_payload(self, r: int):
+        """What a weight strategy's round carries besides the weights: by
+        default nothing."""
+        return None
+
     def mutual_phase(self, r, part, pm, payload, kl_weight, mutual_epochs,
                      sparse_k: int = 0) -> dict:
+        raise NotImplementedError
+
+    def fedavg_combine(self, part: List[int], pm) -> None:
+        raise NotImplementedError
+
+    def async_combine(self, r, part, pm, delta, min_round, pub) -> str:
+        raise NotImplementedError
+
+    def async_param_counts(self):
         raise NotImplementedError
 
     @property
@@ -77,3 +92,16 @@ class Population:
 
     def load_state_dict(self, state: dict, meta: dict) -> None:
         raise NotImplementedError
+
+
+def broadcast_mask_counts(stacked_params, mask_tree, n_clients: int):
+    """(n_in_mask, n_outside_mask) per client for broadcast-shaped float
+    mask trees (``distributed.transformer_shallow_mask``, whose leaves are
+    (1, ...) selectors broadcast against the param leaves)."""
+    n_in = n_out = 0.0
+    for p, m in zip(tree_leaves(stacked_params), tree_leaves(mask_tree)):
+        reps = p.numel() / m.numel()       # how often the mask broadcasts
+        inside = float(m.float().sum()) * reps
+        n_in += inside
+        n_out += p.numel() - inside
+    return int(round(n_in / n_clients)), int(round(n_out / n_clients))

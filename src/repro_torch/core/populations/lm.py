@@ -2,11 +2,17 @@
 behind the ``Federation`` session layer (``repro/core/populations/lm.py``).
 
 K same-arch clients live as a leading axis on every param and optimizer
-leaf; with the dml strategy one round is ONE fused update
-(``distributed.make_dml_train_step``): private CE + Eq. 1 on the round's
-public batch.  Private data is per-client synthetic bigram streams (one
-domain per client -- non-IID); the public batch is fresh every round.
-The batches are the JAX package's, token for token.
+leaf.  Per strategy, one round is:
+
+  - dml / sparse-dml: ONE fused update (``distributed.make_dml_train_step``):
+    private CE + Eq. 1 on the round's public batch, the Eq.-2 term against
+    the full public logits or their top-k sets;
+  - fedavg / async: ``make_local_train_step`` for the local phase, then
+    ``fedavg_sync`` / ``async_sync`` on the stacked axis.
+
+Private data is per-client synthetic bigram streams (one domain per
+client -- non-IID); the public batch is fresh every round.  The batches
+are the JAX package's, token for token.
 
 ``device=None`` means the CUDA device and raises without one; pass
 ``device="cpu"`` to run on the CPU.  The kernel impl is resolved once here
@@ -21,7 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import distributed as D
-from repro_torch.core.populations.base import Population
+from repro_torch.core.async_fl import layer_schedule
+from repro_torch.core.populations.base import (Population,
+                                               broadcast_mask_counts)
 from repro_torch.data.synthetic import make_token_stream
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tfm
@@ -33,7 +41,7 @@ class LMClients(Population):
     """K stacked same-arch LM clients on synthetic domain streams."""
 
     engine_name = "lm"
-    supported = frozenset({"dml"})
+    supported = frozenset({"dml", "sparse-dml", "fedavg", "async"})
     fused_dml = True
     log_participants_always = True
 
@@ -54,6 +62,7 @@ class LMClients(Population):
         self.client_opts = D.stacked_adamw_init(self.client_params)
         self._steps = {}
         self._last_metrics = {}
+        self._shallow = None           # the async baseline's lerp mask
 
     def validate_strategy(self, strategy) -> None:
         super().validate_strategy(strategy)
@@ -82,11 +91,12 @@ class LMClients(Population):
             domain=self.n_clients)[:, :self.seq])
 
     # -- cached steps -----------------------------------------------------
-    def _dml_step(self, kl_weight: float):
-        key = ("dml", kl_weight)
+    def _dml_step(self, kl_weight: float, sparse_k: int):
+        key = ("dml", kl_weight, sparse_k)
         if key not in self._steps:
             self._steps[key] = D.make_dml_train_step(
-                self.cfg, self.opt_cfg, kl_weight=kl_weight, impl=self.impl)
+                self.cfg, self.opt_cfg, kl_weight=kl_weight,
+                sparse_k=sparse_k, impl=self.impl)
         return self._steps[key]
 
     def _local_step(self):
@@ -115,11 +125,12 @@ class LMClients(Population):
             losses = self.local_phase(r, part, pm)
             return {"ran": False, "positions": 0, "client_loss": losses,
                     "kl_loss": [0.0] * self.n_clients}
-        if sparse_k:
-            raise NotImplementedError("sparse top-k sharing comes with "
-                                      "slice D of the port")
+        if sparse_k and len(part) < self.n_clients:
+            raise ValueError("sparse top-k sharing + partial participation "
+                             "is not supported by the fused LM step")
         part_mask = pm if len(part) < self.n_clients else None
-        self.client_params, self.client_opts, m = self._dml_step(kl_weight)(
+        step = self._dml_step(kl_weight, sparse_k)
+        self.client_params, self.client_opts, m = step(
             self.client_params, self.client_opts, self._private_batch(r),
             pub, part_mask=part_mask)
         self._last_metrics = m
@@ -128,6 +139,30 @@ class LMClients(Population):
                 "client_loss": m["private_loss"].tolist(),
                 "public_ce": m["public_ce"].tolist(),
                 "kl_loss": m["kld_avg"].tolist()}
+
+    def fedavg_combine(self, part: List[int], pm) -> None:
+        full = len(part) == self.n_clients
+        D.fedavg_sync(self.client_params, None if full else pm)
+
+    def async_combine(self, r, part, pm, delta, min_round, pub) -> str:
+        ce = self._last_metrics["ce"].float().cpu().numpy()
+        # weighting metric: inverse local loss, masked so absentees
+        # contribute no weight and receive nothing back
+        scores = (1.0 / (1.0 + np.maximum(ce, 0.0))) * pm
+        full = len(part) == self.n_clients
+        D.async_sync(self.client_params, scores, self._shallow_mask(), r,
+                     delta, min_round, part_mask=None if full else pm)
+        return layer_schedule(r, delta, min_round)
+
+    def _shallow_mask(self):
+        if self._shallow is None:
+            self._shallow = D.transformer_shallow_mask(self.cfg,
+                                                       self.client_params)
+        return self._shallow
+
+    def async_param_counts(self):
+        return broadcast_mask_counts(self.client_params,
+                                     self._shallow_mask(), self.n_clients)
 
     @property
     def bytes_per_position(self) -> int:

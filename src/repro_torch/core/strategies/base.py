@@ -8,11 +8,12 @@ protocol steps:
     round_payload  the strategy declares (and the population materialises)
                    what will cross client boundaries this round
     combine        the cross-client update (Eq.-1 descent against the
-                   received predictions)
+                   received predictions, or a weight aggregation)
     comm_bytes     the ledger entry for exactly the payload that moved
 
 Populations expose the capabilities; strategies orchestrate them and own
-every protocol hyperparameter (``kl_weight``, ``mutual_epochs``).
+every protocol hyperparameter (``kl_weight``, ``mutual_epochs``,
+``sparse_k``, ``delta``, ...).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ class Payload:
 
     kind      'predictions' | 'sparse-predictions' | 'weights'
     data      population-specific payload source (the LM population: the
-              round's public tokens); may be None
+              round's public tokens for prediction strategies); may be None
     positions number of shared prediction positions (payload size axis);
               filled by ``combine`` for prediction strategies
     """
@@ -64,9 +65,6 @@ STRATEGIES: Dict[str, type] = {}
 # the JAX package's other strategies, and the slice of the port each
 # comes with (ROADMAP.md)
 NOT_PORTED: Dict[str, str] = {
-    "sparse-dml": "slice D (SparseDML)",
-    "fedavg": "the weight-strategy item of queue 1",
-    "async": "the weight-strategy item of queue 1",
     "dp-dml": "the privacy item of queue 1",
     "trimmed-dml": "the privacy item of queue 1",
     "median-dml": "the privacy item of queue 1",

@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import kl_mutual, ref, ssd_scan
+from repro_torch.kernels import kl_mutual, ref, sparse_kl, ssd_scan
 from repro_torch.kernels.flash_attention import flash_attention
 
 IMPLS = ("ref", "cuda")
@@ -110,6 +110,25 @@ def mutual_kl_pair(live, fixed, pair_w, *, temperature: float = 1.0,
         raise ValueError("impl 'cuda' needs CUDA tensors, got "
                          f"{live.device}")
     return kl_mutual.kl_mutual_pair(live, fixed, pair_w,
+                                    temperature=temperature)
+
+
+def sparse_mutual_kl(live, idx, logp_top, pair_w, *,
+                     temperature: float = 1.0, impl: str):
+    """Pair-weighted Eq. 2 against RECEIVED sparse (top-k) predictions:
+    live (Kl, B, V) x idx/logp_top (J, B, k) with (Kl, J) weights ->
+    (Kl, B).  Differentiable on the live side at every impl: "cuda" runs
+    the sparse-KL kernel and its backward, "ref" the plain version under
+    autograd.  The SparseDML hot path (``core.mutual.sparse_mutual_kl_loss``
+    and ``sparse_kl_to_received`` route here)."""
+    _check_impl(impl)
+    if impl == "ref":
+        return ref.sparse_kl_pair(live, idx, logp_top, pair_w,
+                                  temperature=temperature)
+    if not live.is_cuda:
+        raise ValueError("impl 'cuda' needs CUDA tensors, got "
+                         f"{live.device}")
+    return sparse_kl.sparse_kl_topk(live, idx, logp_top, pair_w,
                                     temperature=temperature)
 
 

@@ -106,6 +106,41 @@ def mutual_kl_pair(live, fixed, pair_w, temperature: float = 1.0
     return torch.sum(kl * pair_w.float()[:, :, None], dim=1)
 
 
+def sparse_kl_pair(live, idx, logp_top, pair_w, temperature: float = 1.0
+                   ) -> torch.Tensor:
+    """Pair-weighted Eq. 2 against RECEIVED sparse (top-k) predictions
+    (``repro/kernels/ref.py:150``).
+
+    live: (Kl, B, V), the differentiable side.  idx, logp_top: (J, B, k),
+    the shared top-k sets.  pair_w: (Kl, J) weights.  Returns (Kl, B) fp32:
+
+        out[i, b] = sum_j w[i, j] * KL(P_i(b) || ~Q_j(b))
+
+    with ~Q_j = the top-k mass of Q_j + a uniform tail over the V - k
+    residual (the SparseDML reconstruction), i.e. per pair
+
+        KL_ij = -H(P_i) - c_j (1 - s_ij) - sum_t p_i[idx_j,t] logp_j[t]
+
+    where s_ij = sum_t p_i[idx_j,t] and c_j = log(residual_j / (V - k)).
+    """
+    Kl, B, V = live.shape
+    J, _, k = idx.shape
+    lp_live = torch.log_softmax(live.float() / temperature, dim=-1)
+    p_live = torch.exp(lp_live)                                  # (Kl,B,V)
+    neg_h = torch.sum(p_live * lp_live, dim=-1)                  # (Kl,B)
+    logp = logp_top.float()                                      # (J,B,k)
+    residual = torch.clamp(1.0 - torch.sum(torch.exp(logp), dim=-1),
+                           1e-9, 1.0)
+    c = torch.log(residual / max(V - k, 1))                      # (J,B)
+    # p_at[i, j, b, t] = p_live[i, b, idx[j, b, t]]
+    p_at = torch.gather(p_live[:, None].expand(Kl, J, B, V), -1,
+                        idx.long()[None].expand(Kl, J, B, k))
+    s = torch.sum(p_at, dim=-1)                                  # (Kl,J,B)
+    cross = torch.sum(p_at * logp[None], dim=-1)                 # (Kl,J,B)
+    kl = neg_h[:, None, :] - c[None] * (1.0 - s) - cross
+    return torch.einsum("ij,ijb->ib", pair_w.float(), kl)
+
+
 # ---------------------------------------------------------------------------
 # Mamba2 SSD (state-space duality) chunked scan
 

@@ -9,10 +9,16 @@ LM clients through ``repro_torch.api.Federation`` (the JAX package's
       --clients 3 --steps 2 --device cpu         # plain PyTorch on the CPU
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
       --method dml --device cpu                  # reduced mamba2 (SSD) clients
+  PYTHONPATH=src python -m repro_torch.launch.train --method dml \
+      --clients 3 --strategy sparse-dml --sparse-k 64 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.train --method dml \
+      --clients 3 --strategy fedavg --steps 4 --device cpu   # or async
 
-Only the dml strategy is ported; the JAX CLI's other strategies, the
-single-model and heterogeneous methods and ``--mesh`` raise, naming the
-slice of the port they come with.  The full-width run is ``chip_smoke.py``'s.
+``--strategy`` picks what crosses the wire: dml, sparse-dml, fedavg or
+async.  The JAX CLI's privacy and robust strategies, the single-model and
+heterogeneous methods and ``--mesh`` are not ported; those strategies
+raise, naming the slice of the port they come with.  The full-width run is
+``chip_smoke.py``'s.
 """
 from __future__ import annotations
 
@@ -25,12 +31,20 @@ from repro_torch.configs import ARCH_IDS, get_reduced
 from repro_torch.core.strategies import NOT_PORTED, get_strategy
 
 
+def _make_strategy(args):
+    """The strategy of ``--strategy`` from one knob namespace (the JAX
+    CLI's ``_make_strategy``); ``get_strategy`` drops the knobs it does not
+    take."""
+    return get_strategy(args.strategy, kl_weight=args.kl_weight,
+                        k=args.sparse_k)
+
+
 def _run_federated_lm(args, cfg) -> int:
-    """Stacked same-arch LM clients (fused round updates)."""
+    """Stacked same-arch LM clients."""
     from repro_torch.api import Federation, LMClients
 
     t0 = time.time()
-    strategy = get_strategy(args.strategy, kl_weight=args.kl_weight)
+    strategy = _make_strategy(args)
     population = LMClients(cfg, n_clients=args.clients, rounds=args.steps,
                            batch=args.batch, seq=args.seq, lr=args.lr,
                            seed=args.seed, device=args.device,
@@ -64,9 +78,12 @@ def main(argv=None) -> int:
                     help="stacked same-arch clients (the single-model and "
                          "heterogeneous methods are not ported yet)")
     ap.add_argument("--strategy", default="dml",
-                    choices=["dml", *NOT_PORTED],
-                    help="what crosses the wire each round (only dml is "
-                         "ported)")
+                    choices=["dml", "sparse-dml", "fedavg", "async",
+                             *NOT_PORTED],
+                    help="what crosses the wire each round (dml, "
+                         "sparse-dml, fedavg and async are ported)")
+    ap.add_argument("--sparse-k", type=int, default=64,
+                    help="top-k kept per position for --strategy sparse-dml")
     ap.add_argument("--clients", type=int, default=2)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=4)

@@ -255,3 +255,89 @@ def test_ssd_kernel_refuses_before_launch(cuda, bad):
     with pytest.raises(ValueError):
         ssd_scan.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
     assert ssd_scan.launches == f
+
+
+# ---------------------------------------------------------------------------
+# the sparse (top-k) KL
+
+def _sparse_inputs(device, dtype, Kl, J, B, V, k, T, overlap, seed=0):
+    """Live logits in ``dtype``; each sender's top-k (idx int32, logp fp32)
+    of its own logits, with ``overlap`` making the senders share half their
+    entries and repeat one, as SparseDML's overlapping sets do."""
+    from repro_torch.core.mutual import topk_predictions
+    gen = torch.Generator(device=device).manual_seed(seed)
+    live = (3 * torch.randn(Kl, B, V, generator=gen, device=device)) \
+        .to(dtype)
+    idx, lp = topk_predictions(
+        3 * torch.randn(J, B, V, generator=gen, device=device), k, T)
+    if overlap:
+        idx[..., 1] = idx[..., 0]
+        idx[1:, :, :k // 2] = idx[0, :, :k // 2]
+    w = torch.rand(Kl, J, generator=gen, device=device)
+    gbar = torch.randn(Kl, B, generator=gen, device=device)
+    return live, idx, lp, w, gbar
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Kl,J,B,V,k,T,overlap", [
+    (3, 3, 64, 151_936, 64, 1.0, True),  # the SparseDML path's width
+    (1, 2, 7, 5_003, 16, 2.0, True),     # Kl = 1 (the per-client form)
+    (2, 3, 5, 300, 300, 0.5, False),     # k = V: no uniform tail
+    (4, 2, 9, 1_000, 33, 1.3, True)])
+def test_sparse_kl_kernels_match_plain(cuda, dtype, Kl, J, B, V, k, T,
+                                       overlap):
+    """The sparse-KL forward (atol 1e-4 + rtol 1e-4: an fp32 streaming sum
+    against a two-pass softmax) and backward (relative norm 1e-5 in fp32,
+    2e-2 in bf16, where dlive is rounded once) against
+    ``ref.sparse_kl_pair`` and its autograd on the same idx and logp."""
+    from repro_torch.kernels import sparse_kl
+    live, idx, lp, w, gbar = _sparse_inputs(cuda, dtype, Kl, J, B, V, k, T,
+                                            overlap)
+    outs, grads = [], []
+    before = (sparse_kl.launches, sparse_kl.bwd_launches)
+    for fn in (sparse_kl.sparse_kl_topk, ref.sparse_kl_pair):
+        a = live.detach().clone().requires_grad_(True)
+        out = fn(a, idx, lp, w, temperature=T)
+        out.backward(gbar)
+        outs.append(out.detach())
+        grads.append(a.grad.float())
+    assert (sparse_kl.launches, sparse_kl.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-4, rtol=1e-4)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    got, want = grads
+    assert ((got - want).norm() / want.norm()).item() < tol
+
+
+def test_sparse_kl_tied_row_and_ops_dispatch(cuda):
+    """A row whose logits all tie (every index tied with the received
+    ones), through ``ops.sparse_mutual_kl(impl="cuda")``."""
+    from repro_torch.kernels import sparse_kl
+    live, idx, lp, w, _ = _sparse_inputs(cuda, torch.float32, 2, 2, 4, 2_000,
+                                         8, 1.0, False)
+    live[:, 0] = 0.25
+    before = sparse_kl.launches
+    got = ops.sparse_mutual_kl(live, idx, lp, w, impl="cuda")
+    assert sparse_kl.launches == before + 1
+    torch.testing.assert_close(got, ref.sparse_kl_pair(live, idx, lp, w),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("bad", ["idx_dtype", "too_many", "shape",
+                                 "device"])
+def test_sparse_kl_kernel_refuses_before_launch(cuda, bad):
+    from repro_torch.kernels import sparse_kl
+    live, idx, lp, w, _ = _sparse_inputs(cuda, torch.float32, 2, 2, 3, 9_000,
+                                         8, 1.0, False)
+    if bad == "idx_dtype":
+        idx = idx.long()
+    elif bad == "too_many":                     # J * k > 4096
+        idx, lp = idx.repeat(1, 1, 300), lp.repeat(1, 1, 300)
+    elif bad == "shape":
+        w = w[:, :1]
+    else:
+        lp = lp.cpu()
+    before = sparse_kl.launches
+    with pytest.raises(ValueError):
+        sparse_kl.sparse_kl_topk(live, idx, lp, w)
+    assert sparse_kl.launches == before

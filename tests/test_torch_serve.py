@@ -323,7 +323,9 @@ TRAINING_MODULES = (
     "repro_torch.data.federated", "repro_torch.kernels.kl_mutual",
     "repro_torch.optim", "repro_torch.launch.train",
     "repro_torch.configs.mamba2_780m", "repro_torch.kernels.ssd_scan",
-    "repro_torch.models.ssm")
+    "repro_torch.models.ssm", "repro_torch.kernels.sparse_kl",
+    "repro_torch.core.fedavg", "repro_torch.core.async_fl",
+    "repro_torch.core.strategies.weights")
 
 
 def test_port_imports_no_jax_and_no_repro():

@@ -466,15 +466,15 @@ def test_session_helpers_match_jax():
     a, b = torch.randn(3, 4), torch.randn(3, 4)
     got = stacking.client_lerp({"x": a}, {"x": b}, [1.0, 0.0, 1.0])["x"]
     assert torch.equal(got[0], b[0]) and torch.equal(got[1], a[1])
-    with pytest.raises(NotImplementedError, match="slice D"):
-        get_strategy("sparse-dml", k=8)
+    with pytest.raises(NotImplementedError, match="privacy item"):
+        get_strategy("dp-dml", dp_noise_multiplier=1.0)
     pop = LMClients(get_reduced("qwen3-4b"), n_clients=2, rounds=1, batch=2,
                     seq=8, device="cpu")
 
-    class FedAvgLike:
-        name = "fedavg"
-    with pytest.raises(NotImplementedError, match="weight-strategy"):
-        Federation(pop, FedAvgLike())
+    class TrimmedLike:
+        name = "trimmed-dml"
+    with pytest.raises(NotImplementedError, match="privacy item"):
+        Federation(pop, TrimmedLike())
     with pytest.raises(ValueError, match="mutual_epochs"):
         Federation(pop, DML(mutual_epochs=2))
     h = Federation(pop, DML()).evaluate()
