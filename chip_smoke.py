@@ -6,10 +6,14 @@ Phases, each fatal on failure:
   1. environment and kernel build: the card's name and power limit, torch
      and CUDA versions, and the seconds the CUDA kernels took to build from
      the sources in this checkout (one ``nvcc`` per source, all at once);
+     for the flash libraries, each bf16 tensor-core kernel's registers and
+     spill stores and the count of HGMMA and HMMA instructions in the SASS;
   2. every kernel against its plain PyTorch version on the card, at the
      serving and training paths' shapes and around them, with the kernel's
      time beside its bound, the plain version's time and a library
-     yardstick: the flash-attention forward and backward, the Eq.-2
+     yardstick (and for the flash kernels the achieved TFLOP/s of each; the
+     forward also at the training path's shapes): the flash-attention
+     forward and backward, the Eq.-2
      pair-KL forward and backward (at qwen3-4b's and mamba2-780m's
      vocabularies), ``mutual_kl`` through the pair forward, the SSD
      chunked scan's forward and backward, and the sparse (top-k) KL's
@@ -17,7 +21,8 @@ Phases, each fatal on failure:
   3. the serving path at the full width of qwen3-4b: a K=2 client ensemble
      from seeded random weights serves ``generate``, continuous batching
      and route mode, and the flash kernel's launch count shows that it ran
-     through it;
+     through it; the first token's and a decode step's device busy time
+     against their wall time;
   4. the training path at the full width of qwen3-4b cut to 4 of its 36
      layers: ``Federation(LMClients(..., n_clients=3), DML())`` trains 3
      fused DML rounds through the kernels (launch counts checked), reads
@@ -52,6 +57,8 @@ from __future__ import annotations
 import concurrent.futures
 import gc
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -102,6 +109,35 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 # phase 1
 
+def ptxas_report(log: str) -> list:
+    """(entry, registers, spill-store bytes) of each kernel in a library's
+    ptxas report: each entry's spill line precedes its register line."""
+    kernels, entry, spill = [], None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split()[-1])
+        elif "Used " in line and "registers" in line:
+            kernels.append((entry, int(line.split("Used ")[1].split()[0]),
+                            spill))
+            spill = 0
+    return kernels
+
+
+def print_tensor_core_sass(name: str) -> None:
+    """The count of warpgroup (HGMMA) and warp (HMMA) tensor-core
+    instructions in a library's SASS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {op: sum(f" {op}." in ln or f" {op} " in ln
+                      for ln in sass.splitlines())
+              for op in ("HGMMA", "HMMA")}
+    print(f"  SASS of {name}: {counts['HGMMA']} HGMMA and {counts['HMMA']} "
+          f"HMMA instructions")
+
+
 def phase_env() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -117,14 +153,20 @@ def phase_env() -> dict:
         list(ex.map(_build.build, KERNEL_SOURCES))   # raises if one fails
     for name in KERNEL_SOURCES:
         _build.load(name)
-        log = _build.library_path(name).with_suffix(".log").read_text()
-        regs = [int(line.split("Used ")[1].split()[0])
-                for line in log.splitlines()
-                if "Used " in line and "registers" in line]
-        spills = sum(int(line.split("bytes spill stores")[0].split()[-1])
-                     for line in log.splitlines() if "spill stores" in line)
+        kernels = ptxas_report(
+            _build.library_path(name).with_suffix(".log").read_text())
+        regs = [r for _, r, _ in kernels]
         print(f"build {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
-              f"registers, {spills} bytes of spill stores")
+              f"registers, {sum(sp for _, _, sp in kernels)} bytes of spill "
+              f"stores")
+        if name.startswith("flash_attention"):
+            # the bf16 tensor-core kernels, one line each
+            for entry, r, sp in kernels:
+                tc = re.search(r"(attn_\w+?_tc)ILi(\d+)E", entry)
+                if tc:
+                    print(f"  {tc[1]}<{tc[2]}>: {r} registers, {sp} bytes "
+                          f"of spill stores")
+            print_tensor_core_sass(name)
     print(f"built {len(KERNEL_SOURCES)} libraries in parallel: "
           f"{time.perf_counter() - t0:.1f} s")
     return {"card": card}
@@ -181,8 +223,8 @@ def phase_flash_fwd(main_shape, admit_batch, admit_lens,
     prompts (``main_shape``) and ``admit_batch`` = K sequences of each
     admitted request length (``admit_lens``), bf16, causal -- and the
     training run's (``train_shapes``: (batch, S) pairs)."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
     gen = torch.Generator(device="cuda").manual_seed(0)
     tol = {torch.float32: dict(out=1e-4, rtol=0.0, lse=1e-4),
            torch.bfloat16: dict(out=2e-2, rtol=2e-2, lse=1e-3)}
@@ -203,7 +245,7 @@ def phase_flash_fwd(main_shape, admit_batch, admit_lens,
     worst = {}
     for b, (hq, hkv, d), S, window, dtype, causal in cases + path:
         q, k, v = _qkv(b, S, hq, hkv, d, dtype, gen)
-        errs = _check(flash_attention, ref, q, k, v, causal, window,
+        errs = _check(fa.flash_attention, ref, q, k, v, causal, window,
                       tol[dtype], f"B={b} Hq={hq} Hkv={hkv} hd={d} S={S} "
                       f"window={window} {dtype} causal={causal}")
         n, e, el = worst.get(dtype, (0, 0.0, 0.0))
@@ -219,23 +261,41 @@ def phase_flash_fwd(main_shape, admit_batch, admit_lens,
           f"B={admit_batch} S in {list(admit_lens)}; at the training "
           f"path's: (B, S) in {list(train_shapes)}")
 
-    # time at the serving path's generate/route prefill shape
-    q, k, v = _qkv(B, S0, Hq, Hkv, hd, bf16, gen)
-    ms = time_ms(lambda: flash_attention(q, k, v))
-    plain_ms = time_ms(lambda: ref.attention_lse(q, k, v), iters=5)
-    G = Hq // Hkv
-    qt = q.transpose(1, 2)
-    kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
-    vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    # time at the serving path's generate/route prefill shape, then at the
+    # training path's shapes (16 launches a DML round there)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
-    ops_ms, bytes_ms = attention_bound_ms(B, S0, Hq, Hkv, hd, bf16)
-    bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
-    print(f"flash_attention at (B={B}, S={S0}, Hq={Hq}, Hkv={Hkv}, hd={hd}) "
-          f"bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (library) "
-          f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-          f"(causal flops / 989 TFLOP/s {ops_ms:.4f} ms, bytes / 3.35 TB/s "
-          f"{bytes_ms:.4f} ms); max |err| {max_err:.3g}")
+    G = Hq // Hkv
+    for i, (b, S) in enumerate([(B, S0)] + list(train_shapes)):
+        q, k, v = _qkv(b, S, Hq, Hkv, hd, bf16, gen)
+        # through the paths' entry flash_attention() (the span of the
+        # kernels line), and apart the launch function alone (allocation,
+        # three TMA maps, the kernel) without the autograd wrapper's host
+        # work
+        t_ms = time_ms(lambda: fa.flash_attention(q, k, v))
+        launch_ms = time_ms(lambda: fa._forward(q, k, v, True, None))
+        qt = q.transpose(1, 2)
+        kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+        ops_ms, bytes_ms = attention_bound_ms(b, S, Hq, Hkv, hd, bf16)
+        tflops = ops_ms * 989 / t_ms      # causal flops / time, TFLOP/s
+        line = (f"flash_attention at (B={b}, S={S}, Hq={Hq}, Hkv={Hkv}, "
+                f"hd={hd}) bf16: {t_ms:.4f} ms ({tflops:.1f} TFLOP/s), "
+                f"launch function _forward alone {launch_ms:.4f} ms "
+                f"({ops_ms * 989 / launch_ms:.1f} TFLOP/s), sdpa (library) "
+                f"{lib_ms:.4f} ms ({ops_ms * 989 / lib_ms:.1f} TFLOP/s)")
+        if i == 0:
+            ms, library_ms = t_ms, lib_ms
+            plain_ms = time_ms(lambda: ref.attention_lse(q, k, v), iters=5)
+            bound_ms, bound_by = max((ops_ms, "operations"),
+                                     (bytes_ms, "bytes"))
+            line += (f", plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+                     f"by {bound_by} (causal flops / 989 TFLOP/s "
+                     f"{ops_ms:.4f} ms, bytes / 3.35 TB/s {bytes_ms:.4f} "
+                     f"ms); max |err| {max_err:.3g}")
+        else:
+            line += f"; bound {max(ops_ms, bytes_ms):.4f} ms"
+        print(line)
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:34",
@@ -349,10 +409,12 @@ def phase_flash_bwd(train_shape, train_shapes) -> dict:
     nbytes = (4 * B0 * S0 * Hq * hd + 4 * B0 * S0 * Hkv * hd) * elt \
         + B0 * Hq * S0 * 4
     bound_ms, bound_by = _bound(10.0 * hd * pairs, nbytes, BF16)
+    tflops = 10.0 * hd * pairs / ms / 1e9          # TFLOP/s
     print(f"flash backward at (B={B0}, S={S0}, Hq={Hq}, Hkv={Hkv}, hd={hd}) "
-          f"bf16: {ms:.4f} ms, plain (autograd of ref, fwd+bwd - fwd) "
-          f"{plain_ms:.4f} ms, sdpa (library, fwd+bwd - fwd) "
-          f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+          f"bf16: {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain (autograd of "
+          f"ref, fwd+bwd - fwd) {plain_ms:.4f} ms, sdpa (library, fwd+bwd "
+          f"- fwd) {library_ms:.4f} ms ({tflops * ms / library_ms:.1f} "
+          f"TFLOP/s); bound {bound_ms:.4f} ms by {bound_by} "
           f"(10 hd flops per unmasked pair / 989 TFLOP/s; q, k, v, out, "
           f"dout, lse read and dq, dk, dv written / 3.35 TB/s); max |err| "
           f"{max_err:.3g}")
@@ -850,14 +912,23 @@ def _print_top(by_name, per: float, unit: str, n: int = 6) -> None:
               f"{name[:90]}")
 
 
-def profile_decode(eng, prompts, step_secs: float, steps: int = 8) -> None:
-    """Device time of the decode loop under ``torch.profiler``: the kernels
-    of ``steps`` decode steps (a generate of ``steps`` minus one of a single
-    step), their busy time per step against the unprofiled wall time per
-    step ``step_secs``, and the kernels that take most of it."""
+def profile_decode(eng, prompts, step_secs: float, ttft_secs: float,
+                   steps: int = 8) -> None:
+    """Device time under ``torch.profiler`` of the first token (a generate
+    of one token: the prefill and its sample) against its unprofiled wall
+    time ``ttft_secs``, and of the decode loop: the kernels of ``steps``
+    decode steps (a generate of ``steps`` minus one of a single step),
+    their busy time per step against the unprofiled wall time per step
+    ``step_secs``, and the kernels that take most of each."""
+    first = device_busy(lambda: eng.generate(prompts, 1))
+    first_us = sum(us for us, _ in first.values())
+    print(f"time to first token: {ttft_secs * 1e3:.1f} ms wall "
+          f"(unprofiled), {first_us / 1e3:.2f} ms device busy in "
+          f"{sum(cnt for _, cnt in first.values())} kernels (profiled) -> "
+          f"device idle {1 - first_us / 1e6 / ttft_secs:.1%}")
+    _print_top(first, 1, "call", 4)
     by_name = device_busy(lambda: eng.generate(prompts, 1 + steps))
-    for name, (us, cnt) in device_busy(
-            lambda: eng.generate(prompts, 1)).items():
+    for name, (us, cnt) in first.items():
         us0, cnt0 = by_name.get(name, (0.0, 0))
         by_name[name] = (us0 - us, cnt0 - cnt)
     busy_us = sum(us for us, _ in by_name.values()) / steps
@@ -1005,7 +1076,7 @@ def phase_serve(card: str, cfg, reqs, kernel, K: int = 2, B: int = 2,
     _prefill_parity(cfg, params, ids, kw, a, b, bf16_limit)
 
     step = (steady - ttft) / (gen - 1)
-    profile_decode(avg, prompts, step)
+    profile_decode(avg, prompts, step, ttft)
     n_cb = sum(len(done[r]) for r in rids)
     print(f"serve {cfg.name} on {card}: average K={K} B={B} prompt {S0}: "
           f"warmup "

@@ -87,6 +87,17 @@ def _check(q, k, v, window, dout=None) -> None:
     if max(S, k.shape[1]) >= 2 ** 31 or B >= 2 ** 16:
         raise ValueError(f"shape {tuple(q.shape)} exceeds the launch grid "
                          "(B < 65536, S < 2**31)")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernels copy 16-byte rows (TMA, cp.async)
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            strides = [st for n, st in zip(t.shape[:3], t.stride()[:3])
+                       if n > 1]
+            if t.data_ptr() % 16 or any(st % 8 for st in strides):
+                raise ValueError(
+                    f"bf16 {name} must start on a 16-byte boundary and have "
+                    f"batch, sequence and head strides of whole 16 bytes; "
+                    f"got address offset {t.data_ptr() % 16}, strides "
+                    f"{t.stride()}")
     if dout is not None and (dout.shape != q.shape or dout.dtype != q.dtype
                              or dout.device != q.device):
         raise ValueError(f"gradient of out {tuple(dout.shape)} "
@@ -124,6 +135,8 @@ def _backward(q, k, v, out, lse, dout, causal: bool,
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     dout = dout.contiguous()
+    if dout.data_ptr() % 16:           # an offset view: the kernels copy
+        dout = dout.clone()            # 16-byte rows
     fn = _bwd_kernel()
     with torch.cuda.device(q.device):
         delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)

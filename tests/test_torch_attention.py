@@ -124,6 +124,37 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(bad):
         fa._check(q, k, v, window, dout)
 
 
+@pytest.mark.parametrize("bad", [None, "q_offset", "k_offset", "v_offset",
+                                 "v_strides"])
+def test_flash_check_refuses_misaligned_bf16_views(bad):
+    """The bf16 tensor-core kernels copy 16-byte rows (TMA, cp.async), so
+    ``_check`` refuses a bf16 view whose base pointer or batch, sequence
+    or head stride is not a whole 16 bytes, before any launch.  A view
+    ``x[..., 1:1 + hd]`` of a wider tensor starts 2 bytes off; a head axis
+    of hd + 4 elements gives strides of 8-byte multiples.  fp32 keeps the
+    FMA kernels, which take any such view."""
+    hd = 32
+    q, k, v = (t.to(torch.bfloat16) for t in _t(*_inputs(1, 8, 8, 4, 2, hd)))
+    if bad in ("q_offset", "k_offset", "v_offset"):
+        name = bad[0]
+        x = {"q": q, "k": k, "v": v}[name]
+        wide = torch.zeros(*x.shape[:3], hd + 8, dtype=torch.bfloat16)
+        view = wide[..., 1:1 + hd]
+        view.copy_(x)
+        assert view.data_ptr() % 16 == 2
+        q, k, v = (view if n == name else t
+                   for n, t in (("q", q), ("k", k), ("v", v)))
+    elif bad == "v_strides":
+        v = torch.zeros(1, 8, 2, hd + 4, dtype=torch.bfloat16)[..., :hd]
+    if bad is None:
+        fa._check(q, k, v, None)        # the aligned views pass
+        return
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._check(q, k, v, None)
+    q32 = torch.zeros(1, 8, 4, hd + 8)[..., 1:1 + hd]   # 4 bytes off
+    fa._check(q32, k.float(), v.float(), None)          # fp32 takes it
+
+
 def test_impl_policy():
     q, k, v = _t(*_inputs(1, 8, 8, 2, 2, 16))
     with pytest.raises(ValueError, match="needs CUDA tensors"):

@@ -110,6 +110,68 @@ def test_flash_backward_matches_autograd_of_plain(cuda, dtype, B, S, Hq, Hkv,
         assert err.item() < tol
 
 
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,hd,window,causal", [
+    (2, 1, 1, 8, 8, 64, None, True),          # one row, G = 1
+    (2, 17, 17, 8, 2, 32, None, True),        # G = 4
+    (1, 65, 65, 32, 4, 128, 37, True),        # G = 8, window 37
+    (2, 130, 130, 8, 2, 64, None, False),     # non-causal
+    (1, 1000, 1000, 8, 1, 128, 256, True),    # window 256 in 128-row tiles
+    (1, 1000, 1000, 16, 4, 64, 37, True),
+    (2, 130, 200, 4, 4, 32, None, False),     # T != S
+    (1, 65, 300, 8, 2, 128, None, True),      # T > S, causal
+    (3, 17, 130, 8, 8, 128, 256, False)])     # non-causal window
+def test_flash_bf16_tensor_core_edges(cuda, B, S, T, Hq, Hkv, hd, window,
+                                      causal):
+    """The bf16 tensor-core kernels at ragged lengths (none a multiple of
+    a tile), every head dim, G = 1, 4, 8, windows, non-causal and T != S,
+    with v (and k) strided slices of a fused projection: the forward
+    against ``ref.attention_lse`` (out atol/rtol 2e-2, one rounding of out
+    and of P to bf16; lse atol 1e-3), dq, dk, dv against its autograd
+    (relative norm 2e-2: P and ds are rounded to bf16 before their
+    products, the gradients once more; the norm floored at 1, since at
+    S = T = 1 dq is 0 up to rounding)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(B, S, Hq, hd, generator=gen, device=cuda).bfloat16()
+    kv = torch.randn(B, T, 2 * Hkv, hd, generator=gen, device=cuda)
+    kv = kv.bfloat16()
+    dout = torch.randn(B, S, Hq, hd, generator=gen, device=cuda).bfloat16()
+    outs, grads = [], []
+    before = fa.launches, fa.bwd_launches
+    for fn in (fa.flash_attention, ref.attention_lse):
+        qx = q.clone().requires_grad_(True)
+        kvx = kv.clone().requires_grad_(True)
+        out, lse = fn(qx, kvx[:, :, :Hkv], kvx[:, :, Hkv:], causal=causal,
+                      window=window)
+        out.backward(dout)
+        outs.append((out.detach().float(), lse))
+        grads.append((qx.grad.float(), kvx.grad[:, :, :Hkv].float(),
+                      kvx.grad[:, :, Hkv:].float()))
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    (out, lse), (want, want_lse) = outs
+    torch.testing.assert_close(out, want, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    for got, exp in zip(*grads):
+        assert ((got - exp).norm() / max(exp.norm().item(), 1.0)) < 2e-2
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_bf16_refuses_misaligned_view(cuda, which):
+    """A bf16 view 2 bytes off a 16-byte boundary (``x[..., 1:1 + hd]`` of
+    a wider tensor) raises before any launch: the kernels' TMA and cp.async
+    copies move 16-byte rows."""
+    q, k, v = _qkv(cuda, torch.bfloat16)
+    x = {"q": q, "k": k, "v": v}[which]
+    wide = torch.zeros(*x.shape[:3], x.shape[3] + 8, device=cuda,
+                       dtype=torch.bfloat16)
+    view = wide[..., 1:1 + x.shape[3]]
+    view.copy_(x)
+    args = [view if n == which else t for n, t in zip("qkv", (q, k, v))]
+    before = fa.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(*args)
+    assert fa.launches == before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Kl,Kg,B,V,T,fixed_grad", [
     (3, 3, 64, 151_936, 1.0, False),   # the training shape's width
