@@ -6,8 +6,9 @@ Phases, each fatal on failure:
   1. environment and kernel build: the card's name and power limit, torch
      and CUDA versions, and the seconds the CUDA kernels took to build from
      the sources in this checkout (one ``nvcc`` per source, all at once);
-     for the flash libraries, each bf16 tensor-core kernel's registers and
-     spill stores and the count of HGMMA and HMMA instructions in the SASS;
+     for the flash and SSD libraries, each bf16 tensor-core kernel's
+     registers and spill stores and the count of HGMMA and HMMA
+     instructions in the SASS;
   2. every kernel against its plain PyTorch version on the card, at the
      serving and training paths' shapes and around them, with the kernel's
      time beside its bound, the plain version's time and a library
@@ -15,9 +16,11 @@ Phases, each fatal on failure:
      forward also at the training path's shapes): the flash-attention
      forward and backward, the Eq.-2
      pair-KL forward and backward (at qwen3-4b's and mamba2-780m's
-     vocabularies), ``mutual_kl`` through the pair forward, the SSD
+     vocabularies, and past one launch's 8 clients a side: K = 9 and 16 in
+     client blocks), ``mutual_kl`` through the pair forward, the SSD
      chunked scan's forward and backward, and the sparse (top-k) KL's
-     forward and backward (at both vocabularies);
+     forward and backward (at both vocabularies, and past one launch's
+     entries: k = 2048 in sender blocks, k = 5000 read in place);
   3. the serving path at the full width of qwen3-4b: a K=2 client ensemble
      from seeded random weights serves ``generate``, continuous batching
      and route mode, and the flash kernel's launch count shows that it ran
@@ -165,6 +168,20 @@ def phase_env() -> dict:
                 tc = re.search(r"(attn_\w+?_tc)ILi(\d+)E", entry)
                 if tc:
                     print(f"  {tc[1]}<{tc[2]}>: {r} registers, {sp} bytes "
+                          f"of spill stores")
+            print_tensor_core_sass(name)
+        if name.startswith("ssd_scan"):
+            # the bf16 three-step kernels (namespace ssd_tc), one line each
+            for entry, r, sp in kernels:
+                tc = re.search(r"_ZN6ssd_tc(\d+)", entry)
+                if tc:
+                    start = tc.end()
+                    kname = entry[start:start + int(tc[1])]
+                    if "ILb1E" in entry[start:]:
+                        kname += "<fwd>"
+                    elif "ILb0E" in entry[start:]:
+                        kname += "<bwd>"
+                    print(f"  ssd_tc::{kname}: {r} registers, {sp} bytes "
                           f"of spill stores")
             print_tensor_core_sass(name)
     print(f"built {len(KERNEL_SOURCES)} libraries in parallel: "
@@ -552,6 +569,76 @@ def phase_kl(K: int, B: int, V: int) -> list:
     ]
 
 
+def phase_kl_blocks(B: int, V: int) -> None:
+    """The pair KL past one launch's MAX_CLIENTS = 8 a side, in client
+    blocks: K = 9 and 16 with Kl = Kg and Kl != Kg, fp32 and bf16,
+    participation-masked weights, T = 1.5, against ``ref.mutual_kl_pair``
+    and its autograd on the live side, and in fp32 on both sides
+    (tolerances as ``phase_kl``'s); each call counts one launch each way.
+    Then ``ops.mutual_kl`` at K = 9 against ``ref.mutual_kl``."""
+    from repro_torch.core.mutual import _pair_mask
+    from repro_torch.kernels import kl_mutual, ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    T = 1.5
+    worst = {}
+    for Kl, Kg in ((9, 9), (16, 16), (9, 16), (16, 5)):
+        K = max(Kl, Kg)
+        w = _pair_mask(K, [1.0] * (K - 1) + [0.0], "cuda")[:Kl, :Kg]
+        for dtype in (torch.float32, BF16):
+            live = (2 * torch.randn(Kl, B, V, device="cuda",
+                                    generator=gen)).to(dtype)
+            fixed = (2 * torch.randn(Kg, B, V, device="cuda",
+                                     generator=gen)).to(dtype)
+            gbar = torch.randn(Kl, B, device="cuda", generator=gen)
+            both = dtype == torch.float32
+            res = []
+            for fn in (kl_mutual.kl_mutual_pair, ref.mutual_kl_pair):
+                a = live.detach().requires_grad_(True)
+                b = fixed.detach().requires_grad_(both)
+                before = (kl_mutual.launches, kl_mutual.bwd_launches)
+                out = fn(a, b, w, temperature=T)
+                grads = torch.autograd.grad(out, (a, b) if both else (a,),
+                                            gbar)
+                res.append((out.detach(), [g.float() for g in grads],
+                            (kl_mutual.launches - before[0],
+                             kl_mutual.bwd_launches - before[1])))
+                del a, b, out, grads
+            (out, gs, n_k), (want, wgs, n_r) = res
+            lim = 1e-4 if both else 2e-2
+            b_rel = max(((g - x).norm() / x.norm()).item()
+                        for g, x in zip(gs, wgs))
+            f_err = (out - want).abs().max().item()
+            if not (torch.allclose(out, want, atol=1e-3, rtol=1e-4)
+                    and b_rel <= lim and n_k == (1, 1) and n_r == (0, 0)):
+                raise AssertionError(
+                    f"blocked pair KL at Kl={Kl} Kg={Kg} {dtype}: forward "
+                    f"max |err| {f_err:.3g}, backward relative error "
+                    f"{b_rel:.3g}, launches {n_k}")
+            n, fe, be = worst.get(dtype, (0, 0.0, 0.0))
+            worst[dtype] = (n + 1, max(fe, f_err), max(be, b_rel))
+            del live, fixed, gbar, res, out, gs, want, wgs
+            torch.cuda.empty_cache()
+    for dtype, (n, fe, be) in worst.items():
+        print(f"pair KL in client blocks (Kl, Kg) = (9, 9), (16, 16), (9, 16)"
+              f", (16, 5) at (B={B}, V={V}) {str(dtype)[6:]}: worst forward "
+              f"max |err| {fe:.3g} (limit 1e-3 + 1e-4 |out|), backward "
+              f"relative {be:.3g} (limit "
+              f"{1e-4 if dtype == torch.float32 else 2e-2}); one launch a "
+              f"call each way")
+    x = (2 * torch.randn(9, B, V, device="cuda", generator=gen)).to(BF16)
+    before = kl_mutual.mutual_kl_launches
+    got = ops.mutual_kl(x, temperature=T, impl="cuda")
+    want = ref.mutual_kl(x, T)
+    err = (got - want).abs().max().item()
+    if not (torch.allclose(got, want, atol=1e-3, rtol=1e-4)
+            and kl_mutual.mutual_kl_launches == before + 1):
+        raise AssertionError(f"mutual_kl at K=9 disagrees: {err:.3g}")
+    print(f"mutual_kl at K=9 (B={B}, V={V}) bf16 in client blocks: max "
+          f"|err| {err:.3g}")
+    del x, got, want
+    torch.cuda.empty_cache()
+
+
 def _sparse_case(gen, Kl, J, B, V, k, T, dtype, tie: bool):
     """Inputs of the sparse KL as the SparseDML path makes them: live
     logits in ``dtype``; the received (idx, logp) the top-k sets of the
@@ -617,6 +704,12 @@ def phase_sparse_kl(path_shapes, K: int) -> list:
               (K, K, 256, V0, 64, 2.0, BF16, False),
               (K, K, 128, V0, 64, 1.0, torch.float32, True),
               (2, 3, 128, 5000, 64, 1.0, BF16, True)]
+    # past one launch's 4096 entries: J * k = 6144 in sender blocks, and one
+    # sender's k = 5000 read in place
+    cases += [(K, K, 64, V0, 2048, 1.0, dtype, False)
+              for dtype in (torch.float32, BF16)]
+    cases += [(2, 1, 32, V0, 5000, 1.0, dtype, False)
+              for dtype in (torch.float32, BF16)]
     worst = {}
     for Kl, J, B, V, k, T, dtype, tie in cases:
         live, idx, lp, w, gbar = _sparse_case(gen, Kl, J, B, V, k, T, dtype,
@@ -650,7 +743,8 @@ def phase_sparse_kl(path_shapes, K: int) -> list:
               f"{tol[dtype]})")
     print(f"  the SparseDML paths' shapes (K={K}, B, V, k=64): "
           f"{list(path_shapes)}; around them Kl = 1 with J = 2, k = V, "
-          f"T 0.5 and 2, and rows whose logits all tie")
+          f"T 0.5 and 2, rows whose logits all tie, k = 2048 (sender "
+          f"blocks) and k = 5000 (in place)")
     torch.cuda.empty_cache()
 
     live, idx, lp, w, gbar = _sparse_case(gen, K, K, B0, V0, 64, 1.0, BF16,
@@ -1481,6 +1575,7 @@ def main() -> int:
     kernels += phase_kl(TK, max(1, TB // 2) * TS, cfg.vocab_size)
     # the mamba2 round's Eq.-2 term: checked, its rows kept at qwen3-4b's
     phase_kl(MTK, max(1, MTB // 2) * MTS, mcfg.vocab_size)
+    phase_kl_blocks(256, mcfg.vocab_size)
     kernels += phase_ssd(ssd_train, ssd_serve)
     # the SparseDML rounds' Eq.-2 term at qwen3-4b's and mamba2's shapes
     kernels += phase_sparse_kl([(max(1, TB // 2) * TS, cfg.vocab_size),

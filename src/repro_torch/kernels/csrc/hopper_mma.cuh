@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's bf16 tensor-core kernels:
 // PTX wrappers for shared-memory addresses, mbarriers, TMA tensor loads,
 // cp.async, warpgroup MMA (wgmma) with its shared-memory descriptors, and
-// warp MMA (mma.sync m16n8k16 with ldmatrix).  Header-only; a kernel source
-// includes it, and `_build` hashes it into every library's name.
+// warp MMA (mma.sync m16n8k16 with ldmatrix, and its operands from tiles
+// in shared memory).  Header-only; a kernel source includes it, and
+// `_build` hashes it into every library's name.
 //
 // Fragment layouts used by the kernels (g = lane / 4, t = lane % 4):
 //   * an m16n8 fp32 accumulator (mma.sync, and each 8-column block of a
@@ -94,6 +95,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                  :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
+// 4 bytes (through L1), zero-filled when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -131,6 +139,76 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
                  "{%0, %1, %2, %3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                  : "r"(addr));
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync operands from bf16 tiles in shared memory.  A tile is addressed
+// by its base, its row pitch in elements (a multiple of 8, so that every
+// row starts on 16 bytes; 8 elements more than the row's width keeps the
+// eight rows of an 8x8 matrix in distinct banks), and the first row and
+// column of the fragment.  lane = threadIdx.x % 32.
+
+// A (16 x 16) at rows m0.., columns k0.. of a tile stored [m][k].
+__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4],
+                                       const __nv_bfloat16* tile, int pitch,
+                                       int m0, int k0) {
+    const int lane = threadIdx.x & 31;
+    const int m = m0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int k = k0 + (lane >> 4) * 8;
+    ldsm_x4(a, smem_u32(tile + m * pitch + k));
+}
+
+// A (16 x 16), rows m0.., k0.., from a tile stored transposed, [k][m].
+__device__ __forceinline__ void ldsm_a_t(uint32_t (&a)[4],
+                                         const __nv_bfloat16* tile,
+                                         int pitch, int m0, int k0) {
+    const int lane = threadIdx.x & 31, j = lane >> 3;
+    const int k = k0 + (lane & 7) + (j >> 1) * 8;
+    const int m = m0 + (j & 1) * 8;
+    ldsm_x4_t(a, smem_u32(tile + k * pitch + m));
+}
+
+// The B operands (b0, b1) of two n8 tiles -- columns n0.. in r[0], r[1]
+// and n0 + 8.. in r[2], r[3] -- for the k16 step at k0, from a tile stored
+// [n][k] (each column's k values contiguous).
+__device__ __forceinline__ void ldsm_b(uint32_t (&r)[4],
+                                       const __nv_bfloat16* tile, int pitch,
+                                       int n0, int k0) {
+    const int lane = threadIdx.x & 31, j = lane >> 3;
+    const int n = n0 + (lane & 7) + (j >> 1) * 8;
+    const int k = k0 + (j & 1) * 8;
+    ldsm_x4(r, smem_u32(tile + n * pitch + k));
+}
+
+// As ldsm_b, from a tile stored [k][n] (each row's n values contiguous).
+__device__ __forceinline__ void ldsm_b_t(uint32_t (&r)[4],
+                                         const __nv_bfloat16* tile,
+                                         int pitch, int n0, int k0) {
+    const int lane = threadIdx.x & 31, j = lane >> 3;
+    const int k = k0 + (lane & 7) + (j & 1) * 8;
+    const int n = n0 + (j >> 1) * 8;
+    ldsm_x4_t(r, smem_u32(tile + k * pitch + n));
+}
+
+// The A operand of the k16 step kk of a product whose left factor is a
+// 16-row accumulator d[n8 tile][4] (k = the accumulator's columns).
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (*d)[4], int kk) {
+    a[0] = pack_bf16(d[2 * kk][0], d[2 * kk][1]);
+    a[1] = pack_bf16(d[2 * kk][2], d[2 * kk][3]);
+    a[2] = pack_bf16(d[2 * kk + 1][0], d[2 * kk + 1][1]);
+    a[3] = pack_bf16(d[2 * kk + 1][2], d[2 * kk + 1][3]);
+}
+
+// v = hi + lo with hi = bf16(v) and lo = bf16(v - hi): the pair carries
+// about 16 bits of v's mantissa (bf16 alone 8), so an fp32 operand split so
+// costs two bf16 products and keeps fp32-like accuracy.  Splits v0, v1 into
+// the packed pairs hi = (hi0, hi1) and lo = (lo0, lo1).
+__device__ __forceinline__ void split_bf16x2(float v0, float v1,
+                                             uint32_t& hi, uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = pack_bf16(v0 - __bfloat162float(h.x), v1 - __bfloat162float(h.y));
 }
 
 // ---------------------------------------------------------------------------

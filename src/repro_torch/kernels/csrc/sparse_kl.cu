@@ -43,7 +43,12 @@
 // the contributions of every entry with its index -- (J*k)^2 comparisons in
 // shared memory, ~37k a row at J*k = 192 -- and only the first such entry
 // rewrites dlive[v] with the dense and sparse terms in one fp32 expression.
-// Deterministic, no atomics, and dlive is rounded once.
+// Deterministic, no atomics, and dlive is rounded once.  A launch takes at
+// most MAX_J senders and MAX_ENTRIES entries; the wrapper cuts more senders
+// into blocks (the loss and dlive are sums over senders).  One sender whose
+// k alone exceeds the table is read in place: the entries then come from
+// the (contiguous) idx and logp in device memory instead of shared memory,
+// by the same comparisons in the same order.
 //
 // What bounds it on the H100: a few flops and one exp per element against 2
 // or 4 bytes, so HBM bytes.  At the SparseDML path's shape (Kl = J = 3,
@@ -228,7 +233,11 @@ __global__ void __launch_bounds__(NTHREADS) fwd_kernel(Params p) {
     }
 }
 
-template <typename T>
+// The backward; IN_PLACE reads one sender's k entries from idx and logp in
+// device memory (k past the shared-memory table), else the J * k entries
+// go to shared memory first.  Two instantiations, so that each path's
+// loads have a known address space.
+template <typename T, bool IN_PLACE>
 __global__ void __launch_bounds__(NTHREADS) bwd_kernel(Params p) {
     extern __shared__ float smem[];  // J*k log-probs, then J*k indices
     __shared__ float red[NTHREADS];
@@ -238,17 +247,26 @@ __global__ void __launch_bounds__(NTHREADS) bwd_kernel(Params p) {
     const int n = p.J * p.k;
     float* lq_s = smem;
     int* idx_s = reinterpret_cast<int*>(smem + n);
-    for (int e = tid; e < n; e += NTHREADS) {
-        const int j = e / p.k;
-        const long long g =
-            (static_cast<long long>(j) * p.B + b) * p.k + (e - j * p.k);
-        lq_s[e] = p.logp[g];
-        idx_s[e] = clamp_index(p.idx[g], p.V);
+    // row b's entries: J == 1 when IN_PLACE
+    const float* lq_g = p.logp + static_cast<long long>(b) * p.k;
+    const int* idx_g = p.idx + static_cast<long long>(b) * p.k;
+    auto logp_at = [&](int e) { return IN_PLACE ? lq_g[e] : lq_s[e]; };
+    auto index_at = [&](int e) {
+        return IN_PLACE ? clamp_index(idx_g[e], p.V) : idx_s[e];
+    };
+    if (!IN_PLACE) {
+        for (int e = tid; e < n; e += NTHREADS) {
+            const int j = e / p.k;
+            const long long g =
+                (static_cast<long long>(j) * p.B + b) * p.k + (e - j * p.k);
+            lq_s[e] = p.logp[g];
+            idx_s[e] = clamp_index(p.idx[g], p.V);
+        }
     }
     __syncthreads();
     for (int j = 0; j < p.J; ++j) {
         float ex = 0.f;
-        for (int t = tid; t < p.k; t += NTHREADS) ex += expf(lq_s[j * p.k + t]);
+        for (int t = tid; t < p.k; t += NTHREADS) ex += expf(logp_at(j * p.k + t));
         ex = block_sum(ex, red);
         if (tid == 0) cj[j] = tail_log(ex, p.V, p.k);
     }
@@ -285,17 +303,17 @@ __global__ void __launch_bounds__(NTHREADS) bwd_kernel(Params p) {
     // the sparse term: the first entry of each distinct index sums every
     // entry with that index and rewrites dlive there
     for (int e = tid; e < n; e += NTHREADS) {
-        const int v = idx_s[e];
+        const int v = index_at(e);
         bool first = true;
         float corr = 0.f;
         for (int f = 0; f < n; ++f) {
-            if (idx_s[f] != v) continue;
+            if (index_at(f) != v) continue;
             if (f < e) {
                 first = false;
                 break;
             }
             const int j = f / p.k;
-            corr = fmaf(p.w[i * p.J + j], cj[j] - lq_s[f], corr);
+            corr = fmaf(p.w[i * p.J + j], cj[j] - logp_at(f), corr);
         }
         if (first) {
             const float lp = load_f(row + v) * p.inv_temp - z;
@@ -331,9 +349,15 @@ int check_launch(cudaError_t err) {
 
 }  // namespace
 
+// A launch's senders: at most MAX_J, and at most MAX_ENTRIES entries unless
+// there is one sender.
+static bool senders_ok(int J, int k) {
+    return J >= 1 && J <= MAX_J && (J == 1 || J * k <= MAX_ENTRIES);
+}
+
 // Forward: writes out (Kl, B) and stats (3, Kl, B) fp32.  Returns the first
-// CUDA error (0 on success).  The caller has checked shapes (J <= 64,
-// J * k <= 4096), dtypes, devices and strides.
+// CUDA error (0 on success).  The caller has checked shapes (senders_ok,
+// k <= V), dtypes, devices and strides.
 extern "C" int sparse_kl_fwd(
     const void* live, const void* idx, const void* logp, const void* w,
     void* out, void* stats, long long l_sk, long long l_sb, int Kl, int J,
@@ -345,8 +369,7 @@ extern "C" int sparse_kl_fwd(
     void* args[] = {&p};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const dim3 grid(B, Kl);
-    if (J < 1 || J > MAX_J || J * k > MAX_ENTRIES)
-        return static_cast<int>(cudaErrorInvalidValue);
+    if (!senders_ok(J, k)) return static_cast<int>(cudaErrorInvalidValue);
     if (is_bf16)
         return check_launch(cudaLaunchKernel(&fwd_kernel<__nv_bfloat16>,
                                              grid, dim3(NTHREADS), args, 0,
@@ -370,14 +393,21 @@ extern "C" int sparse_kl_bwd(
     void* args[] = {&p};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const dim3 grid(B, Kl);
-    if (J < 1 || J > MAX_J || J * k > MAX_ENTRIES)
-        return static_cast<int>(cudaErrorInvalidValue);
+    if (!senders_ok(J, k)) return static_cast<int>(cudaErrorInvalidValue);
+    if (J * k > MAX_ENTRIES) {       // one sender: its entries in place
+        if (is_bf16)
+            return check_launch(cudaLaunchKernel(
+                &bwd_kernel<__nv_bfloat16, true>, grid, dim3(NTHREADS), args,
+                0, st));
+        return check_launch(cudaLaunchKernel(&bwd_kernel<float, true>, grid,
+                                             dim3(NTHREADS), args, 0, st));
+    }
     const size_t smem_bytes = static_cast<size_t>(J) * k * 8;
     if (is_bf16)
-        return check_launch(cudaLaunchKernel(&bwd_kernel<__nv_bfloat16>,
-                                             grid, dim3(NTHREADS), args,
-                                             smem_bytes, st));
-    return check_launch(cudaLaunchKernel(&bwd_kernel<float>, grid,
+        return check_launch(cudaLaunchKernel(
+            &bwd_kernel<__nv_bfloat16, false>, grid, dim3(NTHREADS), args,
+            smem_bytes, st));
+    return check_launch(cudaLaunchKernel(&bwd_kernel<float, false>, grid,
                                          dim3(NTHREADS), args, smem_bytes,
                                          st));
 }

@@ -18,11 +18,21 @@ and autograd gives the gradient.  The forward also writes the live and
 fixed logsumexps, which the backward reads instead of recomputing them.
 The fixed side's gradient is computed only when autograd asks for it;
 ``pair_w`` is data (masks and averaging constants) and gets none.
+
+The kernel keeps each client's streaming state in registers, so one launch
+takes at most ``MAX_CLIENTS`` clients a side.  More clients are cut into
+blocks of at most that many on each side (``blocked_pair``): the loss of a
+live row is a sum over the fixed clients, so it is the sum of the fixed
+blocks' losses, and live rows are independent.  Each (live, fixed) block
+pair is one forward and one backward launch with its own saved partial
+loss and logsumexps; autograd sums a live block's gradient over the fixed
+blocks and a fixed block's over the live blocks.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 
 import torch
 
@@ -61,9 +71,8 @@ def _check(live, fixed, pair_w) -> None:
     if tuple(pair_w.shape) != (Kl, Kg):
         raise ValueError(f"pair_w {tuple(pair_w.shape)} is not (Kl, Kg) = "
                          f"{(Kl, Kg)}")
-    if not (1 <= Kl <= MAX_CLIENTS and 1 <= Kg <= MAX_CLIENTS):
-        raise ValueError(f"the kernel takes 1..{MAX_CLIENTS} clients a "
-                         f"side, got Kl={Kl}, Kg={Kg}")
+    if Kl == 0 or Kg == 0:
+        raise ValueError(f"no clients: Kl={Kl}, Kg={Kg}")
     if B == 0 or V == 0:
         raise ValueError("empty batch or vocabulary")
     if live.dtype not in DTYPES or fixed.dtype != live.dtype:
@@ -128,15 +137,41 @@ def _backward(live, fixed, w, out, lse_live, lse_fixed, g_bar,
     return dlive, dfixed
 
 
+def client_blocks(n: int, size: int = MAX_CLIENTS) -> list:
+    """Consecutive slices of at most ``size`` of ``range(n)``."""
+    return [slice(i, min(i + size, n)) for i in range(0, n, size)]
+
+
+def blocked_pair(fn, live, fixed, pair_w, size: int = MAX_CLIENTS):
+    """Eq. 2 over client blocks of at most ``size`` a side:
+    ``fn(live[L], fixed[F], pair_w[L, F]) -> (len(L), B)`` summed over the
+    fixed blocks F and stacked over the live blocks L.  With one block a
+    side ``fn`` sees the whole tensors (no slicing)."""
+    Kl, Kg = live.shape[0], fixed.shape[0]
+    if Kl <= size and Kg <= size:
+        return fn(live, fixed, pair_w)
+    rows = []
+    for L in client_blocks(Kl, size):
+        total = None
+        for F in client_blocks(Kg, size):
+            part = fn(live[L], fixed[F], pair_w[L, F])
+            total = part if total is None else total + part
+        rows.append(total)
+    return torch.cat(rows)
+
+
 class _KlMutualPair(torch.autograd.Function):
+    """One (live, fixed) block pair: its forward and backward launches.
+    ``count`` marks the block whose launches the counters record, one per
+    call of the entry point in each direction."""
 
     @staticmethod
-    def forward(ctx, live, fixed, w, temperature):
+    def forward(ctx, live, fixed, w, temperature, count):
         global launches
         out, lse_live, lse_fixed = _forward(live, fixed, w, temperature)
-        launches += 1
+        launches += count
         ctx.save_for_backward(live, fixed, w, out, lse_live, lse_fixed)
-        ctx.temperature = temperature
+        ctx.temperature, ctx.count = temperature, count
         return out
 
     @staticmethod
@@ -144,8 +179,8 @@ class _KlMutualPair(torch.autograd.Function):
         global bwd_launches
         dlive, dfixed = _backward(*ctx.saved_tensors, g_bar,
                                   ctx.temperature, ctx.needs_input_grad[1])
-        bwd_launches += 1
-        return dlive, dfixed, None, None
+        bwd_launches += ctx.count
+        return dlive, dfixed, None, None, None
 
 
 def kl_mutual_pair(live, fixed, pair_w, *, temperature: float = 1.0):
@@ -161,8 +196,12 @@ def kl_mutual_pair(live, fixed, pair_w, *, temperature: float = 1.0):
     if live.device.type != "cuda":
         raise ValueError(f"kl_mutual_pair runs on CUDA or CPU tensors, not "
                          f"{live.device}")
-    w = pair_w.detach().to(dtype=torch.float32).contiguous()
-    return _KlMutualPair.apply(live, fixed, w, float(temperature))
+    w = pair_w.detach().to(dtype=torch.float32)
+    order = itertools.count()          # the first block pair counts
+    return blocked_pair(
+        lambda a, b, wb: _KlMutualPair.apply(
+            a, b, wb.contiguous(), float(temperature),
+            int(next(order) == 0)), live, fixed, w)
 
 
 def kl_mutual(logits, *, temperature: float = 1.0):
@@ -177,7 +216,9 @@ def kl_mutual(logits, *, temperature: float = 1.0):
     if logits.device.type != "cuda":
         raise ValueError(f"kl_mutual runs on CUDA or CPU tensors, not "
                          f"{logits.device}")
-    out, _, _ = _forward(logits.detach(), logits.detach(), w,
-                         float(temperature))
+    x = logits.detach()
+    out = blocked_pair(
+        lambda a, b, wb: _forward(a, b, wb.contiguous(),
+                                  float(temperature))[0], x, x, w)
     mutual_kl_launches += 1
     return out

@@ -13,24 +13,34 @@ the design does about it.
 live (Kl, B, V) against J received top-k sets idx (J, B, k) int32 and
 logp (J, B, k) fp32 with (Kl, J) pair weights -> (Kl, B) fp32.  On CUDA
 tensors it launches the kernels or raises: live fp32 or bf16 with unit
-stride along V, 1 <= J <= 64 and J * k <= 4096.  The forward also writes
-the per-row Z, -H and C1 (``stats``), which the backward reads instead of
+stride along V, any J >= 1 and 1 <= k <= V.  The forward also writes the
+per-row Z, -H and C1 (``stats``), which the backward reads instead of
 recomputing them.  Only the live side gets a gradient: the received sets
 and the weights are data that crossed the client boundary.  On CPU tensors
 it runs the plain version ``ref.sparse_kl_pair``, and autograd gives its
 gradient.
+
+One launch takes at most ``MAX_SENDERS`` senders and, with more than one
+sender, at most ``MAX_ENTRIES`` received entries (J * k: the backward's
+table of them in shared memory).  More are cut into sender blocks
+(``sender_blocks``): the loss and the live gradient are sums over the
+senders, so each block is one forward and one backward launch with its own
+C1, and the blocks' losses and gradients add up.  A single sender whose k
+alone exceeds the table is one block, and its backward reads the entries
+from the received tensors in device memory instead of shared memory.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_SENDERS = 64
+MAX_SENDERS = 64            # one launch's senders (the backward's c_j table)
 MAX_ENTRIES = 4096          # J * k: the backward's shared-memory table
 
 # kernel launches in this process, one per call of each entry point;
@@ -67,9 +77,8 @@ def _check(live, idx, logp, pair_w) -> None:
                          f"{(Kl, J)}")
     if B == 0 or V == 0 or Kl == 0 or k == 0:
         raise ValueError("empty clients, batch, vocabulary or top-k set")
-    if not 1 <= J <= MAX_SENDERS or J * k > MAX_ENTRIES:
-        raise ValueError(f"J={J}, k={k}: the kernels take 1 <= J <= "
-                         f"{MAX_SENDERS} and J * k <= {MAX_ENTRIES}")
+    if J == 0:
+        raise ValueError("no senders")
     if k > V:
         raise ValueError(f"k={k} exceeds the vocabulary V={V}")
     if live.dtype not in DTYPES or idx.dtype != torch.int32 \
@@ -128,23 +137,46 @@ def _backward(live, idx, logp, w, stats, g_bar, temperature: float):
     return dlive
 
 
+def sender_blocks(J: int, k: int) -> list:
+    """Consecutive slices of the J senders that one launch each takes: at
+    most MAX_SENDERS senders and MAX_ENTRIES entries, or one sender."""
+    size = max(1, min(MAX_SENDERS, MAX_ENTRIES // k))
+    return [slice(j, min(j + size, J)) for j in range(0, J, size)]
+
+
+def blocked_senders(fn, live, idx, logp_top, pair_w):
+    """``fn(live, idx[S], logp_top[S], pair_w[:, S]) -> (Kl, B)`` summed over
+    the sender blocks S; with one block ``fn`` sees the whole tensors."""
+    blocks = sender_blocks(idx.shape[0], idx.shape[2])
+    if len(blocks) == 1:
+        return fn(live, idx, logp_top, pair_w)
+    total = None
+    for S in blocks:
+        part = fn(live, idx[S], logp_top[S], pair_w[:, S])
+        total = part if total is None else total + part
+    return total
+
+
 class _SparseKl(torch.autograd.Function):
+    """One sender block: its forward and backward launches.  ``count``
+    marks the block whose launches the counters record, one per call of
+    the entry point in each direction."""
 
     @staticmethod
-    def forward(ctx, live, idx, logp, w, temperature):
+    def forward(ctx, live, idx, logp, w, temperature, count):
         global launches
         out, stats = _forward(live, idx, logp, w, temperature)
-        launches += 1
+        launches += count
         ctx.save_for_backward(live, idx, logp, w, stats)
-        ctx.temperature = temperature
+        ctx.temperature, ctx.count = temperature, count
         return out
 
     @staticmethod
     def backward(ctx, g_bar):
         global bwd_launches
         dlive = _backward(*ctx.saved_tensors, g_bar, ctx.temperature)
-        bwd_launches += 1
-        return dlive, None, None, None, None
+        bwd_launches += ctx.count
+        return dlive, None, None, None, None, None
 
 
 def sparse_kl_topk(live, idx, logp_top, pair_w, *,
@@ -159,7 +191,10 @@ def sparse_kl_topk(live, idx, logp_top, pair_w, *,
     if live.device.type != "cuda":
         raise ValueError(f"sparse_kl_topk runs on CUDA or CPU tensors, not "
                          f"{live.device}")
-    w = pair_w.detach().to(dtype=torch.float32).contiguous()
-    return _SparseKl.apply(live, idx.detach().contiguous(),
-                           logp_top.detach().contiguous(), w,
-                           float(temperature))
+    w = pair_w.detach().to(dtype=torch.float32)
+    order = itertools.count()          # the first sender block counts
+    return blocked_senders(
+        lambda a, i, lp, wb: _SparseKl.apply(
+            a, i.detach().contiguous(), lp.detach().contiguous(),
+            wb.contiguous(), float(temperature), int(next(order) == 0)),
+        live, idx, logp_top, w)

@@ -7,6 +7,12 @@ The forward replaces the TPU kernel ``repro/kernels/ssd_scan.py:35``
 ``csrc/ssd_scan_fwd.cu`` and ``csrc/ssd_scan_bwd.cu``; their headers say
 what bounds them on the H100 and what the design does about it.  They are
 built with ``nvcc`` at first use (``_build``) and called through ctypes.
+bf16 inputs run Mamba2's three steps on the bf16 tensor cores (chunk
+states, a sequential pass over the chunks, chunk outputs; ``csrc/
+ssd_tc.cuh``), with each score tile computed once for a run of a group's
+heads; fp32 inputs run the exact fp32 FMA kernels.  Each entry point's C
+function starts several kernels on the current stream and takes an fp32
+scratch that the wrapper allocates (its size from ``*_workspace``).
 
 ``ssd_scan`` has the contract of the JAX ``ssd_scan`` (:223): x (B, S, H,
 P), dt (B, S, H), A (H,), B/C (B, S, G, N) with H % G == 0, zero initial
@@ -29,6 +35,7 @@ from repro_torch.kernels import _build, ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 256
+HEAD_RUN = 8      # heads a bf16 block shares its score tiles with (ssd_tc.cuh)
 
 # kernel launches in this process, one per call of each entry point;
 # chip_smoke.py reads them to show that a path went through the kernels
@@ -37,23 +44,25 @@ bwd_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_kernel():
-    """The forward's C entry point, built at first use, with its signature."""
-    fn = _build.load("ssd_scan_fwd").ssd_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+def _entry(name: str, n_ptr: int):
+    """The C entry point ``name`` of ``csrc/<name>.cu`` (``n_ptr`` pointers,
+    eight ints, the stream) and its scratch size function, built at first
+    use."""
+    lib = _build.load(name)
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    ws = getattr(lib, f"{name}_workspace")
+    ws.argtypes = [ctypes.c_int] * 8
+    ws.restype = ctypes.c_longlong
+    return fn, ws
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_kernel():
-    """The backward's C entry point (main kernel + head reduction)."""
-    fn = _build.load("ssd_scan_bwd").ssd_scan_bwd
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _workspace(ws_fn, x, shape_args):
+    """The fp32 scratch a C entry point asks for."""
+    n = ws_fn(*shape_args)
+    return torch.empty((max(n, 1),), dtype=torch.float32, device=x.device)
 
 
 def _check(x, dt, A, B_mat, C_mat, chunk: int) -> None:
@@ -92,8 +101,8 @@ def _check(x, dt, A, B_mat, C_mat, chunk: int) -> None:
         raise ValueError("x, dt, A, B, C on different devices")
     if not all(t.is_contiguous() for t in (x, dt, A, B_mat, C_mat)):
         raise ValueError("the SSD kernels take contiguous tensors")
-    if Bb >= 2 ** 16:
-        raise ValueError(f"batch {Bb} exceeds the launch grid (B < 65536)")
+    if Bb * G * -(-(H // G) // HEAD_RUN) >= 2 ** 16:
+        raise ValueError(f"batch {Bb} x {G} groups exceeds the launch grid")
 
 
 def _stream(t):
@@ -106,17 +115,18 @@ def _forward(x, dt, A, B_mat, C_mat, chunk: int):
     Bb, S, H, P = x.shape
     G, N = B_mat.shape[2], B_mat.shape[3]
     nc = -(-S // chunk)
+    shape = (Bb, S, H, P, G, N, chunk, int(x.dtype == torch.bfloat16))
+    fn, ws_fn = _entry("ssd_scan_fwd", 9)
     with torch.cuda.device(x.device):
         y = torch.empty_like(x)
         final = torch.empty((Bb, H, P, N), dtype=torch.float32,
                             device=x.device)
         states = torch.empty((Bb, H, nc, P, N), dtype=torch.float32,
                              device=x.device)
-        rc = _fwd_kernel()(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(),
-            C_mat.data_ptr(), y.data_ptr(), final.data_ptr(),
-            states.data_ptr(), Bb, S, H, P, G, N, chunk,
-            int(x.dtype == torch.bfloat16), _stream(x))
+        ws = _workspace(ws_fn, x, shape)
+        rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(),
+                C_mat.data_ptr(), y.data_ptr(), final.data_ptr(),
+                states.data_ptr(), ws.data_ptr(), *shape, _stream(x))
     if rc != 0:
         raise RuntimeError(f"ssd_scan_fwd launch failed with CUDA error {rc}")
     launches += 1
@@ -133,22 +143,21 @@ def _backward(x, dt, A, B_mat, C_mat, states, dy, dstate, chunk: int):
         dy.to(x.dtype).contiguous()
     if dstate is not None:
         dstate = dstate.float().contiguous()
+    shape = (Bb, S, H, P, G, N, chunk, int(x.dtype == torch.bfloat16))
+    fn, ws_fn = _entry("ssd_scan_bwd", 14)
     with torch.cuda.device(x.device):
         f32 = dict(dtype=torch.float32, device=x.device)
         dx = torch.empty_like(x)
         ddt = torch.empty((Bb, S, H), **f32)
         dA_part = torch.empty((Bb, H), **f32)
-        dB_part = torch.empty((Bb, S, H, N), **f32)
-        dC_part = torch.empty((Bb, S, H, N), **f32)
         dB = torch.empty_like(B_mat)
         dC = torch.empty_like(C_mat)
-        rc = _bwd_kernel()(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(),
-            C_mat.data_ptr(), states.data_ptr(), dy.data_ptr(),
-            None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
-            ddt.data_ptr(), dA_part.data_ptr(), dB_part.data_ptr(),
-            dC_part.data_ptr(), dB.data_ptr(), dC.data_ptr(), Bb, S, H, P, G,
-            N, chunk, int(x.dtype == torch.bfloat16), _stream(x))
+        ws = _workspace(ws_fn, x, shape)
+        rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(),
+                C_mat.data_ptr(), states.data_ptr(), dy.data_ptr(),
+                None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
+                ddt.data_ptr(), dA_part.data_ptr(), dB.data_ptr(),
+                dC.data_ptr(), ws.data_ptr(), *shape, _stream(x))
     if rc != 0:
         raise RuntimeError(f"ssd_scan_bwd launch failed with CUDA error {rc}")
     bwd_launches += 1

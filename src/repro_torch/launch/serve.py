@@ -5,15 +5,16 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --ckpt runs/fed.npz \
       --ensemble average --batch 2 --prompt-len 8 --gen 16
 
-  # no checkpoint: random-init single model (reduced --arch)
+  # no checkpoint: random-init single model (reduced --arch, mamba2-780m
+  # unless given, as in the JAX CLI)
   PYTHONPATH=src python -m repro_torch.launch.serve --batch 2 \
       --prompt-len 32 --gen 16
 
   # continuous batching: more requests than slots, mixed budgets
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 --slots 2
 
-  # a random-init reduced mamba2 (SSD) model on the CPU
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+  # a random-init reduced qwen3-4b (attention) model on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
       --device cpu
 
 It runs on the CUDA device unless ``--device cpu`` is given, and fails
@@ -51,7 +52,7 @@ def main(argv=None) -> int:
                     help="how to serve the K clients of --ckpt")
     ap.add_argument("--client", type=int, default=0,
                     help="client index for --ensemble single")
-    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-4b",
+    ap.add_argument("--arch", choices=ARCH_IDS, default="mamba2-780m",
                     help="arch for random-init serving (no --ckpt)")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=32)

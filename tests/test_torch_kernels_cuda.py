@@ -176,7 +176,11 @@ def test_flash_bf16_refuses_misaligned_view(cuda, which):
 @pytest.mark.parametrize("Kl,Kg,B,V,T,fixed_grad", [
     (3, 3, 64, 151_936, 1.0, False),   # the training shape's width
     (2, 5, 7, 1_000, 1.7, True),       # rectangular, ragged V, T != 1
-    (8, 8, 3, 4_099, 0.5, True)])      # the largest client count
+    (8, 8, 3, 4_099, 0.5, True),       # one launch's largest client count
+    (9, 9, 5, 3_001, 1.0, True),       # past it: client blocks of <= 8
+    (16, 16, 4, 2_048, 1.2, True),
+    (9, 16, 3, 1_500, 0.8, True),
+    (16, 5, 6, 2_000, 1.0, False)])
 def test_kl_pair_kernels_match_plain(cuda, dtype, Kl, Kg, B, V, T,
                                      fixed_grad):
     """The pair-KL forward (atol 1e-4 + rtol 1e-4: fp32 streaming against
@@ -207,6 +211,25 @@ def test_kl_pair_kernels_match_plain(cuda, dtype, Kl, Kg, B, V, T,
         assert ((got - want).norm() / want.norm()).item() < tol
 
 
+def test_kl_pair_blocks_count_one_launch_a_call(cuda):
+    """K = 16 runs as four block pairs, counted as one launch each way, and
+    ``ops.mutual_kl`` at K = 9 through the blocked pair forward."""
+    from repro_torch.kernels import kl_mutual
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(16, 5, 1_000, generator=gen, device=cuda)
+    w = (1.0 - torch.eye(16, device=cuda)) / 15
+    before = (kl_mutual.launches, kl_mutual.bwd_launches)
+    a = x.clone().requires_grad_(True)
+    kl_mutual.kl_mutual_pair(a, a.detach(), w).sum().backward()
+    assert (kl_mutual.launches, kl_mutual.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)
+    before = kl_mutual.mutual_kl_launches
+    got = ops.mutual_kl(x[:9], temperature=1.3, impl="cuda")
+    assert kl_mutual.mutual_kl_launches == before + 1
+    torch.testing.assert_close(got, ref.mutual_kl(x[:9], 1.3), atol=1e-4,
+                               rtol=1e-4)
+
+
 def test_mutual_kl_through_the_pair_kernel(cuda):
     from repro_torch.kernels import kl_mutual
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -235,7 +258,10 @@ def _ssd_inputs(device, dtype, B=2, S=300, H=8, P=64, G=2, N=128, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,H,P,G,N,chunk", [(300, 8, 64, 2, 128, 256),
                                              (100, 4, 32, 4, 16, 64),
-                                             (1, 2, 16, 1, 8, 64)])
+                                             (1, 2, 16, 1, 8, 64),
+                                             # two head runs a group
+                                             (300, 20, 64, 2, 128, 256),
+                                             (200, 12, 24, 1, 40, 128)])
 def test_ssd_kernels_match_plain(cuda, dtype, S, H, P, G, N, chunk):
     """y and final state against ``ref.ssd`` (fp32: atol/rtol 1e-4, the
     summation order; bf16: y within 2e-2 relative norm, one rounding of y),
@@ -345,7 +371,9 @@ def _sparse_inputs(device, dtype, Kl, J, B, V, k, T, overlap, seed=0):
     (3, 3, 64, 151_936, 64, 1.0, True),  # the SparseDML path's width
     (1, 2, 7, 5_003, 16, 2.0, True),     # Kl = 1 (the per-client form)
     (2, 3, 5, 300, 300, 0.5, False),     # k = V: no uniform tail
-    (4, 2, 9, 1_000, 33, 1.3, True)])
+    (4, 2, 9, 1_000, 33, 1.3, True),
+    (3, 3, 6, 8_192, 2_048, 1.0, True),  # J * k past the table: blocks
+    (2, 1, 5, 8_192, 5_000, 1.0, True)])  # one sender's k past it
 def test_sparse_kl_kernels_match_plain(cuda, dtype, Kl, J, B, V, k, T,
                                        overlap):
     """The sparse-KL forward (atol 1e-4 + rtol 1e-4: an fp32 streaming sum
@@ -385,7 +413,29 @@ def test_sparse_kl_tied_row_and_ops_dispatch(cuda):
                                atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("bad", ["idx_dtype", "too_many", "shape",
+def test_sparse_kl_past_one_launch(cuda):
+    """J * k = 4800 (k = 2400 repeated entries), which one launch's table
+    cannot hold, runs as sender blocks against ``ref.sparse_kl_pair``."""
+    from repro_torch.kernels import sparse_kl
+    live, idx, lp, w, gbar = _sparse_inputs(cuda, torch.float32, 2, 2, 3,
+                                            9_000, 8, 1.0, False)
+    idx, lp = idx.repeat(1, 1, 300), lp.repeat(1, 1, 300)
+    outs, grads = [], []
+    before = (sparse_kl.launches, sparse_kl.bwd_launches)
+    for fn in (sparse_kl.sparse_kl_topk, ref.sparse_kl_pair):
+        a = live.detach().clone().requires_grad_(True)
+        out = fn(a, idx, lp, w)
+        out.backward(gbar)
+        outs.append(out.detach())
+        grads.append(a.grad)
+    assert (sparse_kl.launches, sparse_kl.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-4, rtol=1e-4)
+    got, want = grads
+    assert ((got - want).norm() / want.norm()).item() < 1e-5
+
+
+@pytest.mark.parametrize("bad", ["idx_dtype", "k_over_V", "shape",
                                  "device"])
 def test_sparse_kl_kernel_refuses_before_launch(cuda, bad):
     from repro_torch.kernels import sparse_kl
@@ -393,8 +443,8 @@ def test_sparse_kl_kernel_refuses_before_launch(cuda, bad):
                                          8, 1.0, False)
     if bad == "idx_dtype":
         idx = idx.long()
-    elif bad == "too_many":                     # J * k > 4096
-        idx, lp = idx.repeat(1, 1, 300), lp.repeat(1, 1, 300)
+    elif bad == "k_over_V":                     # what ref cannot take
+        idx, lp = idx.repeat(1, 1, 1126), lp.repeat(1, 1, 1126)
     elif bad == "shape":
         w = w[:, :1]
     else:

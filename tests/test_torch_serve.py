@@ -311,6 +311,8 @@ def test_serve_cli_on_cpu(capsys):
                            "2", "--gen", "4", "--prompt-len", "6"]) == 0
     out = capsys.readouterr().out
     assert "served 3 requests" in out and "impl=ref" in out
+    # the default arch is the JAX CLI's (repro/launch/serve.py)
+    assert "arch=mamba2-780m random-init" in out
 
 
 # the training and SSM slices' modules, named so that the walk below cannot
