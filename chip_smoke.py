@@ -14,11 +14,12 @@ Phases, each fatal on failure:
      time beside its bound, the plain version's time and a library
      yardstick (and for the flash kernels the achieved TFLOP/s of each; the
      forward also at the training path's shapes): the flash-attention
-     forward and backward, the Eq.-2
-     pair-KL forward and backward (at qwen3-4b's and mamba2-780m's
+     forward and backward, the Eq.-2 KL's square forward (fixed is live:
+     the DML round's term and ``mutual_kl``), pair forward (distinct live
+     and fixed) and backward (at qwen3-4b's and mamba2-780m's
      vocabularies, and past one launch's 8 clients a side: K = 9 and 16 in
-     client blocks), ``mutual_kl`` through the pair forward, the SSD
-     chunked scan's forward and backward, and the sparse (top-k) KL's
+     client blocks), the SSD chunked scan's forward and backward, and the
+     sparse (top-k) KL's
      forward and backward (at both vocabularies, and past one launch's
      entries: k = 2048 in sender blocks, k = 5000 read in place);
   3. the serving path at the full width of qwen3-4b: a K=2 client ensemble
@@ -28,15 +29,16 @@ Phases, each fatal on failure:
      against their wall time;
   4. the training path at the full width of qwen3-4b cut to 4 of its 36
      layers: ``Federation(LMClients(..., n_clients=3), DML())`` trains 3
-     fused DML rounds through the kernels (launch counts checked), reads
-     out Eq. 2 of the final public logits through ``mutual_kl``, and round 1
-     and each client's gradient are held against the same round at
+     fused DML rounds through the kernels (launch counts checked: each
+     round's Eq.-2 term through the square forward and the pair backward),
+     reads out Eq. 2 of the final public logits through ``mutual_kl``, and
+     round 1 and each client's gradient are held against the same round at
      ``impl="ref"``;
   5. phase 3 for K=2 full-width, full-depth (48-layer) mamba2-780m clients
      on 1024-token prompts, through the SSD forward kernel;
   6. phase 4 for K=3 full-width, full-depth mamba2-780m clients at seq 1024
      (18,432 trained tokens a round), through the SSD forward and backward
-     kernels and the pair KL;
+     kernels and the square and backward pair-KL kernels;
   7. phase 4 with ``SparseDML(k=64)``: each client shares the top-64
      (index, log-prob) sets of its public logits, and the Eq.-2 term runs
      through the sparse-KL forward and backward kernels (no pair-KL
@@ -443,24 +445,55 @@ def phase_flash_bwd(train_shape, train_shapes) -> dict:
             "library_ms": library_ms}
 
 
-def _kl_ops(Kl, Kg, B, V) -> float:
+def _kl_ops(Kl, Kg, B, V, square: bool = False) -> float:
     """fp32 operations of the pair-KL forward: per (b, v) two per (i, j)
-    cross term and about four (max, exp, sum) per client on each side."""
+    cross term and about four (max, exp, sum) per client on each side; the
+    square case has K (K - 1) cross terms and one side."""
+    if square:
+        return float(B) * V * (2 * Kl * (Kl - 1) + 4 * Kl)
     return float(B) * V * (2 * Kl * Kg + 4 * (Kl + Kg))
 
 
+def _pair_kernel_on_one(x, w, T: float):
+    """The pair forward's C entry with live = fixed = ``x`` (the wrapper
+    sends that call to the square kernel); uncounted.  Returns out."""
+    from repro_torch.kernels import kl_mutual
+    K, B, V = x.shape
+    out = torch.empty((K, B), dtype=torch.float32, device=x.device)
+    lse = torch.empty((2, K, B), dtype=torch.float32, device=x.device)
+    rc = kl_mutual._lib().kl_mutual_pair_fwd(
+        x.data_ptr(), x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        lse[0].data_ptr(), lse[1].data_ptr(), x.stride(0), x.stride(1),
+        x.stride(0), x.stride(1), K, K, B, V, 1.0 / T, int(x.dtype == BF16),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"kl_mutual_pair_fwd failed with CUDA error {rc}")
+    return out
+
+
 def phase_kl(K: int, B: int, V: int) -> list:
-    """The Eq.-2 kernels at the training path's shape (K clients, B = the
+    """The Eq.-2 kernels at the DML round's shape (K clients, B = the
     public batch's positions, the full vocabulary V), bf16 and fp32, with
     participation-masked weights (M = K - 1 < K), temperature 1.5 and V not
-    a multiple of the kernel's tile: the pair forward against
+    a multiple of the kernels' tile.  Each forward against
     ``ref.mutual_kl_pair`` (max |err| <= 1e-3 + 1e-4 |out|: a one-pass
-    streaming sum against a two-pass softmax over 151,936 terms), its
-    backward against autograd of it (relative norm error 1e-4 in fp32,
-    2e-2 in bf16, where the gradient is rounded to bf16 once), on the live
-    side with the fixed side detached, as training runs it, and on both
-    sides; and ``ops.mutual_kl`` (the square case through the pair
-    forward) against ``ref.mutual_kl``.  Returns the three kernels' rows."""
+    streaming sum against a two-pass softmax over 151,936 terms), and the
+    backward after it against autograd of it (relative norm error 1e-4 in
+    fp32, 2e-2 in bf16, where the gradient is rounded to bf16 once): the
+    square kernel as the DML round calls it (fixed = live.detach(), the
+    live side's gradient), and the pair kernel on distinct live and fixed
+    (fixed = the clients rolled, materialised; both sides' gradients in
+    fp32); each call must launch its kernel and not the other.  Then
+    ``ops.mutual_kl`` (the square kernel with w = (1 - I) / (K - 1))
+    against ``ref.mutual_kl``, and the bf16 times beside the bound of what
+    each call reads and writes: the square forward as training and as the
+    readout call it (one (K, B, V) plane read), the pair forward (two), the
+    pair forward's C entry on one tensor passed as both (one: the call the
+    square kernel takes over; its result held against ``ref`` too), the
+    backward as training calls it (one plane read, one written) and on
+    distinct tensors (two read, one written), each over 20 calls after 3
+    warm-ups (the rows' window) and 50 after 10.  Returns the four
+    kernels' rows."""
     from repro_torch.core.mutual import _pair_mask
     from repro_torch.kernels import kl_mutual, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -471,101 +504,144 @@ def phase_kl(K: int, B: int, V: int) -> list:
         logits = (2 * torch.randn(K, B, V, device="cuda", generator=gen)) \
             .to(dtype)
         gbar = torch.randn(K, B, device="cuda", generator=gen)
-        res = []
-        for fn in (kl_mutual.kl_mutual_pair, ref.mutual_kl_pair):
-            live = logits.detach().requires_grad_(True)
-            out = fn(live, live.detach(), w, temperature=T)
-            (g,) = torch.autograd.grad(out, live, gbar)
-            res.append((out.detach(), g.float()))
-            del live, g
-        (out, dl), (want, want_dl) = res
-        f_err = (out - want).abs().max().item()
-        b_rel = ((dl - want_dl).norm() / want_dl.norm()).item()
-        b_err = (dl - want_dl).abs().max().item()
-        lim = 1e-4 if dtype == torch.float32 else 2e-2
-        if not (torch.allclose(out, want, atol=1e-3, rtol=1e-4)
-                and b_rel <= lim):
-            raise AssertionError(
-                f"pair KL disagrees with ref at {dtype}: forward max |err| "
-                f"{f_err:.3g}, backward relative error {b_rel:.3g}")
-        print(f"pair KL vs ref at (K={K}, B={B}, V={V}) {str(dtype)[6:]}, "
-              f"M={K - 1} of {K}, T={T}: forward max |err| {f_err:.3g} "
-              f"(limit 1e-3 + 1e-4 |out|), backward max |err| {b_err:.3g}, "
-              f"relative {b_rel:.3g} (limit {lim})")
-        errs[dtype] = (f_err, b_err)
-        del res, out, dl, want, want_dl
-        if dtype == torch.float32:     # both sides differentiable
-            fixed = logits.roll(1, dims=0)
-            grads = []
+        for kernel in ("square", "pair"):
+            fixed = logits.roll(1, dims=0) if kernel == "pair" else None
+            both = kernel == "pair" and dtype == torch.float32
+            res = []
             for fn in (kl_mutual.kl_mutual_pair, ref.mutual_kl_pair):
-                a, b = (t.detach().requires_grad_(True)
-                        for t in (logits, fixed))
-                grads.append([g.float() for g in torch.autograd.grad(
-                    fn(a, b, w, temperature=T), (a, b), gbar)])
-            rel = max(((x - y).norm() / y.norm()).item()
-                      for x, y in zip(*grads))
-            print(f"  both sides differentiable (fixed = the clients "
-                  f"rolled): relative error of dlive, dfixed {rel:.3g} "
-                  f"(limit 1e-4)")
-            if not rel <= 1e-4:
-                raise AssertionError("pair KL dfixed disagrees with ref")
-            del grads, fixed
+                a = logits.detach().requires_grad_(True)
+                b = a.detach() if fixed is None else \
+                    fixed.detach().requires_grad_(both)
+                before = (kl_mutual.square_launches, kl_mutual.pair_launches)
+                out = fn(a, b, w, temperature=T)
+                ran = (kl_mutual.square_launches - before[0],
+                       kl_mutual.pair_launches - before[1])
+                grads = torch.autograd.grad(out, (a, b) if both else (a,),
+                                            gbar)
+                res.append((out.detach(), [g.float() for g in grads], ran))
+                del a, b, out, grads
+            (out, gs, ran), (want, wgs, _) = res
+            f_err = (out - want).abs().max().item()
+            b_rel = max(((g - x).norm() / x.norm()).item()
+                        for g, x in zip(gs, wgs))
+            b_err = max((g - x).abs().max().item() for g, x in zip(gs, wgs))
+            lim = 1e-4 if dtype == torch.float32 else 2e-2
+            if not (torch.allclose(out, want, atol=1e-3, rtol=1e-4)
+                    and b_rel <= lim
+                    and ran == ((1, 0) if kernel == "square" else (0, 1))):
+                raise AssertionError(
+                    f"{kernel} KL disagrees with ref at {dtype}: forward max "
+                    f"|err| {f_err:.3g}, backward relative error "
+                    f"{b_rel:.3g}; (square, pair) kernels launched {ran}")
+            print(f"{kernel} KL vs ref at (K={K}, B={B}, V={V}) "
+                  f"{str(dtype)[6:]}, M={K - 1} of {K}, T={T}: forward max "
+                  f"|err| {f_err:.3g} (limit 1e-3 + 1e-4 |out|), backward "
+                  f"({'dlive, dfixed' if both else 'dlive'}) max |err| "
+                  f"{b_err:.3g}, relative {b_rel:.3g} (limit {lim})")
+            errs[dtype, kernel] = (f_err, b_err)
+            del res, out, gs, want, wgs, fixed
+            torch.cuda.empty_cache()
         del logits
         torch.cuda.empty_cache()
 
-    # kernel 3, and the times, at the readout / training shape in bf16
+    # the readout, and the times, at the DML round's shape in bf16
     x = (2 * torch.randn(K, B, V, device="cuda", generator=gen)).to(BF16)
     got = ops.mutual_kl(x, temperature=T, impl="cuda")
     want = ref.mutual_kl(x, T)
     mk_err = (got - want).abs().max().item()
     if not torch.allclose(got, want, atol=1e-3, rtol=1e-4):
         raise AssertionError(f"mutual_kl disagrees with ref: {mk_err:.3g}")
-    print(f"mutual_kl (square case through the pair forward) vs ref at "
-          f"(K={K}, B={B}, V={V}) bf16: max |err| {mk_err:.3g}")
+    print(f"mutual_kl (the square kernel) vs ref at (K={K}, B={B}, V={V}) "
+          f"bf16: max |err| {mk_err:.3g}")
+    y = x.roll(1, dims=0)                 # distinct storage for the pair
     gbar = torch.randn(K, B, device="cuda", generator=gen)
-    out, zl, zf = kl_mutual._forward(x, x, w, T)
-    fwd_ms = time_ms(lambda: kl_mutual._forward(x, x, w, T))
-    bwd_ms = time_ms(lambda: kl_mutual._backward(x, x, w, out, zl, zf, gbar,
-                                                 T, False))
-    mk_ms = time_ms(lambda: kl_mutual.kl_mutual(x, temperature=T))
+    out, zl, _, _ = kl_mutual._forward(x, x.detach(), w, T)
+    out_p, zl_p, zf_p, _ = kl_mutual._forward(x, y, w, T)
+    # the pair kernel on x passed as live and fixed: what the square
+    # kernel saves the DML round's call
+    want = ref.mutual_kl_pair(x, x.detach(), w, T)
+    one_err = max((got - want).abs().max().item()
+                  for got in (out, _pair_kernel_on_one(x, w, T)))
+    if one_err > 1e-3 + 1e-4 * want.abs().max().item():
+        raise AssertionError(f"square or pair kernel on (x, x) disagrees "
+                             f"with ref: {one_err:.3g}")
+    del want
+    timed = {
+        "sq": lambda: kl_mutual._forward(x, x.detach(), w, T),
+        "mk": lambda: kl_mutual.kl_mutual(x, temperature=T),
+        "pr": lambda: kl_mutual._forward(x, y, w, T),
+        "pr1": lambda: _pair_kernel_on_one(x, w, T),
+        "bwd": lambda: kl_mutual._backward(x, x, w, out, zl, zl, gbar, T,
+                                           False),
+        "bwd2": lambda: kl_mutual._backward(x, y, w, out_p, zl_p, zf_p, gbar,
+                                            T, False),
+        # what one read of the logits costs a library kernel: the
+        # forwards' attainable floor on this card
+        "read": lambda: torch.amax(x, dim=-1)}
+    # every row on the window of the other kernels' rows (20 calls after
+    # 3), and beside it 50 after 10
+    ms = {k: time_ms(fn) for k, fn in timed.items()}
+    ms50 = {k: time_ms(fn, iters=50, warmup=10) for k, fn in timed.items()}
+    sq_ms, mk_ms, pr_ms, bwd_ms = ms["sq"], ms["mk"], ms["pr"], ms["bwd"]
     live = x.detach().requires_grad_(True)
 
     def plain_fb():
         torch.autograd.grad(ref.mutual_kl_pair(live, live.detach(), w, T),
                             live, gbar)
 
-    def plain_f():
+    def plain_f(fixed):
         with torch.no_grad():
-            ref.mutual_kl_pair(live, live.detach(), w, T)
-    plain_fwd = time_ms(plain_f, iters=5)
-    plain_bwd = time_ms(plain_fb, iters=5) - plain_fwd
+            ref.mutual_kl_pair(live, fixed, w, T)
+    plain_sq = time_ms(lambda: plain_f(live.detach()), iters=5)
+    plain_pr = time_ms(lambda: plain_f(y), iters=5)
+    plain_bwd = time_ms(plain_fb, iters=5) - plain_sq
     plain_mk = time_ms(lambda: ref.mutual_kl(x, T), iters=5)
     plane = K * B * V * 2                       # one (K, B, V) bf16 tensor
-    fwd_bound = _bound(_kl_ops(K, K, B, V), 2 * plane, torch.float32)
-    bwd_bound = _bound(_kl_ops(K, K, B, V), 3 * plane, torch.float32)
-    mk_bound = _bound(_kl_ops(K, K, B, V), plane, torch.float32)
-    for name, ms, plain, (bound, by) in (
-            ("forward", fwd_ms, plain_fwd, fwd_bound),
-            ("backward", bwd_ms, plain_bwd, bwd_bound),
-            ("mutual_kl", mk_ms, plain_mk, mk_bound)):
-        print(f"pair KL {name} at (K={K}, B={B}, V={V}) bf16: {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, no single library call; bound "
-              f"{bound:.4f} ms by {by}")
+    ops_sq = _kl_ops(K, K, B, V, square=True)
+    sq_bound = _bound(ops_sq, plane, torch.float32)
+    pr_bound = _bound(_kl_ops(K, K, B, V), 2 * plane, torch.float32)
+    bwd_bound = _bound(_kl_ops(K, K, B, V), 2 * plane, torch.float32)
+    bwd2_bound = _bound(_kl_ops(K, K, B, V), 3 * plane, torch.float32)
+    for name, key, plain, (bound, by) in (
+            ("square forward (x, x.detach())", "sq", plain_sq, sq_bound),
+            ("square forward (mutual_kl)", "mk", plain_mk, sq_bound),
+            ("pair forward (x, x rolled)", "pr", plain_pr, pr_bound),
+            ("pair forward on one tensor (x, x)", "pr1", plain_sq, sq_bound),
+            ("backward (x, x.detach())", "bwd", plain_bwd, bwd_bound),
+            ("backward (x, x rolled)", "bwd2", None, bwd2_bound)):
+        print(f"KL {name} at (K={K}, B={B}, V={V}) bf16: {ms[key]:.4f} ms "
+              f"(50 calls after 10: {ms50[key]:.4f}), plain "
+              f"{'-' if plain is None else f'{plain:.4f}'} ms, no single "
+              f"library call; bound {bound:.4f} ms by {by} "
+              f"({bound / ms[key]:.0%} of it)")
+    print(f"one read of the (K={K}, B={B}, V={V}) bf16 logits by torch.amax:"
+          f" {ms['read']:.4f} ms (50 calls after 10: {ms50['read']:.4f}; "
+          f"{sq_bound[0] / ms['read']:.0%} of the square forward's byte "
+          f"bound)")
+    del x, y, live, out, out_p
+    torch.cuda.empty_cache()
     src = "src/repro_torch/kernels/csrc/kl_mutual_pair.cu"
     row = dict(route="cuda", source=src, launches=None, library_ms=None)
     return [
         {"name": "kl_mutual_pair_fwd", **row,
          "replaces": "src/repro/kernels/kl_mutual.py:68",
-         "max_abs_err": errs[BF16][0], "ms": fwd_ms, "plain_ms": plain_fwd,
-         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
+         "max_abs_err": errs[BF16, "pair"][0], "ms": pr_ms,
+         "plain_ms": plain_pr, "bound_ms": pr_bound[0],
+         "bound_by": pr_bound[1]},
+        {"name": "kl_mutual_square_fwd", **row,
+         "replaces": "src/repro/kernels/kl_mutual.py:32",
+         "max_abs_err": errs[BF16, "square"][0], "ms": sq_ms,
+         "plain_ms": plain_sq, "bound_ms": sq_bound[0],
+         "bound_by": sq_bound[1]},
         {"name": "kl_mutual_pair_bwd", **row,
          "replaces": "src/repro/kernels/kl_mutual.py:178",
-         "max_abs_err": errs[BF16][1], "ms": bwd_ms, "plain_ms": plain_bwd,
-         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]},
+         "max_abs_err": errs[BF16, "square"][1], "ms": bwd_ms,
+         "plain_ms": plain_bwd, "bound_ms": bwd_bound[0],
+         "bound_by": bwd_bound[1]},
         {"name": "mutual_kl", **row,
          "replaces": "src/repro/kernels/kl_mutual.py:32",
          "max_abs_err": mk_err, "ms": mk_ms, "plain_ms": plain_mk,
-         "bound_ms": mk_bound[0], "bound_by": mk_bound[1]},
+         "bound_ms": sq_bound[0], "bound_by": sq_bound[1]},
     ]
 
 
@@ -575,7 +651,8 @@ def phase_kl_blocks(B: int, V: int) -> None:
     participation-masked weights, T = 1.5, against ``ref.mutual_kl_pair``
     and its autograd on the live side, and in fp32 on both sides
     (tolerances as ``phase_kl``'s); each call counts one launch each way.
-    Then ``ops.mutual_kl`` at K = 9 against ``ref.mutual_kl``."""
+    Then ``ops.mutual_kl`` at K = 9 against ``ref.mutual_kl``: the square
+    kernel on the diagonal blocks, the pair kernel off them."""
     from repro_torch.core.mutual import _pair_mask
     from repro_torch.kernels import kl_mutual, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -626,15 +703,18 @@ def phase_kl_blocks(B: int, V: int) -> None:
               f"{1e-4 if dtype == torch.float32 else 2e-2}); one launch a "
               f"call each way")
     x = (2 * torch.randn(9, B, V, device="cuda", generator=gen)).to(BF16)
-    before = kl_mutual.mutual_kl_launches
+    before = (kl_mutual.mutual_kl_launches, kl_mutual.square_launches,
+              kl_mutual.pair_launches)
     got = ops.mutual_kl(x, temperature=T, impl="cuda")
     want = ref.mutual_kl(x, T)
     err = (got - want).abs().max().item()
     if not (torch.allclose(got, want, atol=1e-3, rtol=1e-4)
-            and kl_mutual.mutual_kl_launches == before + 1):
+            and (kl_mutual.mutual_kl_launches, kl_mutual.square_launches,
+                 kl_mutual.pair_launches) == tuple(n + 1 for n in before)):
         raise AssertionError(f"mutual_kl at K=9 disagrees: {err:.3g}")
-    print(f"mutual_kl at K=9 (B={B}, V={V}) bf16 in client blocks: max "
-          f"|err| {err:.3g}")
+    print(f"mutual_kl at K=9 (B={B}, V={V}) bf16 in client blocks (square "
+          f"kernel on the diagonal, pair kernel off it): max |err| "
+          f"{err:.3g}")
     del x, got, want
     torch.cuda.empty_cache()
 
@@ -1240,10 +1320,12 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
     ``rounds`` fused rounds through the kernels, then Eq. 2 of the final
     public logits: through ``mutual_kl``, or for SparseDML through the
     sparse-KL forward against the clients' top-k sets.  ``mixer`` and
-    ``eq2`` = (forward name, backward name, module): the mixer kernels and
-    the Eq.-2 kernels (the pair KL by default), counted by the module's
-    ``launches`` and ``bwd_launches``; a SparseDML run must launch no
-    pair-KL kernel.  Then round 1 again at ``impl="ref"`` from the same
+    ``eq2`` = (forward name, backward name, module): the mixer kernels and,
+    for SparseDML, the sparse-KL kernels, counted by the module's
+    ``launches`` and ``bwd_launches``.  A DML run's Eq.-2 terms and readout
+    must all run the square forward (fixed is live: the pair KL's
+    ``square_launches``) and the pair backward; a SparseDML run must
+    launch no pair-KL kernel.  Then round 1 again at ``impl="ref"`` from the same
     seeded weights and batches: each client's private_loss, public_ce and
     kld_avg within relative error 2e-2 (plus 1e-3 absolute on kld_avg),
     and its gradient of the round's total loss by the parity rule
@@ -1265,7 +1347,6 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
 
     strategy = strategy or DML()
     sparse_k = strategy.sparse_k
-    eq2 = eq2 or ("kl_mutual_pair_fwd", "kl_mutual_pair_bwd", klm)
 
     def population(impl):
         return LMClients(cfg, n_clients=K, rounds=rounds, batch=B, seq=S,
@@ -1296,10 +1377,11 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
 
     fed = Federation(pop, strategy)
     fwd_name, bwd_name, mod = mixer
-    eq2_fwd, eq2_bwd, eq2_mod = eq2
     mod.launches = mod.bwd_launches = 0            # the main path starts here
-    eq2_mod.launches = eq2_mod.bwd_launches = 0
+    if eq2:
+        eq2[2].launches = eq2[2].bwd_launches = 0
     klm.launches = klm.bwd_launches = klm.mutual_kl_launches = 0
+    klm.square_launches = klm.pair_launches = 0
     tokens = K * (B + max(1, B // 2)) * S
     walls = []
     for r in range(rounds):
@@ -1332,22 +1414,32 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
             readout = mutual_kl_eval(flat, impl=pop.impl)
     counts = {fwd_name: mod.launches,                # ... and ends here
               bwd_name: mod.bwd_launches,
-              eq2_fwd: eq2_mod.launches, eq2_bwd: eq2_mod.bwd_launches,
-              "kl_mutual_pair_fwd": klm.launches,
+              # the pair KL by forward kernel (calls of either entry point)
+              "kl_mutual_square_fwd": klm.square_launches,
+              "kl_mutual_pair_fwd": klm.pair_launches,
               "kl_mutual_pair_bwd": klm.bwd_launches,
               "mutual_kl": klm.mutual_kl_launches}
     need = {fwd_name: 2 * 2 * cfg.n_layers * rounds,
-            bwd_name: 2 * cfg.n_layers * rounds,
-            eq2_fwd: rounds + int(bool(sparse_k)), eq2_bwd: rounds,
-            "mutual_kl": int(not sparse_k)}
-    print(f"training launches {counts}; need at least {need} (private and "
-          f"public forward in each of {cfg.n_layers} layers, twice under "
-          f"remat; their backward; one Eq.-2 term per round; the readout)")
+            bwd_name: 2 * cfg.n_layers * rounds}
+    if eq2:
+        counts.update({eq2[0]: eq2[2].launches, eq2[1]: eq2[2].bwd_launches})
+        need.update({eq2[0]: rounds + 1, eq2[1]: rounds})
+    else:   # each round's Eq.-2 term and the readout: fixed is live
+        need.update({"kl_mutual_square_fwd": rounds + 1,
+                     "kl_mutual_pair_bwd": rounds, "mutual_kl": 1})
+    print(f"training launches {counts} (kl_mutual_pair called {klm.launches}"
+          f" times); need at least {need} (private and public forward in "
+          f"each of {cfg.n_layers} layers, twice under remat; their "
+          f"backward; one Eq.-2 term per round; the readout)")
     short = [k for k in need if counts[k] < need[k]]
     if short:
         raise AssertionError(f"the training path did not run through {short}")
     if sparse_k and klm.launches + klm.bwd_launches + klm.mutual_kl_launches:
         raise AssertionError("the SparseDML path launched a pair-KL kernel")
+    if not sparse_k and (klm.pair_launches
+                         or klm.square_launches != klm.launches + 1):
+        raise AssertionError("a DML round's Eq.-2 term left the square "
+                             "kernel")
     if readout.shape != (K, pub.numel()) or \
             not bool(torch.isfinite(readout).all()) or \
             float(readout.min()) < -1e-3:

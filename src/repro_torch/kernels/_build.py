@@ -22,6 +22,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# a library's own flags: the pair KL's 68 template instances, the build's
+# long pole, are compiled and optimised in parallel on every core
+EXTRA_FLAGS = {"kl_mutual_pair": ("-split-compile=0",)}
+
+
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
 def _nvcc() -> str:
@@ -37,7 +44,7 @@ def library_path(name: str) -> Path:
     hashes the source, the shared headers ``csrc/*.cuh`` and the flags."""
     sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -53,7 +60,7 @@ def build(name: str) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            [_nvcc(), *_flags(name), "-o", tmp, str(CSRC / f"{name}.cu")],
             capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")

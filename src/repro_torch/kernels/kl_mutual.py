@@ -2,24 +2,26 @@
 scale): hand-written CUDA kernels for Hopper behind a
 ``torch.autograd.Function``.
 
-The forward entry point replaces the TPU kernel
-``repro/kernels/kl_mutual.py:68`` (``_kl_pair_kernel`` behind
-``_kl_pair_forward``), the backward entry point the plain-JAX
-``_streaming_pair_bwd`` of its custom VJP (:178-256).  ``kl_mutual``
-serves the square forward-only TPU kernel ``kl_mutual.py:32``
-(``_kl_kernel``) through the same forward, by the identity
-``mutual_kl(x) == mutual_kl_pair(x, x, (1 - I) / (K - 1))``
-(``repro/kernels/ref.py:137``).  The source is ``csrc/kl_mutual_pair.cu``;
-its header says what bounds it on the H100.
+The pair forward replaces the TPU kernel ``repro/kernels/kl_mutual.py:68``
+(``_kl_pair_kernel`` behind ``_kl_pair_forward``), the backward entry point
+the plain-JAX ``_streaming_pair_bwd`` of its custom VJP (:178-256).  The
+square forward replaces the forward-only TPU kernel ``kl_mutual.py:32``
+(``_kl_kernel``): Eq. 2 of ONE tensor against itself, read once.  The
+forward launches it whenever ``fixed`` is ``live``'s storage viewed alike
+(``same_tensor``): ``kl_mutual`` (w = (1 - I) / (K - 1)), the DML round's
+``kl_mutual_pair(x, x.detach(), mask)``, and the diagonal blocks of
+``blocked_pair``; other pairs go to the pair kernel.  The source is
+``csrc/kl_mutual_pair.cu``; its header says what bounds it on the H100.
 
 On CUDA tensors the wrappers launch the kernels or raise; on CPU tensors
 they run the plain versions ``ref.mutual_kl_pair`` / ``ref.mutual_kl``,
 and autograd gives the gradient.  The forward also writes the live and
-fixed logsumexps, which the backward reads instead of recomputing them.
-The fixed side's gradient is computed only when autograd asks for it;
-``pair_w`` is data (masks and averaging constants) and gets none.
+fixed logsumexps (one tensor for both after the square kernel), which the
+backward reads instead of recomputing them.  The fixed side's gradient is
+computed only when autograd asks for it; ``pair_w`` is data (masks and
+averaging constants) and gets none.
 
-The kernel keeps each client's streaming state in registers, so one launch
+The kernels keep each client's streaming state in registers, so one launch
 takes at most ``MAX_CLIENTS`` clients a side.  More clients are cut into
 blocks of at most that many on each side (``blocked_pair``): the loss of a
 live row is a sum over the fixed clients, so it is the sum of the fixed
@@ -32,7 +34,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import itertools
 
 import torch
 
@@ -41,10 +42,15 @@ from repro_torch.kernels import _build, ref
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_CLIENTS = 8
 
+SQUARE, PAIR = "kl_mutual_square_fwd", "kl_mutual_pair_fwd"
+
 # kernel launches in this process, one per call of each entry point
 launches = 0             # kl_mutual_pair forward
 bwd_launches = 0         # kl_mutual_pair backward
-mutual_kl_launches = 0   # kl_mutual (the square case, through the forward)
+mutual_kl_launches = 0   # kl_mutual
+# ... and by forward kernel: calls of either entry point that launched it
+square_launches = 0      # SQUARE (fixed is live)
+pair_launches = 0        # PAIR
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,7 +62,11 @@ def _lib():
     lib.kl_mutual_pair_bwd.argtypes = (
         [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.kl_mutual_square_fwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.kl_mutual_pair_fwd.restype = ctypes.c_int
+    lib.kl_mutual_square_fwd.restype = ctypes.c_int
     lib.kl_mutual_pair_bwd.restype = ctypes.c_int
     return lib
 
@@ -91,26 +101,43 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def same_tensor(a, b) -> bool:
+    """Whether ``a`` and ``b`` view one storage alike (data pointer, shape,
+    strides, dtype and device): then the forward is the square case."""
+    return (a.device == b.device and a.dtype == b.dtype
+            and a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            and a.stride() == b.stride())
+
+
 def _forward(live, fixed, w, temperature: float):
-    """Launches the forward; returns (out (Kl,B), lse_live (Kl,B),
-    lse_fixed (Kg,B)), fp32."""
+    """Launches the square forward when ``same_tensor(live, fixed)``, else
+    the pair forward; returns (out (Kl,B), lse_live (Kl,B), lse_fixed
+    (Kg,B), the kernel's name), the first three fp32 (after the square
+    kernel lse_fixed is lse_live)."""
     Kl, B, V = live.shape
     Kg = fixed.shape[0]
+    bf16 = int(live.dtype == torch.bfloat16)
     with torch.cuda.device(live.device):
         out = torch.empty((Kl, B), dtype=torch.float32, device=live.device)
         lse_live = torch.empty_like(out)
-        lse_fixed = torch.empty((Kg, B), dtype=torch.float32,
-                                device=live.device)
-        rc = _lib().kl_mutual_pair_fwd(
-            live.data_ptr(), fixed.data_ptr(), w.data_ptr(), out.data_ptr(),
-            lse_live.data_ptr(), lse_fixed.data_ptr(), live.stride(0),
-            live.stride(1), fixed.stride(0), fixed.stride(1), Kl, Kg, B, V,
-            1.0 / temperature, int(live.dtype == torch.bfloat16),
-            _stream(live))
+        if same_tensor(live, fixed):
+            lse_fixed, name = lse_live, SQUARE
+            rc = _lib().kl_mutual_square_fwd(
+                live.data_ptr(), w.data_ptr(), out.data_ptr(),
+                lse_live.data_ptr(), live.stride(0), live.stride(1), Kl, B,
+                V, 1.0 / temperature, bf16, _stream(live))
+        else:
+            lse_fixed, name = torch.empty(
+                (Kg, B), dtype=torch.float32, device=live.device), PAIR
+            rc = _lib().kl_mutual_pair_fwd(
+                live.data_ptr(), fixed.data_ptr(), w.data_ptr(),
+                out.data_ptr(), lse_live.data_ptr(), lse_fixed.data_ptr(),
+                live.stride(0), live.stride(1), fixed.stride(0),
+                fixed.stride(1), Kl, Kg, B, V, 1.0 / temperature, bf16,
+                _stream(live))
     if rc != 0:
-        raise RuntimeError(f"kl_mutual_pair_fwd launch failed with CUDA "
-                           f"error {rc}")
-    return out, lse_live, lse_fixed
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+    return out, lse_live, lse_fixed, name
 
 
 def _backward(live, fixed, w, out, lse_live, lse_fixed, g_bar,
@@ -160,15 +187,26 @@ def blocked_pair(fn, live, fixed, pair_w, size: int = MAX_CLIENTS):
     return torch.cat(rows)
 
 
+def _count_forwards(ran: list) -> None:
+    """Counts one call of an entry point whose block pairs launched the
+    forward kernels named in ``ran``: once for each kernel among them."""
+    global square_launches, pair_launches
+    square_launches += SQUARE in ran
+    pair_launches += PAIR in ran
+
+
 class _KlMutualPair(torch.autograd.Function):
     """One (live, fixed) block pair: its forward and backward launches.
     ``count`` marks the block whose launches the counters record, one per
-    call of the entry point in each direction."""
+    call of the entry point in each direction; the forward appends the
+    name of the kernel it launched to ``ran``."""
 
     @staticmethod
-    def forward(ctx, live, fixed, w, temperature, count):
+    def forward(ctx, live, fixed, w, temperature, count, ran):
         global launches
-        out, lse_live, lse_fixed = _forward(live, fixed, w, temperature)
+        out, lse_live, lse_fixed, name = _forward(live, fixed, w,
+                                                  temperature)
+        ran.append(name)
         launches += count
         ctx.save_for_backward(live, fixed, w, out, lse_live, lse_fixed)
         ctx.temperature, ctx.count = temperature, count
@@ -180,14 +218,15 @@ class _KlMutualPair(torch.autograd.Function):
         dlive, dfixed = _backward(*ctx.saved_tensors, g_bar,
                                   ctx.temperature, ctx.needs_input_grad[1])
         bwd_launches += ctx.count
-        return dlive, dfixed, None, None, None
+        return dlive, dfixed, None, None, None, None
 
 
 def kl_mutual_pair(live, fixed, pair_w, *, temperature: float = 1.0):
     """Differentiable pair-weighted Eq. 2: live (Kl, B, V) x fixed
     (Kg, B, V) with (Kl, Kg) weights -> (Kl, B) fp32.  Pass
     ``fixed = live.detach()`` (or received predictions) for the federated
-    gradient semantics; the fixed side's gradient is then never computed.
+    gradient semantics; the fixed side's gradient is then never computed,
+    and the square kernel reads the logits once.
     """
     if all(t.device.type == "cpu" for t in (live, fixed, pair_w)):
         return ref.mutual_kl_pair(live, fixed, pair_w,
@@ -197,16 +236,20 @@ def kl_mutual_pair(live, fixed, pair_w, *, temperature: float = 1.0):
         raise ValueError(f"kl_mutual_pair runs on CUDA or CPU tensors, not "
                          f"{live.device}")
     w = pair_w.detach().to(dtype=torch.float32)
-    order = itertools.count()          # the first block pair counts
-    return blocked_pair(
-        lambda a, b, wb: _KlMutualPair.apply(
-            a, b, wb.contiguous(), float(temperature),
-            int(next(order) == 0)), live, fixed, w)
+    ran = []
+
+    def block(a, b, wb):
+        return _KlMutualPair.apply(a, b, wb.contiguous(), float(temperature),
+                                   int(not ran), ran)
+    out = blocked_pair(block, live, fixed, w)
+    _count_forwards(ran)
+    return out
 
 
 def kl_mutual(logits, *, temperature: float = 1.0):
     """Forward-only Eq. 2, logits (K, B, V) -> (K, B) fp32 average pairwise
-    KL, through the pair forward with w = (1 - I) / (K - 1)."""
+    KL, w = (1 - I) / (K - 1): the square kernel (and, past MAX_CLIENTS,
+    the pair kernel off the diagonal blocks)."""
     global mutual_kl_launches
     if logits.device.type == "cpu":
         return ref.mutual_kl(logits, temperature=temperature)
@@ -217,8 +260,13 @@ def kl_mutual(logits, *, temperature: float = 1.0):
         raise ValueError(f"kl_mutual runs on CUDA or CPU tensors, not "
                          f"{logits.device}")
     x = logits.detach()
-    out = blocked_pair(
-        lambda a, b, wb: _forward(a, b, wb.contiguous(),
-                                  float(temperature))[0], x, x, w)
+    ran = []
+
+    def block(a, b, wb):
+        out, _, _, name = _forward(a, b, wb.contiguous(), float(temperature))
+        ran.append(name)
+        return out
+    out = blocked_pair(block, x, x, w)
     mutual_kl_launches += 1
+    _count_forwards(ran)
     return out

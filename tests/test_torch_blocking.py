@@ -79,6 +79,39 @@ def test_blocked_mutual_kl_square(K):
         atol=3e-5, rtol=3e-5)
 
 
+def test_same_tensor_picks_the_square_kernel():
+    """The forward's dispatch predicate: one storage viewed alike runs the
+    square kernel; a copy, another view of the storage or another dtype
+    over the same bytes runs the pair kernel."""
+    x = torch.randn(3, 4, 16)
+    assert kl_mutual.same_tensor(x, x)
+    assert kl_mutual.same_tensor(x, x.detach())
+    assert kl_mutual.same_tensor(x[:2], x.detach()[:2])
+    for other in (x.clone(), x[:2], x[..., :8], x.transpose(1, 2),
+                  x.view(torch.int32), x.as_strided(x.shape, (48, 16, 1)),
+                  torch.randn(3, 4, 16)):
+        assert not kl_mutual.same_tensor(x, other)
+
+
+@pytest.mark.parametrize("fixed", ["detached", "clone"])
+@pytest.mark.parametrize("K", [5, 16, 17])
+def test_blocked_pair_square_on_the_diagonal(K, fixed):
+    """``blocked_pair`` over (x, x.detach()) hands the square kernel the
+    diagonal block pairs and the pair kernel the others; over (x,
+    x.clone()) every block pair is a pair."""
+    x = torch.randn(K, 2, 8)
+    y = x.detach() if fixed == "detached" else x.clone()
+    seen = []
+
+    def per_block(a, b, wb):
+        seen.append(kl_mutual.same_tensor(a, b))
+        return torch.zeros(a.shape[:2])
+    kl_mutual.blocked_pair(per_block, x, y, torch.ones(K, K))
+    n = len(kl_mutual.client_blocks(K))
+    diagonal = [L == F for L in range(n) for F in range(n)]
+    assert seen == (diagonal if fixed == "detached" else [False] * n * n)
+
+
 def _sparse_inputs(Kl, J, k, B=3, V=600, seed=0):
     rng = np.random.default_rng(seed)
     live = (2 * rng.standard_normal((Kl, B, V))).astype(np.float32)

@@ -231,14 +231,125 @@ def test_kl_pair_blocks_count_one_launch_a_call(cuda):
 
 
 def test_mutual_kl_through_the_pair_kernel(cuda):
+    """``ops.mutual_kl`` runs the square kernel (the pair forward with
+    fixed = live) and counts one call."""
     from repro_torch.kernels import kl_mutual
     gen = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn(3, 33, 5_000, generator=gen, device=cuda)
-    before = kl_mutual.mutual_kl_launches
+    before = (kl_mutual.mutual_kl_launches, kl_mutual.square_launches,
+              kl_mutual.pair_launches)
     got = ops.mutual_kl(x, temperature=1.3, impl="cuda")
-    assert kl_mutual.mutual_kl_launches == before + 1
+    assert (kl_mutual.mutual_kl_launches, kl_mutual.square_launches,
+            kl_mutual.pair_launches) == (before[0] + 1, before[1] + 1,
+                                         before[2])
     torch.testing.assert_close(got, ref.mutual_kl(x, 1.3), atol=1e-4,
                                rtol=1e-4)
+
+
+def _square_check(x, w, T, fixed_grad=False):
+    """The square kernel on ``x`` (fixed = ``x.detach()``, or ``x`` itself
+    when ``fixed_grad``) against ``ref.mutual_kl_pair`` and its autograd:
+    forward atol 1e-4 + rtol 1e-4, gradient relative norm 1e-5 in fp32 and
+    2e-2 in bf16 (rounded to bf16 once).  Returns the counters' rises."""
+    from repro_torch.kernels import kl_mutual
+    gen = torch.Generator(device=x.device).manual_seed(7)
+    gbar = torch.randn(x.shape[:2], generator=gen, device=x.device)
+    outs, grads, rises = [], [], None
+    for fn in (kl_mutual.kl_mutual_pair, ref.mutual_kl_pair):
+        a = x.detach().clone().requires_grad_(True)
+        before = (kl_mutual.square_launches, kl_mutual.pair_launches)
+        out = fn(a, a if fixed_grad else a.detach(), w, temperature=T)
+        if rises is None:
+            rises = (kl_mutual.square_launches - before[0],
+                     kl_mutual.pair_launches - before[1])
+        (g,) = torch.autograd.grad(out, a, gbar)
+        outs.append(out.detach())
+        grads.append(g.float())
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-4, rtol=1e-4)
+    tol = 1e-5 if x.dtype == torch.float32 else 2e-2
+    # K = 1, or every weight masked, gives a gradient of exact zeros
+    assert (grads[0] - grads[1]).norm() <= tol * grads[1].norm()
+    return rises
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weights", ["masked", "uniform"])
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_kl_square_kernel_matches_plain(cuda, dtype, weights, K):
+    """The square forward (fixed = live.detach(), as the DML round calls
+    it) and the backward after it, at each client count one launch takes,
+    with the participation mask or w = (1 - I) / (K - 1), at T = 0.5, 1.0
+    and 1.7; the uniform case also against ``ref.mutual_kl``."""
+    from repro_torch.core.mutual import _pair_mask
+    gen = torch.Generator(device=cuda).manual_seed(K)
+    x = (2 * torch.randn(K, 6, 1_000, generator=gen, device=cuda)).to(dtype)
+    part = None if weights == "uniform" else [1.0] * max(K - 1, 1) + [0.0]
+    w = _pair_mask(K, part[:K] if part else None, cuda)
+    for T in (0.5, 1.0, 1.7):
+        assert _square_check(x, w, T) == (1, 0)
+        if weights == "uniform":
+            from repro_torch.kernels import kl_mutual
+            torch.testing.assert_close(kl_mutual.kl_mutual(x, temperature=T),
+                                       ref.mutual_kl(x, T), atol=1e-4,
+                                       rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["ragged", "offset_view", "odd_view",
+                                    "live_is_fixed"])
+def test_kl_square_kernel_layouts(cuda, dtype, layout):
+    """Rows the vector loads do not tile: V = 4,099 (a partial tile and a
+    scalar tail), a view x[..., 1:] whose rows start off the 16-byte grid
+    at one phase for every client (a scalar head), a view whose clients'
+    phases differ (one-element loads), and fixed = live itself, so that
+    the backward after the square forward also writes dfixed."""
+    from repro_torch.core.mutual import _pair_mask
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    K, B, V = 3, 5, 4_099
+
+    def randn(*shape):
+        return (2 * torch.randn(*shape, generator=gen, device=cuda)).to(dtype)
+    if layout == "offset_view":
+        x = randn(K, 2, V + 1)[..., 1:]       # client stride keeps the phase
+        assert x.data_ptr() % 16 and x.stride(0) * x.element_size() % 16 == 0
+    elif layout == "odd_view":
+        x = randn(K, B, V + 2)[..., 1:V + 1]
+    else:
+        x = randn(K, B, V)
+    w = _pair_mask(K, [1.0, 1.0, 0.0], cuda)
+    assert _square_check(x, w, 1.3, layout == "live_is_fixed") == (1, 0)
+
+
+@pytest.mark.parametrize("K", [9, 16])
+def test_kl_square_kernel_in_client_blocks(cuda, K):
+    """Past MAX_CLIENTS the diagonal blocks of (x, x.detach()) run the
+    square kernel and the others the pair kernel: one call counts one of
+    each."""
+    from repro_torch.core.mutual import _pair_mask
+    gen = torch.Generator(device=cuda).manual_seed(K)
+    x = 2 * torch.randn(K, 4, 2_000, generator=gen, device=cuda)
+    w = _pair_mask(K, [1.0] * (K - 1) + [0.0], cuda)
+    assert _square_check(x, w, 1.2) == (1, 1)
+
+
+def test_kl_forward_kernel_follows_the_storage(cuda):
+    """(x, x.detach()) runs the square kernel; (x, x.clone()) and
+    (x, x[[0, 1, 2]]) (equal values in new storage) run the pair kernel,
+    with the same values."""
+    from repro_torch.kernels import kl_mutual
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(3, 7, 3_000, generator=gen, device=cuda)
+    w = (1.0 - torch.eye(3, device=cuda)) / 2
+    outs = []
+    for fixed in (x.detach(), x.clone(), x[[0, 1, 2]]):
+        before = (kl_mutual.square_launches, kl_mutual.pair_launches)
+        outs.append(kl_mutual.kl_mutual_pair(x, fixed, w))
+        square = fixed.data_ptr() == x.data_ptr()
+        assert (kl_mutual.square_launches - before[0],
+                kl_mutual.pair_launches - before[1]) == \
+            (int(square), int(not square))
+    for got in outs[1:]:
+        torch.testing.assert_close(got, outs[0], atol=1e-5, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------

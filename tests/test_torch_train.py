@@ -17,6 +17,7 @@ Tolerances, all fp32:
     package; 1e-4 is a sixth of the largest step these sessions take
     (lr 1e-3, 5 warmup steps).
 """
+import math
 import os
 import subprocess
 import sys
@@ -142,6 +143,92 @@ def test_mutual_kl_matches_jax_and_the_pair_identity(K, T, V):
            got, atol=0, rtol=0)
     _close(mutual.mutual_kl_eval(torch.from_numpy(x), T, impl="ref"), got,
            atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("K,part,T,V", [
+    (3, [1, 1, 0], 1.5, 300),     # the DML round's mask, one client out
+    (4, [1, 0, 1, 1], 0.5, 517),  # ragged V against the vector width
+    (2, None, 1.0, 130),
+    (5, [1, 1, 1, 0, 1], 1.7, 64),
+])
+def test_square_identity_under_masked_weights(K, part, T, V):
+    """The square case as the DML round runs it: ``ref.mutual_kl_pair(x,
+    x.detach(), _pair_mask(K, part))`` (what the square kernel computes)
+    against JAX's ``_kl_pair_kernel`` in interpret mode with fixed =
+    stop_gradient(live), as JAX's training calls it: values and the live
+    gradient."""
+    x, _, gbar = _kl_inputs(K, V, seed=3)
+    w = mutual._pair_mask(K, part)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    got = ref.mutual_kl_pair(xt, xt.detach(), w, temperature=T)
+    got.backward(torch.from_numpy(gbar))
+    want, vjp = jax.vjp(lambda a: jkl_pair(
+        a, jax.lax.stop_gradient(a), jnp.asarray(w.numpy()), temperature=T,
+        block_v=128, interpret=True), jnp.asarray(x))
+    (dx,) = vjp(jnp.asarray(gbar))
+    _close(got, want)
+    _close(xt.grad, dx)
+
+
+def _square_kernel_model(x, w, T, threads=4, width=8):
+    """The square kernel's arithmetic order on fp32 logits x (K, B, V):
+    per row, ``threads`` streams over tiles of ``width`` elements (thread t
+    takes tiles t, t + threads, ...); a tile takes its max in log2 units
+    (x c, c = log2(e) / T), rescales the thread's partition and cross sums
+    once, then adds e = 2^(x c - m) and e_i (x_i - x_j) on the raw logits;
+    the threads' states merge pairwise in the kernel's butterfly order, and
+    KL_ij = (Z_j - Z_i) + T_ij / (T A_i) with Z = ln 2 (m + log2 A)."""
+    K, B, V = x.shape
+    c = torch.tensor(math.log2(math.e) / T, dtype=torch.float32)
+    out = torch.zeros(K, B)
+    for b in range(B):
+        states = []
+        for t in range(threads):
+            m = torch.full((K,), -1e30)
+            a = torch.zeros(K)
+            cross = torch.zeros(K, K)
+            for v0 in range(t * width, V, threads * width):
+                tile = x[:, b, v0:v0 + width]                  # (K, n)
+                mx = torch.maximum(m, tile.max(-1).values * c)
+                sc = torch.exp2(m - mx)
+                a, cross, m = a * sc, cross * sc[:, None], mx
+                e = torch.exp2(tile * c - m[:, None])
+                a = a + e.sum(-1)
+                cross = cross + torch.einsum(
+                    "in,ijn->ij", e, tile[:, None] - tile[None])
+            states.append((m, a, cross))
+        step = threads // 2
+        while step:                      # butterfly merge, as thread 0 sees it
+            for t in range(step):
+                (m1, a1, t1), (m2, a2, t2) = states[t], states[t + step]
+                mn = torch.maximum(m1, m2)
+                s1, s2 = torch.exp2(m1 - mn), torch.exp2(m2 - mn)
+                states[t] = (mn, a1 * s1 + a2 * s2,
+                             t1 * s1[:, None] + t2 * s2[:, None])
+            step //= 2
+        m, a, cross = states[0]
+        z = math.log(2) * (m + torch.log2(a))
+        kl = (z[None] - z[:, None]) + cross / (T * a[:, None])
+        out[:, b] = (w * kl * (1 - torch.eye(K))).sum(1)
+    return out
+
+
+@pytest.mark.parametrize("K,part,T,V", [
+    (3, [1, 1, 0], 1.5, 300), (1, None, 1.0, 77), (4, None, 0.5, 129),
+    (8, [1, 1, 1, 1, 1, 1, 1, 0], 1.7, 200)])
+def test_square_kernel_arithmetic_matches_jax(K, part, T, V):
+    """The square kernel's order of arithmetic (log2 units, one rescale a
+    tile, the cross term on raw logits, the butterfly merge), modelled in
+    fp32 on the CPU, against the JAX oracle ``mutual_kl_pair(x, x, w)``
+    and against JAX's interpreted ``_kl_pair_kernel`` with fixed =
+    stop_gradient(live)."""
+    x, _, _ = _kl_inputs(K, V, seed=4)
+    w = mutual._pair_mask(K, part)
+    got = _square_kernel_model(torch.from_numpy(x), w, T)
+    jw = jnp.asarray(w.numpy())
+    _close(got, jref.mutual_kl_pair(jnp.asarray(x), jnp.asarray(x), jw, T))
+    _close(got, jkl_pair(jnp.asarray(x), jax.lax.stop_gradient(
+        jnp.asarray(x)), jw, temperature=T, block_v=128, interpret=True))
 
 
 @pytest.mark.parametrize("part", [None, [1, 1, 0]])
