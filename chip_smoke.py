@@ -14,11 +14,12 @@ Phases, each fatal on failure:
      time beside its bound, the plain version's time and a library
      yardstick (and for the flash kernels the achieved TFLOP/s of each; the
      forward also at the training path's shapes): the flash-attention
-     forward and backward, the Eq.-2 KL's square forward (fixed is live:
-     the DML round's term and ``mutual_kl``), pair forward (distinct live
-     and fixed) and backward (at qwen3-4b's and mamba2-780m's
-     vocabularies, and past one launch's 8 clients a side: K = 9 and 16 in
-     client blocks), the SSD chunked scan's forward and backward, and the
+     forward and backward, the Eq.-2 KL's square forward and backward
+     (fixed is live: the DML round's term and ``mutual_kl``) and pair
+     forward and backward (distinct live and fixed) (at qwen3-4b's and
+     mamba2-780m's vocabularies, and past one launch's 8 clients a side:
+     K = 9 and 16 in client blocks), the SSD chunked scan's forward and
+     backward, and the
      sparse (top-k) KL's
      forward and backward (at both vocabularies, and past one launch's
      entries: k = 2048 in sender blocks, k = 5000 read in place);
@@ -30,7 +31,7 @@ Phases, each fatal on failure:
   4. the training path at the full width of qwen3-4b cut to 4 of its 36
      layers: ``Federation(LMClients(..., n_clients=3), DML())`` trains 3
      fused DML rounds through the kernels (launch counts checked: each
-     round's Eq.-2 term through the square forward and the pair backward),
+     round's Eq.-2 term through the square forward and backward),
      reads out Eq. 2 of the final public logits through ``mutual_kl``, and
      round 1 and each client's gradient are held against the same round at
      ``impl="ref"``;
@@ -38,7 +39,7 @@ Phases, each fatal on failure:
      on 1024-token prompts, through the SSD forward kernel;
   6. phase 4 for K=3 full-width, full-depth mamba2-780m clients at seq 1024
      (18,432 trained tokens a round), through the SSD forward and backward
-     kernels and the square and backward pair-KL kernels;
+     kernels and the square pair-KL kernels;
   7. phase 4 with ``SparseDML(k=64)``: each client shares the top-64
      (index, log-prob) sets of its public logits, and the Eq.-2 term runs
      through the sparse-KL forward and backward kernels (no pair-KL
@@ -454,6 +455,22 @@ def _kl_ops(Kl, Kg, B, V, square: bool = False) -> float:
     return float(B) * V * (2 * Kl * Kg + 4 * (Kl + Kg))
 
 
+def _kl_bwd_ops(Kl, Kg, B, V, square: bool = False) -> float:
+    """fp32 operations of the pair-KL backward (dlive only): per (b, v) and
+    live client two for the exponential (FMA, EX2), two per weighted term
+    (one FMA: K (K - 1) in the square case, Kl Kg in the pair) and the
+    x term, and two multiplies."""
+    terms = Kl * (Kl - 1) if square else Kl * Kg
+    return float(B) * V * (2 * terms + 6 * Kl)
+
+
+def _kl_counts(kl_mutual) -> tuple:
+    """The pair-KL launch counters by kernel: square and pair forward,
+    square and pair backward."""
+    return (kl_mutual.square_launches, kl_mutual.pair_launches,
+            kl_mutual.square_bwd_launches, kl_mutual.pair_bwd_launches)
+
+
 def _pair_kernel_on_one(x, w, T: float):
     """The pair forward's C entry with live = fixed = ``x`` (the wrapper
     sends that call to the square kernel); uncounted.  Returns out."""
@@ -480,20 +497,22 @@ def phase_kl(K: int, B: int, V: int) -> list:
     streaming sum against a two-pass softmax over 151,936 terms), and the
     backward after it against autograd of it (relative norm error 1e-4 in
     fp32, 2e-2 in bf16, where the gradient is rounded to bf16 once): the
-    square kernel as the DML round calls it (fixed = live.detach(), the
-    live side's gradient), and the pair kernel on distinct live and fixed
+    square kernels as the DML round calls them (fixed = live.detach(), the
+    live side's gradient), and the pair kernels on distinct live and fixed
     (fixed = the clients rolled, materialised; both sides' gradients in
-    fp32); each call must launch its kernel and not the other.  Then
-    ``ops.mutual_kl`` (the square kernel with w = (1 - I) / (K - 1))
-    against ``ref.mutual_kl``, and the bf16 times beside the bound of what
-    each call reads and writes: the square forward as training and as the
-    readout call it (one (K, B, V) plane read), the pair forward (two), the
-    pair forward's C entry on one tensor passed as both (one: the call the
-    square kernel takes over; its result held against ``ref`` too), the
-    backward as training calls it (one plane read, one written) and on
-    distinct tensors (two read, one written), each over 20 calls after 3
-    warm-ups (the rows' window) and 50 after 10.  Returns the four
-    kernels' rows."""
+    fp32); each call must launch its own forward and backward kernel and
+    no other.  Then ``ops.mutual_kl`` (the square kernel with w = (1 - I) /
+    (K - 1)) against ``ref.mutual_kl``, and the bf16 times beside the
+    bound of what each call reads and writes: the square forward as
+    training and as the readout call it (one (K, B, V) plane read), the
+    pair forward (two), the pair forward's C entry on one tensor passed as
+    both (one: the call the square kernel takes over; its result held
+    against ``ref`` too), the square backward as training calls it (one
+    plane read, one written) and the pair backward on distinct tensors
+    (two read, one written), each over 20 calls after 3 warm-ups (the
+    rows' window) and 50 after 10, beside one read of the plane
+    (``torch.amax``) and one read and one write (``torch.mul``): the
+    library's floors.  Returns the five kernels' rows."""
     from repro_torch.core.mutual import _pair_mask
     from repro_torch.kernels import kl_mutual, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -512,12 +531,12 @@ def phase_kl(K: int, B: int, V: int) -> list:
                 a = logits.detach().requires_grad_(True)
                 b = a.detach() if fixed is None else \
                     fixed.detach().requires_grad_(both)
-                before = (kl_mutual.square_launches, kl_mutual.pair_launches)
+                before = _kl_counts(kl_mutual)
                 out = fn(a, b, w, temperature=T)
-                ran = (kl_mutual.square_launches - before[0],
-                       kl_mutual.pair_launches - before[1])
                 grads = torch.autograd.grad(out, (a, b) if both else (a,),
                                             gbar)
+                ran = tuple(n - m for n, m in zip(_kl_counts(kl_mutual),
+                                                  before))
                 res.append((out.detach(), [g.float() for g in grads], ran))
                 del a, b, out, grads
             (out, gs, ran), (want, wgs, _) = res
@@ -528,11 +547,13 @@ def phase_kl(K: int, B: int, V: int) -> list:
             lim = 1e-4 if dtype == torch.float32 else 2e-2
             if not (torch.allclose(out, want, atol=1e-3, rtol=1e-4)
                     and b_rel <= lim
-                    and ran == ((1, 0) if kernel == "square" else (0, 1))):
+                    and ran == ((1, 0, 1, 0) if kernel == "square"
+                                else (0, 1, 0, 1))):
                 raise AssertionError(
                     f"{kernel} KL disagrees with ref at {dtype}: forward max "
                     f"|err| {f_err:.3g}, backward relative error "
-                    f"{b_rel:.3g}; (square, pair) kernels launched {ran}")
+                    f"{b_rel:.3g}; (square, pair) forward and (square, "
+                    f"pair) backward kernels launched {ran}")
             print(f"{kernel} KL vs ref at (K={K}, B={B}, V={V}) "
                   f"{str(dtype)[6:]}, M={K - 1} of {K}, T={T}: forward max "
                   f"|err| {f_err:.3g} (limit 1e-3 + 1e-4 |out|), backward "
@@ -575,9 +596,16 @@ def phase_kl(K: int, B: int, V: int) -> list:
                                            False),
         "bwd2": lambda: kl_mutual._backward(x, y, w, out_p, zl_p, zf_p, gbar,
                                             T, False),
-        # what one read of the logits costs a library kernel: the
-        # forwards' attainable floor on this card
-        "read": lambda: torch.amax(x, dim=-1)}
+        # what one read of the logits costs a library kernel (the
+        # forwards' attainable floor on this card), and one read and one
+        # write of the plane (the square backward's)
+        "read": lambda: torch.amax(x, dim=-1),
+        "rw": lambda: torch.mul(x, 2.0, out=scratch)}
+    scratch = torch.empty_like(x)
+    for key, name in (("bwd", kl_mutual.SQUARE_BWD),
+                      ("bwd2", kl_mutual.PAIR_BWD)):
+        if timed[key]()[2] != name:
+            raise AssertionError(f"the {key} call left {name}")
     # every row on the window of the other kernels' rows (20 calls after
     # 3), and beside it 50 after 10
     ms = {k: time_ms(fn) for k, fn in timed.items()}
@@ -592,33 +620,39 @@ def phase_kl(K: int, B: int, V: int) -> list:
     def plain_f(fixed):
         with torch.no_grad():
             ref.mutual_kl_pair(live, fixed, w, T)
+    def plain_fb2():
+        torch.autograd.grad(ref.mutual_kl_pair(live, y, w, T), live, gbar)
     plain_sq = time_ms(lambda: plain_f(live.detach()), iters=5)
     plain_pr = time_ms(lambda: plain_f(y), iters=5)
     plain_bwd = time_ms(plain_fb, iters=5) - plain_sq
+    plain_bwd2 = time_ms(plain_fb2, iters=5) - plain_pr
     plain_mk = time_ms(lambda: ref.mutual_kl(x, T), iters=5)
     plane = K * B * V * 2                       # one (K, B, V) bf16 tensor
     ops_sq = _kl_ops(K, K, B, V, square=True)
     sq_bound = _bound(ops_sq, plane, torch.float32)
     pr_bound = _bound(_kl_ops(K, K, B, V), 2 * plane, torch.float32)
-    bwd_bound = _bound(_kl_ops(K, K, B, V), 2 * plane, torch.float32)
-    bwd2_bound = _bound(_kl_ops(K, K, B, V), 3 * plane, torch.float32)
+    bwd_bound = _bound(_kl_bwd_ops(K, K, B, V, square=True), 2 * plane,
+                       torch.float32)
+    bwd2_bound = _bound(_kl_bwd_ops(K, K, B, V), 3 * plane, torch.float32)
     for name, key, plain, (bound, by) in (
             ("square forward (x, x.detach())", "sq", plain_sq, sq_bound),
             ("square forward (mutual_kl)", "mk", plain_mk, sq_bound),
             ("pair forward (x, x rolled)", "pr", plain_pr, pr_bound),
             ("pair forward on one tensor (x, x)", "pr1", plain_sq, sq_bound),
-            ("backward (x, x.detach())", "bwd", plain_bwd, bwd_bound),
-            ("backward (x, x rolled)", "bwd2", None, bwd2_bound)):
+            ("square backward (x, x.detach())", "bwd", plain_bwd, bwd_bound),
+            ("pair backward (x, x rolled)", "bwd2", plain_bwd2, bwd2_bound)):
         print(f"KL {name} at (K={K}, B={B}, V={V}) bf16: {ms[key]:.4f} ms "
-              f"(50 calls after 10: {ms50[key]:.4f}), plain "
-              f"{'-' if plain is None else f'{plain:.4f}'} ms, no single "
-              f"library call; bound {bound:.4f} ms by {by} "
+              f"(50 calls after 10: {ms50[key]:.4f}), plain {plain:.4f} ms, "
+              f"no single library call; bound {bound:.4f} ms by {by} "
               f"({bound / ms[key]:.0%} of it)")
-    print(f"one read of the (K={K}, B={B}, V={V}) bf16 logits by torch.amax:"
-          f" {ms['read']:.4f} ms (50 calls after 10: {ms50['read']:.4f}; "
-          f"{sq_bound[0] / ms['read']:.0%} of the square forward's byte "
+    print(f"library floors at (K={K}, B={B}, V={V}) bf16: one read by "
+          f"torch.amax {ms['read']:.4f} ms (50 calls after 10: "
+          f"{ms50['read']:.4f}; {sq_bound[0] / ms['read']:.0%} of the square "
+          f"forward's byte bound), one read and one write by torch.mul "
+          f"{ms['rw']:.4f} ms (50 calls after 10: {ms50['rw']:.4f}; "
+          f"{bwd_bound[0] / ms['rw']:.0%} of the square backward's byte "
           f"bound)")
-    del x, y, live, out, out_p
+    del x, y, live, out, out_p, scratch
     torch.cuda.empty_cache()
     src = "src/repro_torch/kernels/csrc/kl_mutual_pair.cu"
     row = dict(route="cuda", source=src, launches=None, library_ms=None)
@@ -633,11 +667,16 @@ def phase_kl(K: int, B: int, V: int) -> list:
          "max_abs_err": errs[BF16, "square"][0], "ms": sq_ms,
          "plain_ms": plain_sq, "bound_ms": sq_bound[0],
          "bound_by": sq_bound[1]},
-        {"name": "kl_mutual_pair_bwd", **row,
+        {"name": "kl_mutual_square_bwd", **row,
          "replaces": "src/repro/kernels/kl_mutual.py:178",
          "max_abs_err": errs[BF16, "square"][1], "ms": bwd_ms,
          "plain_ms": plain_bwd, "bound_ms": bwd_bound[0],
          "bound_by": bwd_bound[1]},
+        {"name": "kl_mutual_pair_bwd", **row,
+         "replaces": "src/repro/kernels/kl_mutual.py:178",
+         "max_abs_err": errs[BF16, "pair"][1], "ms": ms["bwd2"],
+         "plain_ms": plain_bwd2, "bound_ms": bwd2_bound[0],
+         "bound_by": bwd2_bound[1]},
         {"name": "mutual_kl", **row,
          "replaces": "src/repro/kernels/kl_mutual.py:32",
          "max_abs_err": mk_err, "ms": mk_ms, "plain_ms": plain_mk,
@@ -830,9 +869,14 @@ def phase_sparse_kl(path_shapes, K: int) -> list:
     live, idx, lp, w, gbar = _sparse_case(gen, K, K, B0, V0, 64, 1.0, BF16,
                                           False)
     out, stats = sparse_kl._forward(live, idx, lp, w, 1.0)
-    fwd_ms = time_ms(lambda: sparse_kl._forward(live, idx, lp, w, 1.0))
-    bwd_ms = time_ms(lambda: sparse_kl._backward(live, idx, lp, w, stats,
-                                                 gbar, 1.0))
+    timed = {"forward": lambda: sparse_kl._forward(live, idx, lp, w, 1.0),
+             "backward": lambda: sparse_kl._backward(live, idx, lp, w, stats,
+                                                     gbar, 1.0),
+             # one read of live by a library kernel: the forward's floor
+             "read": lambda: torch.amax(live, dim=-1)}
+    # on the rows' window (20 calls after 3), and beside it 50 after 10
+    ms = {k: time_ms(fn) for k, fn in timed.items()}
+    ms50 = {k: time_ms(fn, iters=50, warmup=10) for k, fn in timed.items()}
     a = live.detach().requires_grad_(True)
 
     def plain_f():
@@ -845,11 +889,16 @@ def phase_sparse_kl(path_shapes, K: int) -> list:
     plain_bwd = time_ms(plain_fb, iters=5) - plain_fwd
     fb = _sparse_bound(K, K, B0, V0, 64, BF16, False)
     bb = _sparse_bound(K, K, B0, V0, 64, BF16, True)
-    for name, ms, plain, (bound, by) in (("forward", fwd_ms, plain_fwd, fb),
-                                         ("backward", bwd_ms, plain_bwd, bb)):
+    for name, plain, (bound, by) in (("forward", plain_fwd, fb),
+                                     ("backward", plain_bwd, bb)):
         print(f"sparse KL {name} at (Kl=J={K}, B={B0}, V={V0}, k=64) bf16: "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, no single library call; "
-              f"bound {bound:.4f} ms by {by}")
+              f"{ms[name]:.4f} ms (50 calls after 10: {ms50[name]:.4f}), "
+              f"plain {plain:.4f} ms, no single library call; bound "
+              f"{bound:.4f} ms by {by} ({bound / ms[name]:.0%} of it)")
+    print(f"one read of the sparse KL's live (Kl={K}, B={B0}, V={V0}) bf16 "
+          f"by torch.amax: {ms['read']:.4f} ms (50 calls after 10: "
+          f"{ms50['read']:.4f}; {fb[0] / ms['read']:.0%} of the forward's "
+          f"bound)")
     del live, idx, lp, w, gbar, out, stats, a
     torch.cuda.empty_cache()
     src = "src/repro_torch/kernels/csrc/sparse_kl.cu"
@@ -857,11 +906,11 @@ def phase_sparse_kl(path_shapes, K: int) -> list:
     return [
         {"name": "sparse_kl_fwd", **row,
          "replaces": "src/repro/kernels/sparse_kl.py:47",
-         "max_abs_err": errs[0], "ms": fwd_ms, "plain_ms": plain_fwd,
+         "max_abs_err": errs[0], "ms": ms["forward"], "plain_ms": plain_fwd,
          "bound_ms": fb[0], "bound_by": fb[1]},
         {"name": "sparse_kl_bwd", **row,
          "replaces": "src/repro/kernels/sparse_kl.py:167",
-         "max_abs_err": errs[1], "ms": bwd_ms, "plain_ms": plain_bwd,
+         "max_abs_err": errs[1], "ms": ms["backward"], "plain_ms": plain_bwd,
          "bound_ms": bb[0], "bound_by": bb[1]},
     ]
 
@@ -1324,7 +1373,8 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
     for SparseDML, the sparse-KL kernels, counted by the module's
     ``launches`` and ``bwd_launches``.  A DML run's Eq.-2 terms and readout
     must all run the square forward (fixed is live: the pair KL's
-    ``square_launches``) and the pair backward; a SparseDML run must
+    ``square_launches``) and its terms the square backward
+    (``square_bwd_launches``), never a pair kernel; a SparseDML run must
     launch no pair-KL kernel.  Then round 1 again at ``impl="ref"`` from the same
     seeded weights and batches: each client's private_loss, public_ce and
     kld_avg within relative error 2e-2 (plus 1e-3 absolute on kld_avg),
@@ -1382,6 +1432,7 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
         eq2[2].launches = eq2[2].bwd_launches = 0
     klm.launches = klm.bwd_launches = klm.mutual_kl_launches = 0
     klm.square_launches = klm.pair_launches = 0
+    klm.square_bwd_launches = klm.pair_bwd_launches = 0
     tokens = K * (B + max(1, B // 2)) * S
     walls = []
     for r in range(rounds):
@@ -1414,10 +1465,11 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
             readout = mutual_kl_eval(flat, impl=pop.impl)
     counts = {fwd_name: mod.launches,                # ... and ends here
               bwd_name: mod.bwd_launches,
-              # the pair KL by forward kernel (calls of either entry point)
+              # the pair KL by kernel (calls of an entry point)
               "kl_mutual_square_fwd": klm.square_launches,
               "kl_mutual_pair_fwd": klm.pair_launches,
-              "kl_mutual_pair_bwd": klm.bwd_launches,
+              "kl_mutual_square_bwd": klm.square_bwd_launches,
+              "kl_mutual_pair_bwd": klm.pair_bwd_launches,
               "mutual_kl": klm.mutual_kl_launches}
     need = {fwd_name: 2 * 2 * cfg.n_layers * rounds,
             bwd_name: 2 * cfg.n_layers * rounds}
@@ -1426,7 +1478,7 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
         need.update({eq2[0]: rounds + 1, eq2[1]: rounds})
     else:   # each round's Eq.-2 term and the readout: fixed is live
         need.update({"kl_mutual_square_fwd": rounds + 1,
-                     "kl_mutual_pair_bwd": rounds, "mutual_kl": 1})
+                     "kl_mutual_square_bwd": rounds, "mutual_kl": 1})
     print(f"training launches {counts} (kl_mutual_pair called {klm.launches}"
           f" times); need at least {need} (private and public forward in "
           f"each of {cfg.n_layers} layers, twice under remat; their "
@@ -1436,10 +1488,12 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
         raise AssertionError(f"the training path did not run through {short}")
     if sparse_k and klm.launches + klm.bwd_launches + klm.mutual_kl_launches:
         raise AssertionError("the SparseDML path launched a pair-KL kernel")
-    if not sparse_k and (klm.pair_launches
-                         or klm.square_launches != klm.launches + 1):
+    if not sparse_k and (klm.pair_launches or klm.pair_bwd_launches
+                         or klm.square_launches != klm.launches + 1
+                         or klm.square_bwd_launches != klm.bwd_launches
+                         or klm.square_bwd_launches != rounds):
         raise AssertionError("a DML round's Eq.-2 term left the square "
-                             "kernel")
+                             "kernels")
     if readout.shape != (K, pub.numel()) or \
             not bool(torch.isfinite(readout).all()) or \
             float(readout.min()) < -1e-3:

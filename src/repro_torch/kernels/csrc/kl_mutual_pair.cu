@@ -1,5 +1,5 @@
 // Pair-weighted mutual-learning KL (the paper's Eq. 2 at vocabulary scale)
-// for Hopper (sm_90a): two forward kernels and a backward.
+// for Hopper (sm_90a): a square and a pair kernel each way.
 //
 // The pair forward replaces src/repro/kernels/kl_mutual.py:68
 // (`_kl_pair_kernel`, launched by `_kl_pair_forward` at :124):
@@ -12,10 +12,12 @@
 // participation mask it is the DML round's Eq.-2 term, which the JAX
 // training path computes by `_kl_pair_kernel` with fixed = stop_gradient(
 // live) (:76-79), and which the wrapper sends here whenever fixed is live's
-// storage viewed alike.
+// storage viewed alike.  The backwards replace `_streaming_pair_bwd`
+// (:178-232, plain JAX inside the custom_vjp at :235-256), the square one
+// for that same call.
 //
-// Both forwards: one block owns one row b and makes ONE streaming pass over
-// V for all clients.  Each thread keeps, per client, a running max m and
+// Forwards: one block owns one row b and makes ONE streaming pass over V
+// for all clients.  Each thread keeps, per client, a running max m and
 // partition A = sum 2^{x c - m} in log2 units (c = log2(e) / T, so every
 // exponential is one MUFU.EX2 of fma(x, c, -m)), and the cross accumulator
 // T_ij = sum_v e_i (x_i - y_j) on the raw logits (the reference's
@@ -27,72 +29,74 @@
 // the logsumexps Z (natural log, units of logits / T) are written for the
 // backward; the square kernel's lse serves both sides.
 //
-// Loads are 16 bytes (8 bf16 or 4 fp32, `ld.global.nc`), neighbouring
-// threads on neighbouring vectors, in full tiles of NTHREADS x NV vectors a
-// client (NV = 2 for up to 4 client rows, else 1).  A tile takes one max
-// and one rescale a client, then its elements run unpredicated.  The
-// vectors after the last full tile go NTHREADS at a time under a mask, and
-// the elements before the row's first 16-byte boundary (a view such as
-// x[..., 1:]) and after its last vector one per thread, inside the same
-// kernel.  Vector loads need every client's row at one 16-byte phase;
-// where they are not (a contiguous tensor with V not a multiple of 8, say)
-// the same kernel is instantiated with one-element loads.  The client
-// counts are template arguments, so every state lives in registers and no
-// loop carries a client predicate: the square kernel has one instance per
-// K = 1..8, the pair kernel one per N = 1..8 with Kl = Kg = N.  A pair with
-// Kl != Kg (past 8 clients, the wrapper's off-diagonal client blocks) runs
-// the instance of N = max(Kl, Kg) with the shorter side's first row read
-// again in the padded rows, whose results are not written or weighted: the
-// same bytes, more instructions, off every training and serving path.  The
-// wrapper cuts more than 8 clients into blocks.
-//
-// What bounds the forwards on the H100: bytes.  At the DML round's shape
-// (K = 3, B = 1024, V = 151,936, bf16) the square kernel reads 0.93 GB
-// (0.279 ms at 3.35 TB/s) and the pair kernel 1.87 GB (0.557 ms).  Per
-// element they issue ~8-9 instructions (unpack, max, FFMA, MUFU.EX2, add,
-// and per position K(K-1)/2 subtractions and K(K-1) FMAs; pair: Kl Kg of
-// each) and one MUFU.EX2, ~0.13 ms each of the SMs' issue and SFU rates
-// for the square case's 4.7e8 elements.  `chip_smoke.py` measures them
-// there (H100 80GB HBM3, 700 W): the square kernel at 89-92% of its byte
-// bound and the pair kernel at 90%; at (3, 2048, 50,280), where a row's
-// start and merge weigh more, 83-87% and 86%.  The pair kernel handed ONE
-// tensor as live and fixed reads one plane but issues the pair's 2K
-// exponentials and K^2 cross terms a position: 0.44 ms at the shape above
-// against the square kernel's 0.30, which is why the square kernel takes
-// that call.
-//
-// Backward replaces `_streaming_pair_bwd` (kl_mutual.py:178-232, plain JAX
-// inside the custom_vjp at :235-256): an elementwise pass over (b, v) that
-// reads the saved Z's, out and the cotangent g_bar (Kl, B):
+// Backwards: an elementwise pass over (b, v) that reads the saved Z's, out
+// and the cotangent g_bar (Kl, B):
 //     dlive[i]  = s g_bar_i p_i (R_i lp_i - sum_j w_ij lq_j - out_i)
 //     dfixed[j] = -s (sum_i w_ij g_bar_i p_i - q_j sum_i w_ij g_bar_i)
 // with s = 1/T, R_i = sum_j w_ij, lp/lq the live/fixed log-softmax and p/q
-// their exponentials.  dfixed is written only when asked for (the training
-// path holds the fixed side constant).  It reads live and fixed and writes
-// dlive: 1.87 GB read and 0.93 GB written at the shape above (0.84 ms), or
-// 0.93 GB each way (0.56 ms) when fixed is live.  Its loads are coalesced
-// scalars; clients are a compile-time bound KM (4 or 8) with runtime
-// Kl, Kg <= KM.
+// their exponentials; dfixed only when asked for (the training path holds
+// the fixed side constant).  One block owns one row b, streams it as the
+// forwards do and writes the gradients at the same positions.  The per-row
+// constants (BwdRow: s g_bar_i, s R_i, -s w_ij and
+// kap_i = -R_i Z_i + sum_j w_ij Zf_j - out_i) go into registers once a
+// block, so that on the raw logits an element costs
+//     dlive_i = s g_bar_i 2^(x_i c - Z_i log2 e) (s R_i x_i - s sum_j w_ij y_j + kap_i):
+// one MUFU.EX2 and K FMAs a live client.  The square kernel reads x once,
+// takes y = x and leaves out the pairs i = j (KL_ii = 0 for every x), and
+// writes dfixed of the same x from the same loads (q = p) when autograd
+// asks for it.  dfixed is a uniform run-time flag, not a template argument
+// (the library's 128 kernels are the build's long pole), computed in
+// passes of its own after dlive's; the output packs of at most 4 clients
+// (2 past 8 rows a tile) are held at a time, so every instance stays in
+// registers.
+//
+// Loads are 16 bytes (8 bf16 or 4 fp32, `ld.global.nc`), neighbouring
+// threads on neighbouring vectors, in full tiles of NTHREADS x NV vectors a
+// client (NV = 2 for up to 4 client rows, else 1; kl_stream.cuh).  A tile
+// takes one max and one rescale a client, then its elements run
+// unpredicated.  The vectors after the last full tile go NTHREADS at a
+// time under a mask, and the elements before the row's first 16-byte
+// boundary (a view such as x[..., 1:]) and after its last vector one per
+// thread, inside the same kernel.  The backwards store 16 bytes a client
+// (`st.global.cs`) at the loads' positions.  Vector loads need every row
+// of a row b (live, fixed, dlive, dfixed) at one 16-byte phase; where they
+// are not (a contiguous tensor with B V not a multiple of 8, say) the same
+// kernels are instantiated with one-element loads.  The client counts are
+// template arguments, so every state lives in registers and no loop
+// carries a client predicate: each kernel has one instance per K = 1..8
+// (square) or N = 1..8 with Kl = Kg = N (pair).  A pair with Kl != Kg (past
+// 8 clients, the wrapper's off-diagonal client blocks) runs the instance
+// of N = max(Kl, Kg) with the shorter side's first row read again in the
+// padded rows, whose results are not written or weighted: the same bytes,
+// more instructions, off every training and serving path.  The wrapper
+// cuts more than 8 clients into blocks.
+//
+// What bounds them on the H100: bytes.  At the DML round's shape (K = 3,
+// B = 1024, V = 151,936, bf16) the square forward reads 0.93 GB (0.279 ms
+// at 3.35 TB/s) and the pair forward 1.87 GB (0.557 ms); the square
+// backward reads 0.93 GB and writes 0.93 GB (0.557 ms), the pair backward
+// reads 1.87 GB and writes 0.93 GB (0.836 ms).  Per element they issue
+// ~8-12 instructions and one MUFU.EX2 a client, ~0.13-0.2 ms of the SMs'
+// issue and SFU rates for the square case's 4.7e8 elements.
+// `chip_smoke.py` measures them there (NVIDIA H100 80GB HBM3, 700.00 W):
+// the square forward at 89-92% of its byte bound and the pair forward at
+// 90%; at (3, 2048, 50,280), where a row's start and merge weigh more,
+// 83-87% and 86%.  The pair forward handed ONE tensor as live and fixed
+// reads one plane but issues the pair's 2K exponentials and K^2 cross
+// terms a position: 0.44 ms at the shape above against the square
+// kernel's 0.30, which is why the square kernel takes that call.  The
+// square backward takes 0.65 ms (86% of its bound; one read and one write
+// of the plane by torch.mul, 0.61 ms) and 0.45 ms at (3, 2048, 50,280)
+// (82%), the pair backward 0.94 ms (88%) and 0.64 ms (86%): up to 3
+// clients a side, two blocks an SM (128 registers) hide each other's
+// loads, which with the streaming stores took the square backward from
+// 0.675 to 0.651 ms.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include <type_traits>
+
+#include "kl_stream.cuh"
 
 namespace {
-
-constexpr int NTHREADS = 256;
-constexpr int NWARPS = NTHREADS / 32;
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);
-}
 
 struct Params {
     const void* live;
@@ -112,80 +116,6 @@ struct Params {
 
 // ---------------------------------------------------------------------------
 // forward
-
-// 2^x on the SFU: one MUFU.EX2 (inputs far below -126 give 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-}
-
-// One load of a client's row: 16 bytes when VEC, else one element; held as
-// raw 32-bit words and unpacked to fp32 where used.
-template <typename T, bool VEC>
-struct Pack {
-    static constexpr int WORDS = VEC ? 4 : 1;
-    static constexpr int W = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;
-    unsigned w[WORDS];
-};
-
-template <typename T, bool VEC>
-__device__ __forceinline__ Pack<T, VEC> load_pack(const T* p) {
-    Pack<T, VEC> r;
-    if constexpr (VEC) {
-        const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
-        r.w[0] = q.x;
-        r.w[1] = q.y;
-        r.w[2] = q.z;
-        r.w[3] = q.w;
-    } else if constexpr (sizeof(T) == 2) {
-        r.w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
-    } else {
-        r.w[0] = __float_as_uint(__ldg(reinterpret_cast<const float*>(p)));
-    }
-    return r;
-}
-
-template <typename T, bool VEC>
-__device__ __forceinline__ Pack<T, VEC> zero_pack() {
-    Pack<T, VEC> r;
-#pragma unroll
-    for (int k = 0; k < Pack<T, VEC>::WORDS; ++k) r.w[k] = 0u;
-    return r;
-}
-
-// Element e of a pack as fp32 (a bf16 is the high half of an fp32).
-template <typename T, bool VEC>
-__device__ __forceinline__ float elem(const Pack<T, VEC>& pk, int e) {
-    if constexpr (sizeof(T) == 2) {
-        const unsigned w = pk.w[VEC ? e / 2 : 0];
-        return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
-    } else {
-        return __uint_as_float(pk.w[e]);
-    }
-}
-
-// Packs a client a thread loads per full tile: 8 words of 16-byte loads for
-// up to 4 client rows, 4 for more, so the tile stays in registers; one
-// element without VEC.
-template <bool VEC, int ROWS>
-__host__ __device__ constexpr int packs_per_tile() {
-    return VEC && ROWS <= 4 ? 2 : 1;
-}
-
-// max over a tile's elements of one client, times c (log2 units); a
-// masked tile (one pack) that is not `ok` gives NEG_INF * c
-template <typename T, bool VEC, int NV>
-__device__ __forceinline__ float tile_max(const Pack<T, VEC> (&pk)[NV],
-                                          bool ok, float c) {
-    float mx = NEG_INF;
-#pragma unroll
-    for (int n = 0; n < NV; ++n)
-#pragma unroll
-        for (int e = 0; e < Pack<T, VEC>::W; ++e)
-            mx = fmaxf(mx, elem(pk[n], e));
-    return (ok ? mx : NEG_INF) * c;
-}
 
 // Square state: per client the running max m (log2 units), partition A and
 // the cross sums t[i][j] = sum e_i (x_i - x_j) for j != i (t[i][i] unused).
@@ -412,61 +342,6 @@ struct Rows {
     }
 };
 
-// Streams one row of the R client rows: full tiles of NTHREADS x NV packs
-// a client through `full(packs)` (unmasked), the packs after the last full
-// tile NTHREADS at a time through `part(packs, ok)` (masked), and the
-// elements before the row's first 16-byte boundary and after its last
-// whole pack through `one(packs, ok)`, one element a thread.
-template <typename T, bool VEC, int R, int NV, class RowsT, class Full,
-          class Part, class One>
-__device__ __forceinline__ void stream_row(const RowsT& rows, int V,
-                                           Full full, Part part, One one) {
-    constexpr int W = Pack<T, VEC>::W;
-    constexpr int TILE = NTHREADS * NV;
-    const int tid = threadIdx.x;
-    int head = 0;
-    if constexpr (VEC) {
-        const unsigned off = static_cast<unsigned>(
-            reinterpret_cast<unsigned long long>(rows(0)) & 15ull);
-        head = min(V, static_cast<int>(((16u - off) & 15u) / sizeof(T)));
-    }
-    const int nvec = (V - head) / W;
-    const int tiled = nvec - nvec % TILE;           // packs in full tiles
-    for (int q0 = 0; q0 < tiled; q0 += TILE) {
-        Pack<T, VEC> pk[R][NV];
-#pragma unroll
-        for (int n = 0; n < NV; ++n)
-#pragma unroll
-            for (int r = 0; r < R; ++r)
-                pk[r][n] = load_pack<T, VEC>(
-                    rows(r) + head + (q0 + n * NTHREADS + tid) * W);
-        full(pk);
-    }
-    for (int q0 = tiled; q0 < nvec; q0 += NTHREADS) {
-        const int q = q0 + tid;
-        const bool ok = q < nvec;
-        Pack<T, VEC> pk[R][1];
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-            pk[r][0] = ok ? load_pack<T, VEC>(rows(r) + head + q * W)
-                          : zero_pack<T, VEC>();
-        part(pk, ok);
-    }
-    if constexpr (VEC) {
-        const int rest = V - nvec * W;              // < 2 W
-        if (rest > 0) {
-            const bool ok = tid < rest;
-            const int v = tid < head ? tid : tid + nvec * W;
-            Pack<T, false> pk[R][1];
-#pragma unroll
-            for (int r = 0; r < R; ++r)
-                pk[r][0] = ok ? load_pack<T, false>(rows(r) + v)
-                              : zero_pack<T, false>();
-            one(pk, ok);
-        }
-    }
-}
-
 template <typename T, int K, bool VEC>
 __global__ void __launch_bounds__(NTHREADS, 1) kl_square_fwd(Params p) {
     constexpr int NV = packs_per_tile<VEC, K>();
@@ -479,13 +354,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) kl_square_fwd(Params p) {
     st.init();
     stream_row<T, VEC, K, NV>(
         rows, p.V,
-        [&](const Pack<T, VEC> (&pk)[K][NV]) {
+        [&](const Pack<T, VEC> (&pk)[K][NV], int) {
             st.template tile<T, VEC, NV, false>(pk, true, c);
         },
-        [&](const Pack<T, VEC> (&pk)[K][1], bool ok) {
+        [&](const Pack<T, VEC> (&pk)[K][1], bool ok, int) {
             st.template tile<T, VEC, 1, true>(pk, ok, c);
         },
-        [&](const Pack<T, false> (&pk)[K][1], bool ok) {
+        [&](const Pack<T, false> (&pk)[K][1], bool ok, int) {
             st.template tile<T, false, 1, true>(pk, ok, c);
         });
     if (!block_merge(st)) return;
@@ -523,13 +398,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) kl_pair_fwd(Params p) {
     st.init();
     stream_row<T, VEC, 2 * N, NV>(
         rows, p.V,
-        [&](const Pack<T, VEC> (&pk)[2 * N][NV]) {
+        [&](const Pack<T, VEC> (&pk)[2 * N][NV], int) {
             st.template tile<T, VEC, NV, false>(pk, true, c);
         },
-        [&](const Pack<T, VEC> (&pk)[2 * N][1], bool ok) {
+        [&](const Pack<T, VEC> (&pk)[2 * N][1], bool ok, int) {
             st.template tile<T, VEC, 1, true>(pk, ok, c);
         },
-        [&](const Pack<T, false> (&pk)[2 * N][1], bool ok) {
+        [&](const Pack<T, false> (&pk)[2 * N][1], bool ok, int) {
             st.template tile<T, false, 1, true>(pk, ok, c);
         });
     if (!block_merge(st)) return;
@@ -559,102 +434,221 @@ __global__ void __launch_bounds__(NTHREADS, 1) kl_pair_fwd(Params p) {
 // ---------------------------------------------------------------------------
 // backward
 
-template <typename T, int KM, int EPT>
-__global__ void __launch_bounds__(NTHREADS) kl_pair_bwd(Params p) {
-    const int b = blockIdx.y;
-    const float s = p.inv_temp;
-    const T* live = static_cast<const T*>(p.live) + b * p.l_sb;
-    const T* fixed = static_cast<const T*>(p.fixed) + b * p.f_sb;
-    const long long row = static_cast<long long>(b) * p.V;
-    const long long plane = static_cast<long long>(p.B) * p.V;
+// The per-row constants of the backward for KL live and KG fixed rows, in
+// registers once per block.  With s = 1/T, the live side's gradient is
+//     dlive_i = gs_i p_i (rs_i x_i + sum_j nws_ij y_j + kap_i),
+// gs_i = s g_bar_i, rs_i = s R_i, nws_ij = -s w_ij and the per-row constant
+// kap_i = -R_i Z_i + sum_j w_ij Zf_j - out_i, which is
+// s g_bar_i p_i (R_i lp_i - sum_j w_ij lq_j - out_i) on the raw logits x
+// (live) and y (fixed).  The fixed side's is
+//     dfixed_j = T (col_j q_j + sum_i nws_ij gs_i p_i),
+// col_j = s^2 sum_i w_ij g_bar_i.  p_i = 2^(x_i c - zl_i), c = log2(e) s,
+// zl_i = Z_i log2(e); q likewise from y and zfl.  The square case has y = x
+// and q = p, and leaves out the pairs i = j, whose KL is 0 for every x.
+template <int KL, int KG>
+struct BwdRow {
+    float gs[KL], rs[KL], kap[KL], zl[KL];
+    float zfl[KG], col[KG];
+    float nws[KL][KG];
 
-    // per-row constants
-    float gb[KM], z[KM], r[KM], o[KM], zf[KM], col[KM];
+    // The rows past p.Kl (live) and p.Kg (fixed) are padding (weight 0, and
+    // row 0's Z, since Rows reads row 0 again there).  SQUARE: fixed is
+    // live (p.lse_fixed is p.lse_live), and the pairs i = j are left out.
+    template <bool SQUARE>
+    __device__ __forceinline__ void load(const Params& p, int b) {
+        const float s = p.inv_temp;
+        float z[KL], zf[KG];
 #pragma unroll
-    for (int i = 0; i < KM; ++i) {
-        gb[i] = z[i] = r[i] = o[i] = zf[i] = col[i] = 0.f;
-        if (i < p.Kl) {
-            gb[i] = p.gbar[static_cast<long long>(i) * p.B + b];
-            z[i] = p.lse_live[static_cast<long long>(i) * p.B + b];
-            o[i] = p.out[static_cast<long long>(i) * p.B + b];
+        for (int j = 0; j < KG; ++j) {
+            zf[j] = p.lse_fixed[static_cast<long long>(j < p.Kg ? j : 0) * p.B
+                                + b];
+            zfl[j] = zf[j] * LOG2E;
+            col[j] = 0.f;
         }
-        if (i < p.Kg) zf[i] = p.lse_fixed[static_cast<long long>(i) * p.B + b];
+#pragma unroll
+        for (int i = 0; i < KL; ++i) {
+            const bool real = i < p.Kl;
+            const long long o = static_cast<long long>(real ? i : 0) * p.B + b;
+            z[i] = p.lse_live[o];
+            zl[i] = z[i] * LOG2E;
+            gs[i] = real ? s * p.gbar[o] : 0.f;
+            float r = 0.f, k = real ? -p.out[o] : 0.f;
+#pragma unroll
+            for (int j = 0; j < KG; ++j) {
+                const bool on = real && j < p.Kg && !(SQUARE && j == i);
+                const float w = on ? p.w[i * p.Kg + j] : 0.f;
+                r += w;
+                k = fmaf(w, zf[j], k);
+                nws[i][j] = -s * w;
+                col[j] = fmaf(w, gs[i], col[j]);
+            }
+            rs[i] = s * r;
+            kap[i] = fmaf(-r, z[i], k);
+        }
+#pragma unroll
+        for (int j = 0; j < KG; ++j) col[j] *= s;
     }
-#pragma unroll
-    for (int i = 0; i < KM; ++i)
-#pragma unroll
-        for (int j = 0; j < KM; ++j)
-            if (i < p.Kl && j < p.Kg) {
-                const float wij = p.w[i * p.Kg + j];
-                r[i] += wij;
-                col[j] += wij * gb[i];
-            }
+};
 
+// Clients whose output packs one pass holds: 4, or 2 past 8 rows a tile,
+// so that the 8-client pair kernels stay in registers.
+template <int R>
+__host__ __device__ constexpr int out_clients() {
+    return R > 8 ? 2 : 4;
+}
+
+// dlive of live clients i0 .. i0 + OC - 1 (those below KL) at pack position
+// n: pk[0..KL) are the live rows' packs, pk[KL..KL+KG) the fixed rows' (the
+// square case passes KG = 0 and takes y = x).
+template <int KL, int KG, int OC, typename T, bool VEC, int R, int NV>
+__device__ __forceinline__ void dlive_pack(
+    const Pack<T, VEC> (&pk)[R][NV], int n, int i0,
+    const BwdRow<KL, KG ? KG : KL>& k, float c, Pack<T, VEC> (&dl)[OC]) {
+    constexpr bool SQUARE = KG == 0;
+    constexpr int NF = SQUARE ? KL : KG;
 #pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-        const int v = (blockIdx.x * EPT + e) * NTHREADS + threadIdx.x;
-        if (v >= p.V) continue;
-        float lp[KM], pp[KM], lq[KM];
+    for (int e = 0; e < Pack<T, VEC>::W; ++e) {
+        float y[NF];
 #pragma unroll
-        for (int i = 0; i < KM; ++i) {
-            lp[i] = pp[i] = lq[i] = 0.f;
-            if (i < p.Kl) {
-                lp[i] = load_f(live + i * p.l_sk + v) * s - z[i];
-                pp[i] = expf(lp[i]);
-            }
-            if (i < p.Kg) lq[i] = load_f(fixed + i * p.f_sk + v) * s - zf[i];
-        }
+        for (int j = 0; j < NF; ++j) y[j] = elem(pk[SQUARE ? j : KL + j][n], e);
 #pragma unroll
-        for (int i = 0; i < KM; ++i) {
-            if (i < p.Kl) {
-                float wlq = 0.f;
+        for (int ii = 0; ii < OC; ++ii) {
+            const int i = i0 + ii;
+            if (i >= KL) break;
+            const float x = SQUARE ? y[i] : elem(pk[i][n], e);
+            const float pr = fast_exp2(fmaf(x, c, -k.zl[i]));
+            float t = fmaf(k.rs[i], x, k.kap[i]);
 #pragma unroll
-                for (int j = 0; j < KM; ++j)
-                    if (j < p.Kg) wlq = fmaf(p.w[i * p.Kg + j], lq[j], wlq);
-                store_f(static_cast<T*>(p.dlive) + i * plane + row + v,
-                        s * gb[i] * pp[i] * (r[i] * lp[i] - wlq - o[i]));
-            }
-        }
-        if (p.dfixed != nullptr) {
-#pragma unroll
-            for (int j = 0; j < KM; ++j) {
-                if (j < p.Kg) {
-                    float wgp = 0.f;
-#pragma unroll
-                    for (int i = 0; i < KM; ++i)
-                        if (i < p.Kl)
-                            wgp = fmaf(p.w[i * p.Kg + j], gb[i] * pp[i], wgp);
-                    store_f(static_cast<T*>(p.dfixed) + j * plane + row + v,
-                            -s * (wgp - expf(lq[j]) * col[j]));
-                }
-            }
+            for (int j = 0; j < NF; ++j)
+                if (!SQUARE || j != i) t = fmaf(k.nws[i][j], y[j], t);
+            set_elem(dl[ii], e, k.gs[i] * pr * t);
         }
     }
 }
 
-// Elements per thread per tile of the backward: more for few clients, fewer
-// for many, so the per-thread tiles stay in registers.
-template <int KM>
-constexpr int ept() { return KM <= 4 ? 8 : 4; }
+// dfixed of fixed clients j0 .. j0 + OC - 1 at pack position n, as
+// dlive_pack; in passes of their own, after dlive's.
+template <int KL, int KG, int OC, typename T, bool VEC, int R, int NV>
+__device__ __forceinline__ void dfixed_pack(
+    const Pack<T, VEC> (&pk)[R][NV], int n, int j0,
+    const BwdRow<KL, KG ? KG : KL>& k, float c, float temp,
+    Pack<T, VEC> (&df)[OC]) {
+    constexpr bool SQUARE = KG == 0;
+    constexpr int NF = SQUARE ? KL : KG;
+#pragma unroll
+    for (int e = 0; e < Pack<T, VEC>::W; ++e) {
+        float gp[KL];                   // s g_bar_i p_i
+#pragma unroll
+        for (int i = 0; i < KL; ++i)
+            gp[i] = k.gs[i]
+                    * fast_exp2(fmaf(elem(pk[i][n], e), c, -k.zl[i]));
+#pragma unroll
+        for (int jj = 0; jj < OC; ++jj) {
+            const int j = j0 + jj;
+            if (j >= NF) break;
+            const float y = elem(pk[SQUARE ? j : KL + j][n], e);
+            float t = k.col[j] * fast_exp2(fmaf(y, c, -k.zfl[j]));
+#pragma unroll
+            for (int i = 0; i < KL; ++i)
+                if (!SQUARE || i != j) t = fmaf(k.nws[i][j], gp[i], t);
+            set_elem(df[jj], e, temp * t);
+        }
+    }
+}
 
-int launched(cudaError_t err) {
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
+// Blocks of the backward an SM must hold at once: two (at most 128
+// registers a thread) for up to 3 clients a side, where the registers
+// allow it without spilling and the second block's loads hide the
+// first's; one above.
+__host__ __device__ constexpr int bwd_blocks(int clients) {
+    return clients <= 3 ? 2 : 1;
+}
+
+// One row b of the backward for KL live rows (and KG fixed rows, 0 in the
+// square case): streams the rows as the forward does and writes dlive (and
+// dfixed) at the same positions, rows at or past kl (kg) left unwritten.
+template <typename T, bool VEC, int KL, int KG, class RowsT>
+__device__ __forceinline__ void bwd_row(const Params& p, const RowsT& rows,
+                                        const BwdRow<KL, KG ? KG : KL>& k,
+                                        int kl, int kg) {
+    constexpr int NF = KG ? KG : KL;
+    constexpr int R = KL + KG;
+    constexpr int NV = packs_per_tile<VEC, R>();
+    constexpr int OC = out_clients<R>();
+    constexpr int W = Pack<T, VEC>::W;
+    const int b = blockIdx.x;
+    const float c = LOG2E * p.inv_temp, temp = 1.f / p.inv_temp;
+    const bool want_fixed = p.dfixed != nullptr;
+    const long long plane = static_cast<long long>(p.B) * p.V;
+    T* dl = static_cast<T*>(p.dlive) + static_cast<long long>(b) * p.V;
+    T* df = want_fixed
+        ? static_cast<T*>(p.dfixed) + static_cast<long long>(b) * p.V
+        : nullptr;
+
+    // writes the gradients of pack n of `pk` at element v of each row, OC
+    // rows at a time
+    auto emit = [&](const auto& pk, int n, int v) {
+        std::decay_t<decltype(pk[0][0])> g[OC];
+#pragma unroll
+        for (int i0 = 0; i0 < KL; i0 += OC) {
+            dlive_pack<KL, KG, OC>(pk, n, i0, k, c, g);
+#pragma unroll
+            for (int ii = 0; ii < OC && i0 + ii < KL; ++ii)
+                if (KG == 0 || i0 + ii < kl)
+                    store_pack(dl + (i0 + ii) * plane + v, g[ii]);
+        }
+        if (want_fixed) {
+#pragma unroll
+            for (int j0 = 0; j0 < NF; j0 += OC) {
+                dfixed_pack<KL, KG, OC>(pk, n, j0, k, c, temp, g);
+#pragma unroll
+                for (int jj = 0; jj < OC && j0 + jj < NF; ++jj)
+                    if (KG == 0 || j0 + jj < kg)
+                        store_pack(df + (j0 + jj) * plane + v, g[jj]);
+            }
+        }
+    };
+    stream_row<T, VEC, R, NV>(
+        rows, p.V,
+        [&](const Pack<T, VEC> (&pk)[R][NV], int v) {
+#pragma unroll
+            for (int n = 0; n < NV; ++n) emit(pk, n, v + n * NTHREADS * W);
+        },
+        [&](const Pack<T, VEC> (&pk)[R][1], bool ok, int v) {
+            if (ok) emit(pk, 0, v);
+        },
+        [&](const Pack<T, false> (&pk)[R][1], bool ok, int v) {
+            if (ok) emit(pk, 0, v);
+        });
 }
 
 template <typename T, int K, bool VEC>
-int launch_square(Params p, cudaStream_t stream) {
-    void* args[] = {&p};
-    return launched(cudaLaunchKernel(&kl_square_fwd<T, K, VEC>, dim3(p.B),
-                                     dim3(NTHREADS), args, 0, stream));
+__global__ void __launch_bounds__(NTHREADS, bwd_blocks(K))
+    kl_square_bwd(Params p) {
+    const T* x = static_cast<const T*>(p.live) + blockIdx.x * p.l_sb;
+    BwdRow<K, K> k;
+    k.template load<true>(p, blockIdx.x);
+    bwd_row<T, VEC, K, 0>(p, Rows<T, K>{x, x, p.l_sk, p.l_sk, K, K}, k, K,
+                          K);
 }
 
+// N rows a side, of which p.Kl live and p.Kg fixed are real.
 template <typename T, int N, bool VEC>
-int launch_pair(Params p, cudaStream_t stream) {
-    void* args[] = {&p};
-    return launched(cudaLaunchKernel(&kl_pair_fwd<T, N, VEC>, dim3(p.B),
-                                     dim3(NTHREADS), args, 0, stream));
+__global__ void __launch_bounds__(NTHREADS, bwd_blocks(N))
+    kl_pair_bwd(Params p) {
+    const int b = blockIdx.x;
+    BwdRow<N, N> k;
+    k.template load<false>(p, b);
+    bwd_row<T, VEC, N, N>(
+        p,
+        Rows<T, N>{static_cast<const T*>(p.live) + b * p.l_sb,
+                   static_cast<const T*>(p.fixed) + b * p.f_sb, p.l_sk,
+                   p.f_sk, p.Kl, p.Kg},
+        k, p.Kl, p.Kg);
 }
+
+// ---------------------------------------------------------------------------
+// launch
 
 // The instantiation for runtime client counts 1..8: F<N>::run(...) for
 // N = n.
@@ -673,51 +667,81 @@ int by_count(int n, A... a) {
     }
 }
 
-template <typename T, bool VEC>
-struct Square {
-    template <int K>
-    struct Of {
-        static int run(Params p, cudaStream_t s) {
-            return launch_square<T, K, VEC>(p, s);
-        }
-    };
-};
-
-template <typename T, bool VEC>
-struct Pair {
+// One block a row b, for every kernel here.
+template <typename T, bool VEC, bool SQUARE, bool BWD>
+struct Kernel {
     template <int N>
     struct Of {
         static int run(Params p, cudaStream_t s) {
-            return launch_pair<T, N, VEC>(p, s);
+            void (*kernel)(Params);
+            if constexpr (SQUARE)
+                kernel = BWD ? &kl_square_bwd<T, N, VEC>
+                             : &kl_square_fwd<T, N, VEC>;
+            else
+                kernel = BWD ? &kl_pair_bwd<T, N, VEC>
+                             : &kl_pair_fwd<T, N, VEC>;
+            void* args[] = {&p};
+            return launched(cudaLaunchKernel(kernel, dim3(p.B),
+                                             dim3(NTHREADS), args, 0, s));
         }
     };
 };
 
-template <typename T>
-int square_fwd(Params p, bool vec, cudaStream_t s) {
-    return vec ? by_count<Square<T, true>::template Of>(p.Kl, p, s)
-               : by_count<Square<T, false>::template Of>(p.Kl, p, s);
-}
-
-template <typename T>
-int pair_fwd(Params p, bool vec, cudaStream_t s) {
+template <typename T, bool SQUARE, bool BWD>
+int launch(Params p, bool vec, cudaStream_t s) {
     const int n = p.Kl > p.Kg ? p.Kl : p.Kg;
-    return vec ? by_count<Pair<T, true>::template Of>(n, p, s)
-               : by_count<Pair<T, false>::template Of>(n, p, s);
-}
-
-template <typename T, int KM>
-int launch_bwd(Params p, cudaStream_t stream) {
-    void* args[] = {&p};
-    constexpr int per_block = NTHREADS * ept<KM>();
-    const dim3 grid((p.V + per_block - 1) / per_block, p.B);
-    return launched(cudaLaunchKernel(&kl_pair_bwd<T, KM, ept<KM>()>, grid,
-                                     dim3(NTHREADS), args, 0, stream));
+    return vec ? by_count<Kernel<T, true, SQUARE, BWD>::template Of>(n, p, s)
+               : by_count<Kernel<T, false, SQUARE, BWD>::template Of>(n, p,
+                                                                      s);
 }
 
 // Whether a stride of `elems` elements keeps the 16-byte phase.
 bool keeps_phase(long long elems, int esize) {
     return ((static_cast<unsigned long long>(elems) * esize) & 15ull) == 0;
+}
+
+// Whether every row (k, b) of the K client rows at `a` (strides sk, sb)
+// starts at the 16-byte phase of live's row b (live at `ref`, row stride
+// ref_sb).
+bool in_phase(const void* a, long long sk, long long sb, int K,
+              const void* ref, long long ref_sb, int B, int es) {
+    const unsigned long long base =
+        reinterpret_cast<unsigned long long>(a)
+        - reinterpret_cast<unsigned long long>(ref);
+    return keeps_phase(static_cast<long long>(base), 1) && (K == 1 || keeps_phase(sk, es))
+           && (B == 1 || keeps_phase(sb - ref_sb, es));
+}
+
+// Launches the square or pair forward (BWD false) or backward on p.
+// Vector loads and stores when every live, fixed, dlive and dfixed row of
+// a row b shares one 16-byte phase; else the one-element instances.
+int run(Params p, bool square, bool bwd, int is_bf16, void* stream) {
+    const int es = is_bf16 ? 2 : 4;
+    const long long plane = static_cast<long long>(p.B) * p.V;
+    bool vec = in_phase(p.live, p.l_sk, p.l_sb, p.Kl, p.live, p.l_sb, p.B, es)
+               && in_phase(p.fixed, p.f_sk, p.f_sb, p.Kg, p.live, p.l_sb,
+                           p.B, es);
+    if (bwd) {
+        vec = vec && in_phase(p.dlive, plane, p.V, p.Kl, p.live, p.l_sb,
+                              p.B, es);
+        if (p.dfixed != nullptr)
+            vec = vec && in_phase(p.dfixed, plane, p.V, p.Kg, p.live, p.l_sb,
+                                  p.B, es);
+    }
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (is_bf16) {
+        using T = __nv_bfloat16;
+        if (square)
+            return bwd ? launch<T, true, true>(p, vec, st)
+                       : launch<T, true, false>(p, vec, st);
+        return bwd ? launch<T, false, true>(p, vec, st)
+                   : launch<T, false, false>(p, vec, st);
+    }
+    if (square)
+        return bwd ? launch<float, true, true>(p, vec, st)
+                   : launch<float, true, false>(p, vec, st);
+    return bwd ? launch<float, false, true>(p, vec, st)
+               : launch<float, false, false>(p, vec, st);
 }
 
 Params make_params(const void* live, const void* fixed, const void* w,
@@ -740,10 +764,13 @@ Params make_params(const void* live, const void* fixed, const void* w,
 
 }  // namespace
 
-// Square forward: x (K, B, V), K <= 8, live = fixed; writes out (K, B) and
-// lse (K, B), the logsumexp of both sides.  Returns the first CUDA error
-// (0 on success).  Vector loads when every client's row shares a 16-byte
-// phase (the client stride keeps it).
+// Every entry returns the first CUDA error (0 on success).  The caller has
+// checked shapes (client counts <= 8), dtypes, devices and strides; the
+// gradients dlive (Kl, B, V) and dfixed (Kg, B, V) are contiguous in the
+// input dtype.
+
+// Square forward: x (K, B, V), live = fixed; writes out (K, B) and lse
+// (K, B), the logsumexp of both sides.
 extern "C" int kl_mutual_square_fwd(
     const void* x, const void* w, void* out, void* lse, long long sk,
     long long sb, int K, int B, int V, float inv_temp, int is_bf16,
@@ -751,16 +778,10 @@ extern "C" int kl_mutual_square_fwd(
     Params p = make_params(x, x, w, sk, sb, sk, sb, K, K, B, V, inv_temp);
     p.out = static_cast<float*>(out);
     p.lse_live = p.lse_fixed = static_cast<float*>(lse);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int es = is_bf16 ? 2 : 4;
-    const bool vec = K == 1 || keeps_phase(sk, es);
-    return is_bf16 ? square_fwd<__nv_bfloat16>(p, vec, st)
-                   : square_fwd<float>(p, vec, st);
+    return run(p, true, false, is_bf16, stream);
 }
 
-// Pair forward: writes out, lse_live and lse_fixed.  The caller has checked
-// shapes (Kl, Kg <= 8), dtypes, devices and strides.  Vector loads when
-// every live and fixed row of a row b shares one 16-byte phase.
+// Pair forward: writes out, lse_live and lse_fixed.
 extern "C" int kl_mutual_pair_fwd(
     const void* live, const void* fixed, const void* w, void* out,
     void* lse_live, void* lse_fixed,
@@ -772,21 +793,27 @@ extern "C" int kl_mutual_pair_fwd(
     p.out = static_cast<float*>(out);
     p.lse_live = static_cast<float*>(lse_live);
     p.lse_fixed = static_cast<float*>(lse_fixed);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int es = is_bf16 ? 2 : 4;
-    const long long base = static_cast<long long>(
-        reinterpret_cast<const char*>(fixed) -
-        reinterpret_cast<const char*>(live));
-    const bool vec = (Kl == 1 || keeps_phase(l_sk, es))
-                     && (Kg == 1 || keeps_phase(f_sk, es))
-                     && keeps_phase(base, 1)
-                     && (B == 1 || keeps_phase(f_sb - l_sb, es));
-    return is_bf16 ? pair_fwd<__nv_bfloat16>(p, vec, st)
-                   : pair_fwd<float>(p, vec, st);
+    return run(p, false, false, is_bf16, stream);
 }
 
-// Backward: writes dlive (Kl, B, V) and, when dfixed is not null, dfixed
-// (Kg, B, V), both contiguous in the input dtype.
+// Square backward, after the square forward on x: reads its out and lse
+// once; writes dlive and, when dfixed is not null, dfixed (the gradient of
+// the same x as the fixed side).
+extern "C" int kl_mutual_square_bwd(
+    const void* x, const void* w, const void* out, const void* gbar,
+    const void* lse, void* dlive, void* dfixed, long long sk, long long sb,
+    int K, int B, int V, float inv_temp, int is_bf16, void* stream) {
+    Params p = make_params(x, x, w, sk, sb, sk, sb, K, K, B, V, inv_temp);
+    p.out = const_cast<float*>(static_cast<const float*>(out));
+    p.gbar = static_cast<const float*>(gbar);
+    p.lse_live = p.lse_fixed =
+        const_cast<float*>(static_cast<const float*>(lse));
+    p.dlive = dlive;
+    p.dfixed = dfixed;
+    return run(p, true, true, is_bf16, stream);
+}
+
+// Pair backward: writes dlive and, when dfixed is not null, dfixed.
 extern "C" int kl_mutual_pair_bwd(
     const void* live, const void* fixed, const void* w, const void* out,
     const void* gbar, const void* lse_live, const void* lse_fixed,
@@ -802,10 +829,5 @@ extern "C" int kl_mutual_pair_bwd(
     p.lse_fixed = const_cast<float*>(static_cast<const float*>(lse_fixed));
     p.dlive = dlive;
     p.dfixed = dfixed;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const bool small = Kl <= 4 && Kg <= 4;
-    if (is_bf16)
-        return small ? launch_bwd<__nv_bfloat16, 4>(p, st)
-                     : launch_bwd<__nv_bfloat16, 8>(p, st);
-    return small ? launch_bwd<float, 4>(p, st) : launch_bwd<float, 8>(p, st);
+    return run(p, false, true, is_bf16, stream);
 }

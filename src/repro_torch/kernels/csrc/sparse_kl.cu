@@ -16,18 +16,28 @@
 //                                          / max(V - k, 1)).
 //
 // One block owns one (row b, live client i).  It makes ONE streaming pass
-// over V carrying the running max m, the partition sum A = sum e^{g - m} and
-// the entropy sum U = sum e^{g - m} (g - m), all fp32 (g = logit / T; U is
-// kept relative to m, which spares the cancellation of U/A against Z), so
-// that Z = m + log A and -H = U/A - log A.  The TPU kernel finds the received
-// logits by one-hot matching inside each vocab block (sparse_kl.py:75-81);
-// here every index is simply read, live[i, b, idx[j, b, t]], after the pass
-// (the row was just streamed, so the J*k reads mostly hit L2).  Sums across
-// the block's threads go through shared memory in a fixed tree order:
-// deterministic, no atomics, no warp shuffles.  Z, -H and
-// C1 = sum_j w_ij (c_j s_ij - cross_ij) are written for the backward, as the
-// pair-KL forward writes its logsumexps.
-//
+// over V (kl_stream.cuh: 16-byte loads, neighbouring threads on
+// neighbouring vectors, full tiles of 4 vectors a thread run unpredicated,
+// then a masked step and the row's scalar head and tail; a block owns one
+// row, so every row takes vector loads after its own head).  Each thread
+// carries, in log2 units (y = logit c, c = log2(e) / T), the running max
+// m, the partition sum A = sum 2^{y - m} and the entropy sum
+// U = sum 2^{y - m} (y - m), U kept relative to m (which spares the
+// cancellation of U/A against Z): one MUFU.EX2 an element and one rescale
+// a tile.  The states merge by a butterfly of warp shuffles, then every
+// thread merges the 8 warps' states in warp order (one barrier; fixed
+// order, deterministic, no atomics), and Z = ln 2 (m + log2 A),
+// -H = ln 2 (U/A - log2 A) in natural units.  The TPU kernel finds the
+// received logits by one-hot matching inside each vocab block
+// (sparse_kl.py:75-81); here every index is simply read,
+// live[i, b, idx[j, b, t]], after the pass (the row was just streamed, so
+// the J*k reads mostly hit L2).  Each sender's s_ij, cross sum and
+// sum_t e^logp_jt (fp64: c_j rests on its rounding when the set holds
+// nearly all the mass) are reduced together a warp at a time, and one
+// barrier serves all senders.  Z, -H and C1 = sum_j w_ij (c_j s_ij -
+// cross_ij) are written for the backward, as the pair-KL forward writes
+// its logsumexps.
+
 // Backward replaces `_streaming_sparse_bwd` (sparse_kl.py:167-226, plain JAX
 // inside the custom VJP at :229-253), the gradient of the live side only:
 //
@@ -55,18 +65,18 @@
 // B = 1024, V = 151,936, k = 64, bf16) the forward reads live once,
 // 933.6 MB (0.279 ms at 3.35 TB/s), and the backward reads live and writes
 // dlive, 1.867 GB (0.557 ms); the ~4.7e8 exps take ~0.11 ms on the SFUs.
-// Loads are coalesced scalars (neighbouring threads, neighbouring v), EPT of
-// them in flight per thread; wider vector loads are later work.  Indices
-// outside [0, V) are clamped (top-k never makes them).
+// `chip_smoke.py` measures them there (NVIDIA H100 80GB HBM3, 700.00 W):
+// the forward 0.32 ms (87% of its bound; one torch.amax read of the same
+// logits 0.32 ms), from 0.61 ms with scalar loads, expf and a shared-memory
+// tree of merges and sums; the backward 0.85 ms (65%).  The backward's
+// loads are coalesced scalars (neighbouring threads, neighbouring v), EPT
+// of them in flight per thread.  Indices outside [0, V) are clamped (top-k
+// never makes them).
 
-#include <cmath>
-
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "kl_stream.cuh"
 
 namespace {
 
-constexpr int NTHREADS = 256;
 constexpr int EPT = 8;
 constexpr int MAX_J = 64;          // senders; the backward's c_j table
 constexpr int MAX_ENTRIES = 4096;  // J * k; the backward's shared table
@@ -94,35 +104,64 @@ struct Params {
     float inv_temp;
 };
 
-// Streaming softmax state: max m, A = sum e^{g - m}, U = sum e^{g - m}(g - m).
-// A == 0 marks a state that has seen no element.
+// Streaming softmax state in log2 units (y = x c, c = log2(e) / T): the
+// running max m, A = sum 2^{y - m} and U = sum 2^{y - m} (y - m), U kept
+// relative to m (which spares the cancellation of U/A against Z).  A state
+// that has seen no element has m = NEG_INF and A = U = 0.
 struct Lse {
     float m, a, u;
+
+    // One tile of NV packs; MASKED (one pack): it counts only when `ok`.
+    template <typename T, bool VEC, int NV, bool MASKED>
+    __device__ __forceinline__ void tile(const Pack<T, VEC> (&pk)[NV],
+                                         bool ok, float c) {
+        static_assert(!MASKED || NV == 1, "a masked tile is one pack");
+        const float mx = fmaxf(m, tile_max<T, VEC, NV>(pk, !MASKED || ok, c));
+        const float d = m - mx, sc = fast_exp2(d);
+        u = sc * fmaf(d, a, u);
+        a *= sc;
+        m = mx;
+#pragma unroll
+        for (int n = 0; n < NV; ++n)
+#pragma unroll
+            for (int e = 0; e < Pack<T, VEC>::W; ++e) {
+                const float y = fmaf(elem(pk[n], e), c, -m);
+                float ex = fast_exp2(y);
+                if (MASKED && !ok) ex = 0.f;
+                a += ex;
+                u = fmaf(ex, y, u);
+            }
+    }
+
+    __device__ __forceinline__ void merge(const Lse& o) {
+        const float mn = fmaxf(m, o.m);
+        const float d1 = m - mn, d2 = o.m - mn;
+        const float s1 = fast_exp2(d1), s2 = fast_exp2(d2);
+        u = s1 * fmaf(d1, a, u) + s2 * fmaf(d2, o.a, o.u);
+        a = a * s1 + o.a * s2;
+        m = mn;
+    }
 };
 
-__device__ __forceinline__ Lse merge(Lse s, Lse o) {
-    if (o.a == 0.f) return s;
-    if (s.a == 0.f) return o;
-    const float mn = fmaxf(s.m, o.m);
-    const float d1 = s.m - mn, d2 = o.m - mn;
-    const float s1 = expf(d1), s2 = expf(d2);
-    return {mn, s.a * s1 + o.a * s2,
-            s1 * (s.u + d1 * s.a) + s2 * (o.u + d2 * o.a)};
+// A warp's sum, by a butterfly (every lane gets it).
+template <typename F>
+__device__ __forceinline__ F warp_sum(F x) {
+    for (int lane_mask = 16; lane_mask > 0; lane_mask /= 2)
+        x += __shfl_xor_sync(0xffffffffu, x, lane_mask);
+    return x;
 }
 
-// Sum of one value per thread over the block, in a fixed tree order through
-// shared memory; every thread gets the result.
-__device__ float block_sum(float x, float* red) {
-    const int tid = threadIdx.x;
-    red[tid] = x;
-    __syncthreads();
-    for (int s = NTHREADS / 2; s > 0; s /= 2) {
-        if (tid < s) red[tid] += red[tid + s];
-        __syncthreads();
-    }
-    const float r = red[0];
-    __syncthreads();                 // red is reused by the next call
-    return r;
+// A sender's sum_t e^logp_jt, which c_j takes from 1 - sum: where a top-k
+// set holds nearly all of its mass, c_j rests on the rounding of that sum.
+// So it is summed in fp64, and the forward and the backward sum it in one
+// order, bit for bit (the backward's sparse term takes its own c_j against
+// the forward's C1 = sum_j w_ij (c_j s_ij - cross_ij)): each thread over
+// t = tid, tid + NTHREADS, ..., then warp_sum, then the warps in warp order
+// from 0 (`warps_sum`).
+__device__ __forceinline__ double warps_sum(const double (&part)[NWARPS]) {
+    double x = 0.0;
+    for (int w = 0; w < NWARPS; ++w) x += part[w];
+    return x;
 }
 
 __device__ __forceinline__ int clamp_index(int v, int V) {
@@ -131,83 +170,65 @@ __device__ __forceinline__ int clamp_index(int v, int V) {
 
 // c_j = log(clip(1 - sum_t e^logp_jt, 1e-9, 1) / max(V - k, 1)), from the
 // block-wide sum of e^logp.
-__device__ __forceinline__ float tail_log(float ex, int V, int k) {
-    const float res = fminf(fmaxf(1.f - ex, 1e-9f), 1.f);
-    return logf(res / static_cast<float>(V - k > 1 ? V - k : 1));
+__device__ __forceinline__ float tail_log(double ex, int V, int k) {
+    const double res = fmin(fmax(1.0 - ex, 1e-9), 1.0);
+    return static_cast<float>(
+        log(res / static_cast<double>(V - k > 1 ? V - k : 1)));
 }
 
+// One block a (row b, live client i): a row never shares a block with
+// another, so every row takes 16-byte loads after its own scalar head.
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS) fwd_kernel(Params p) {
-    __shared__ float sm[3][NTHREADS];
-    __shared__ float red[NTHREADS];
-    const int tid = threadIdx.x;
+    constexpr int NV = 4;                        // 64 bytes a thread a tile
+    __shared__ float warp_lse[3][NWARPS];
+    __shared__ float sums[MAX_J][2][NWARPS];     // s, cross
+    __shared__ double ex_part[MAX_J][NWARPS];    // sum e^logp
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
     const int b = blockIdx.x, i = blockIdx.y;
     const T* row = static_cast<const T*>(p.live) + i * p.l_sk + b * p.l_sb;
+    const float c = LOG2E * p.inv_temp;
 
     // one streaming pass over V: (m, A, U) per thread
-    Lse st = {0.f, 0.f, 0.f};
-    for (int v0 = 0; v0 < p.V; v0 += NTHREADS * EPT) {
-        float g[EPT];
-        unsigned ok = 0u;
-#pragma unroll
-        for (int e = 0; e < EPT; ++e) {
-            const int v = v0 + e * NTHREADS + tid;
-            const bool in = v < p.V;
-            if (in) ok |= 1u << e;
-            g[e] = in ? load_f(row + v) * p.inv_temp : 0.f;
-        }
-        if (!ok) continue;
-        float mx = st.a > 0.f ? st.m : -INFINITY;
-#pragma unroll
-        for (int e = 0; e < EPT; ++e)
-            if ((ok >> e) & 1u) mx = fmaxf(mx, g[e]);
-        float a = 0.f, u = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPT; ++e) {
-            if ((ok >> e) & 1u) {
-                const float x = g[e] - mx;
-                const float ex = expf(x);
-                a += ex;
-                u = fmaf(ex, x, u);
-            }
-        }
-        if (st.a > 0.f) {
-            const float d = st.m - mx;
-            const float sc = expf(d);
-            st.u = sc * (st.u + d * st.a) + u;
-            st.a = sc * st.a + a;
-        } else {
-            st.u = u;
-            st.a = a;
-        }
-        st.m = mx;
-    }
+    Lse st = {NEG_INF, 0.f, 0.f};
+    stream_row<T, true, 1, NV>(
+        [row](int) { return row; }, p.V,
+        [&](const Pack<T, true> (&pk)[1][NV], int) {
+            st.template tile<T, true, NV, false>(pk[0], true, c);
+        },
+        [&](const Pack<T, true> (&pk)[1][1], bool ok, int) {
+            st.template tile<T, true, 1, true>(pk[0], ok, c);
+        },
+        [&](const Pack<T, false> (&pk)[1][1], bool ok, int) {
+            st.template tile<T, false, 1, true>(pk[0], ok, c);
+        });
 
-    // merge the threads' states: a tree over shared memory
-    sm[0][tid] = st.m;
-    sm[1][tid] = st.a;
-    sm[2][tid] = st.u;
+    // merge the threads' states: a butterfly within each warp, then every
+    // thread merges the warps' states in warp order
+    for (int lane_mask = 16; lane_mask > 0; lane_mask /= 2)
+        st.merge({__shfl_xor_sync(0xffffffffu, st.m, lane_mask),
+                  __shfl_xor_sync(0xffffffffu, st.a, lane_mask),
+                  __shfl_xor_sync(0xffffffffu, st.u, lane_mask)});
+    if (lane == 0) {
+        warp_lse[0][warp] = st.m;
+        warp_lse[1][warp] = st.a;
+        warp_lse[2][warp] = st.u;
+    }
     __syncthreads();
-    for (int s = NTHREADS / 2; s > 0; s /= 2) {
-        if (tid < s) {
-            const Lse x = merge({sm[0][tid], sm[1][tid], sm[2][tid]},
-                                {sm[0][tid + s], sm[1][tid + s],
-                                 sm[2][tid + s]});
-            sm[0][tid] = x.m;
-            sm[1][tid] = x.a;
-            sm[2][tid] = x.u;
-        }
-        __syncthreads();
-    }
-    const float log_a = logf(sm[1][0]);
-    const float z = sm[0][0] + log_a;
-    const float neg_h = sm[2][0] / sm[1][0] - log_a;
+    Lse all = {warp_lse[0][0], warp_lse[1][0], warp_lse[2][0]};
+    for (int w = 1; w < NWARPS; ++w)
+        all.merge({warp_lse[0][w], warp_lse[1][w], warp_lse[2][w]});
+    // natural units: Z = ln 2 (m + log2 A), -H = ln 2 (U / A - log2 A)
+    const float log2_a = log2f(all.a);
+    const float z = LN2 * (all.m + log2_a);
+    const float neg_h = LN2 * (all.u / all.a - log2_a);
 
-    // the received entries, read directly at their indices
-    float out = 0.f, c1 = 0.f;
+    // the received entries, read directly at their indices; each sender's
+    // three sums reduced together, a warp at a time
     for (int j = 0; j < p.J; ++j) {
         const long long base = (static_cast<long long>(j) * p.B + b) * p.k;
-        float s = 0.f, cross = 0.f, ex = 0.f;
+        float s = 0.f, cross = 0.f;
+        double ex = 0.0;
         for (int t = tid; t < p.k; t += NTHREADS) {
             const int v = clamp_index(p.idx[base + t], p.V);
             const float lq = p.logp[base + t];
@@ -216,21 +237,35 @@ __global__ void __launch_bounds__(NTHREADS) fwd_kernel(Params p) {
             cross = fmaf(pa, lq, cross);
             ex += expf(lq);
         }
-        s = block_sum(s, red);
-        cross = block_sum(cross, red);
-        const float c = tail_log(block_sum(ex, red), p.V, p.k);
+        s = warp_sum(s);
+        cross = warp_sum(cross);
+        ex = warp_sum(ex);
+        if (lane == 0) {
+            sums[j][0][warp] = s;
+            sums[j][1][warp] = cross;
+            ex_part[j][warp] = ex;
+        }
+    }
+    __syncthreads();
+    if (tid != 0) return;
+    float out = 0.f, c1 = 0.f;
+    for (int j = 0; j < p.J; ++j) {
+        float s = 0.f, cross = 0.f;
+        for (int w = 0; w < NWARPS; ++w) {
+            s += sums[j][0][w];
+            cross += sums[j][1][w];
+        }
+        const float cj = tail_log(warps_sum(ex_part[j]), p.V, p.k);
         const float wij = p.w[i * p.J + j];
-        out += wij * (neg_h - c * (1.f - s) - cross);
-        c1 += wij * (c * s - cross);
+        out += wij * (neg_h - cj * (1.f - s) - cross);
+        c1 += wij * (cj * s - cross);
     }
-    if (tid == 0) {
-        const long long o = static_cast<long long>(i) * p.B + b;
-        const long long plane = static_cast<long long>(p.Kl) * p.B;
-        p.out[o] = out;
-        p.stats[o] = z;
-        p.stats[plane + o] = neg_h;
-        p.stats[2 * plane + o] = c1;
-    }
+    const long long o = static_cast<long long>(i) * p.B + b;
+    const long long plane = static_cast<long long>(p.Kl) * p.B;
+    p.out[o] = out;
+    p.stats[o] = z;
+    p.stats[plane + o] = neg_h;
+    p.stats[2 * plane + o] = c1;
 }
 
 // The backward; IN_PLACE reads one sender's k entries from idx and logp in
@@ -240,7 +275,7 @@ __global__ void __launch_bounds__(NTHREADS) fwd_kernel(Params p) {
 template <typename T, bool IN_PLACE>
 __global__ void __launch_bounds__(NTHREADS) bwd_kernel(Params p) {
     extern __shared__ float smem[];  // J*k log-probs, then J*k indices
-    __shared__ float red[NTHREADS];
+    __shared__ double ex_part[MAX_J][NWARPS];
     __shared__ float cj[MAX_J];
     const int tid = threadIdx.x;
     const int b = blockIdx.x, i = blockIdx.y;
@@ -264,12 +299,14 @@ __global__ void __launch_bounds__(NTHREADS) bwd_kernel(Params p) {
         }
     }
     __syncthreads();
-    for (int j = 0; j < p.J; ++j) {
-        float ex = 0.f;
+    for (int j = 0; j < p.J; ++j) {      // c_j as the forward sums it
+        double ex = 0.0;
         for (int t = tid; t < p.k; t += NTHREADS) ex += expf(logp_at(j * p.k + t));
-        ex = block_sum(ex, red);
-        if (tid == 0) cj[j] = tail_log(ex, p.V, p.k);
+        ex = warp_sum(ex);
+        if (tid % 32 == 0) ex_part[j][tid / 32] = ex;
     }
+    __syncthreads();
+    if (tid < p.J) cj[tid] = tail_log(warps_sum(ex_part[tid]), p.V, p.k);
     __syncthreads();
 
     const long long o = static_cast<long long>(i) * p.B + b;
@@ -342,11 +379,6 @@ Params make_params(const void* live, const void* idx, const void* logp,
     return p;
 }
 
-int check_launch(cudaError_t err) {
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // A launch's senders: at most MAX_J, and at most MAX_ENTRIES entries unless
@@ -371,10 +403,10 @@ extern "C" int sparse_kl_fwd(
     const dim3 grid(B, Kl);
     if (!senders_ok(J, k)) return static_cast<int>(cudaErrorInvalidValue);
     if (is_bf16)
-        return check_launch(cudaLaunchKernel(&fwd_kernel<__nv_bfloat16>,
+        return launched(cudaLaunchKernel(&fwd_kernel<__nv_bfloat16>,
                                              grid, dim3(NTHREADS), args, 0,
                                              st));
-    return check_launch(cudaLaunchKernel(&fwd_kernel<float>, grid,
+    return launched(cudaLaunchKernel(&fwd_kernel<float>, grid,
                                          dim3(NTHREADS), args, 0, st));
 }
 
@@ -396,18 +428,18 @@ extern "C" int sparse_kl_bwd(
     if (!senders_ok(J, k)) return static_cast<int>(cudaErrorInvalidValue);
     if (J * k > MAX_ENTRIES) {       // one sender: its entries in place
         if (is_bf16)
-            return check_launch(cudaLaunchKernel(
+            return launched(cudaLaunchKernel(
                 &bwd_kernel<__nv_bfloat16, true>, grid, dim3(NTHREADS), args,
                 0, st));
-        return check_launch(cudaLaunchKernel(&bwd_kernel<float, true>, grid,
+        return launched(cudaLaunchKernel(&bwd_kernel<float, true>, grid,
                                              dim3(NTHREADS), args, 0, st));
     }
     const size_t smem_bytes = static_cast<size_t>(J) * k * 8;
     if (is_bf16)
-        return check_launch(cudaLaunchKernel(
+        return launched(cudaLaunchKernel(
             &bwd_kernel<__nv_bfloat16, false>, grid, dim3(NTHREADS), args,
             smem_bytes, st));
-    return check_launch(cudaLaunchKernel(&bwd_kernel<float, false>, grid,
+    return launched(cudaLaunchKernel(&bwd_kernel<float, false>, grid,
                                          dim3(NTHREADS), args, smem_bytes,
                                          st));
 }

@@ -6,11 +6,13 @@ The pair forward replaces the TPU kernel ``repro/kernels/kl_mutual.py:68``
 (``_kl_pair_kernel`` behind ``_kl_pair_forward``), the backward entry point
 the plain-JAX ``_streaming_pair_bwd`` of its custom VJP (:178-256).  The
 square forward replaces the forward-only TPU kernel ``kl_mutual.py:32``
-(``_kl_kernel``): Eq. 2 of ONE tensor against itself, read once.  The
-forward launches it whenever ``fixed`` is ``live``'s storage viewed alike
-(``same_tensor``): ``kl_mutual`` (w = (1 - I) / (K - 1)), the DML round's
+(``_kl_kernel``): Eq. 2 of ONE tensor against itself, read once; the
+square backward is ``_streaming_pair_bwd`` with fixed = live, reading it
+once too.  Forward and backward launch the square kernels whenever
+``fixed`` is ``live``'s storage viewed alike (``same_tensor``):
+``kl_mutual`` (w = (1 - I) / (K - 1)), the DML round's
 ``kl_mutual_pair(x, x.detach(), mask)``, and the diagonal blocks of
-``blocked_pair``; other pairs go to the pair kernel.  The source is
+``blocked_pair``; other pairs go to the pair kernels.  The source is
 ``csrc/kl_mutual_pair.cu``; its header says what bounds it on the H100.
 
 On CUDA tensors the wrappers launch the kernels or raise; on CPU tensors
@@ -43,14 +45,17 @@ DTYPES = (torch.float32, torch.bfloat16)
 MAX_CLIENTS = 8
 
 SQUARE, PAIR = "kl_mutual_square_fwd", "kl_mutual_pair_fwd"
+SQUARE_BWD, PAIR_BWD = "kl_mutual_square_bwd", "kl_mutual_pair_bwd"
 
 # kernel launches in this process, one per call of each entry point
 launches = 0             # kl_mutual_pair forward
 bwd_launches = 0         # kl_mutual_pair backward
 mutual_kl_launches = 0   # kl_mutual
-# ... and by forward kernel: calls of either entry point that launched it
+# ... and by kernel: calls of an entry point that launched it
 square_launches = 0      # SQUARE (fixed is live)
 pair_launches = 0        # PAIR
+square_bwd_launches = 0  # SQUARE_BWD (fixed is live)
+pair_bwd_launches = 0    # PAIR_BWD
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,9 +70,11 @@ def _lib():
     lib.kl_mutual_square_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    lib.kl_mutual_pair_fwd.restype = ctypes.c_int
-    lib.kl_mutual_square_fwd.restype = ctypes.c_int
-    lib.kl_mutual_pair_bwd.restype = ctypes.c_int
+    lib.kl_mutual_square_bwd.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    for name in (SQUARE, PAIR, SQUARE_BWD, PAIR_BWD):
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -142,26 +149,38 @@ def _forward(live, fixed, w, temperature: float):
 
 def _backward(live, fixed, w, out, lse_live, lse_fixed, g_bar,
               temperature: float, want_fixed: bool):
-    """Launches the backward; returns (dlive, dfixed or None) in the input
-    dtype."""
+    """Launches the square backward when ``same_tensor(live, fixed)`` (it
+    reads the one lse of the square forward), else the pair backward;
+    returns (dlive, dfixed or None, the kernel's name), the gradients in
+    the input dtype."""
     Kl, B, V = live.shape
     Kg = fixed.shape[0]
     g_bar = g_bar.float().contiguous()
+    bf16 = int(live.dtype == torch.bfloat16)
     with torch.cuda.device(live.device):
         dlive = torch.empty((Kl, B, V), dtype=live.dtype, device=live.device)
         dfixed = (torch.empty((Kg, B, V), dtype=fixed.dtype,
                               device=live.device) if want_fixed else None)
-        rc = _lib().kl_mutual_pair_bwd(
-            live.data_ptr(), fixed.data_ptr(), w.data_ptr(), out.data_ptr(),
-            g_bar.data_ptr(), lse_live.data_ptr(), lse_fixed.data_ptr(),
-            dlive.data_ptr(), None if dfixed is None else dfixed.data_ptr(),
-            live.stride(0), live.stride(1), fixed.stride(0), fixed.stride(1),
-            Kl, Kg, B, V, 1.0 / temperature,
-            int(live.dtype == torch.bfloat16), _stream(live))
+        dfixed_ptr = None if dfixed is None else dfixed.data_ptr()
+        if same_tensor(live, fixed):
+            name = SQUARE_BWD
+            rc = _lib().kl_mutual_square_bwd(
+                live.data_ptr(), w.data_ptr(), out.data_ptr(),
+                g_bar.data_ptr(), lse_live.data_ptr(), dlive.data_ptr(),
+                dfixed_ptr, live.stride(0), live.stride(1), Kl, B, V,
+                1.0 / temperature, bf16, _stream(live))
+        else:
+            name = PAIR_BWD
+            rc = _lib().kl_mutual_pair_bwd(
+                live.data_ptr(), fixed.data_ptr(), w.data_ptr(),
+                out.data_ptr(), g_bar.data_ptr(), lse_live.data_ptr(),
+                lse_fixed.data_ptr(), dlive.data_ptr(), dfixed_ptr,
+                live.stride(0), live.stride(1), fixed.stride(0),
+                fixed.stride(1), Kl, Kg, B, V, 1.0 / temperature, bf16,
+                _stream(live))
     if rc != 0:
-        raise RuntimeError(f"kl_mutual_pair_bwd launch failed with CUDA "
-                           f"error {rc}")
-    return dlive, dfixed
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+    return dlive, dfixed, name
 
 
 def client_blocks(n: int, size: int = MAX_CLIENTS) -> list:
@@ -187,37 +206,47 @@ def blocked_pair(fn, live, fixed, pair_w, size: int = MAX_CLIENTS):
     return torch.cat(rows)
 
 
-def _count_forwards(ran: list) -> None:
-    """Counts one call of an entry point whose block pairs launched the
-    forward kernels named in ``ran``: once for each kernel among them."""
+def _count(name: str, seen: set) -> None:
+    """Counts the kernel ``name`` once for each call of an entry point
+    whose block pairs launched it (``seen``: the call's kernels counted so
+    far)."""
     global square_launches, pair_launches
-    square_launches += SQUARE in ran
-    pair_launches += PAIR in ran
+    global square_bwd_launches, pair_bwd_launches
+    if name in seen:
+        return
+    seen.add(name)
+    square_launches += name == SQUARE
+    pair_launches += name == PAIR
+    square_bwd_launches += name == SQUARE_BWD
+    pair_bwd_launches += name == PAIR_BWD
 
 
 class _KlMutualPair(torch.autograd.Function):
     """One (live, fixed) block pair: its forward and backward launches.
-    ``count`` marks the block whose launches the counters record, one per
-    call of the entry point in each direction; the forward appends the
-    name of the kernel it launched to ``ran``."""
+    ``count`` marks the block whose launches the entry-call counters
+    record, one per call of the entry point in each direction; each
+    direction counts the kernel it launched by name (``_count``, with the
+    call's ``seen``)."""
 
     @staticmethod
-    def forward(ctx, live, fixed, w, temperature, count, ran):
+    def forward(ctx, live, fixed, w, temperature, count, seen):
         global launches
         out, lse_live, lse_fixed, name = _forward(live, fixed, w,
                                                   temperature)
-        ran.append(name)
+        _count(name, seen)
         launches += count
         ctx.save_for_backward(live, fixed, w, out, lse_live, lse_fixed)
-        ctx.temperature, ctx.count = temperature, count
+        ctx.temperature, ctx.count, ctx.seen = temperature, count, seen
         return out
 
     @staticmethod
     def backward(ctx, g_bar):
         global bwd_launches
-        dlive, dfixed = _backward(*ctx.saved_tensors, g_bar,
-                                  ctx.temperature, ctx.needs_input_grad[1])
+        dlive, dfixed, name = _backward(*ctx.saved_tensors, g_bar,
+                                        ctx.temperature,
+                                        ctx.needs_input_grad[1])
         bwd_launches += ctx.count
+        _count(name, ctx.seen)
         return dlive, dfixed, None, None, None, None
 
 
@@ -236,14 +265,12 @@ def kl_mutual_pair(live, fixed, pair_w, *, temperature: float = 1.0):
         raise ValueError(f"kl_mutual_pair runs on CUDA or CPU tensors, not "
                          f"{live.device}")
     w = pair_w.detach().to(dtype=torch.float32)
-    ran = []
+    seen = set()
 
     def block(a, b, wb):
         return _KlMutualPair.apply(a, b, wb.contiguous(), float(temperature),
-                                   int(not ran), ran)
-    out = blocked_pair(block, live, fixed, w)
-    _count_forwards(ran)
-    return out
+                                   int(not seen), seen)
+    return blocked_pair(block, live, fixed, w)
 
 
 def kl_mutual(logits, *, temperature: float = 1.0):
@@ -260,13 +287,12 @@ def kl_mutual(logits, *, temperature: float = 1.0):
         raise ValueError(f"kl_mutual runs on CUDA or CPU tensors, not "
                          f"{logits.device}")
     x = logits.detach()
-    ran = []
+    seen = set()
 
     def block(a, b, wb):
         out, _, _, name = _forward(a, b, wb.contiguous(), float(temperature))
-        ran.append(name)
+        _count(name, seen)
         return out
     out = blocked_pair(block, x, x, w)
     mutual_kl_launches += 1
-    _count_forwards(ran)
     return out

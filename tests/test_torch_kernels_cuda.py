@@ -194,17 +194,21 @@ def test_kl_pair_kernels_match_plain(cuda, dtype, Kl, Kg, B, V, T,
     w = _pair_mask(max(Kl, Kg), [1.0] * (max(Kl, Kg) - 1) + [0.0],
                    cuda)[:Kl, :Kg]
     gbar = torch.randn(Kl, B, generator=gen, device=cuda)
-    outs, grads = [], []
+    outs, grads, rises = [], [], []
     for fn in (kl_mutual.kl_mutual_pair, ref.mutual_kl_pair):
         a = live.detach().clone().requires_grad_(True)
         b = fixed.detach().clone().requires_grad_(fixed_grad)
         before = (kl_mutual.launches, kl_mutual.bwd_launches)
+        by_kernel = _kl_counts()
         out = fn(a, b, w, temperature=T)
         out.backward(gbar)
+        rises.append(tuple(n - m for n, m in zip(_kl_counts(), by_kernel)))
         outs.append(out.detach())
         grads.append([a.grad.float()] + ([b.grad.float()] if fixed_grad
                                          else []))
     assert (kl_mutual.launches, kl_mutual.bwd_launches) == before
+    # distinct live and fixed: the pair kernels, each way, once a call
+    assert rises == [(0, 1, 0, 1), (0, 0, 0, 0)]
     torch.testing.assert_close(outs[0], outs[1], atol=1e-4, rtol=1e-4)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     for got, want in zip(*grads):
@@ -246,23 +250,31 @@ def test_mutual_kl_through_the_pair_kernel(cuda):
                                rtol=1e-4)
 
 
+def _kl_counts():
+    """The pair-KL counters by kernel: square and pair forward, square and
+    pair backward."""
+    from repro_torch.kernels import kl_mutual
+    return (kl_mutual.square_launches, kl_mutual.pair_launches,
+            kl_mutual.square_bwd_launches, kl_mutual.pair_bwd_launches)
+
+
 def _square_check(x, w, T, fixed_grad=False):
     """The square kernel on ``x`` (fixed = ``x.detach()``, or ``x`` itself
     when ``fixed_grad``) against ``ref.mutual_kl_pair`` and its autograd:
     forward atol 1e-4 + rtol 1e-4, gradient relative norm 1e-5 in fp32 and
-    2e-2 in bf16 (rounded to bf16 once).  Returns the counters' rises."""
+    2e-2 in bf16 (rounded to bf16 once).  Returns the rises of the
+    counters by kernel (``_kl_counts``) over the kernel's call."""
     from repro_torch.kernels import kl_mutual
     gen = torch.Generator(device=x.device).manual_seed(7)
     gbar = torch.randn(x.shape[:2], generator=gen, device=x.device)
     outs, grads, rises = [], [], None
     for fn in (kl_mutual.kl_mutual_pair, ref.mutual_kl_pair):
         a = x.detach().clone().requires_grad_(True)
-        before = (kl_mutual.square_launches, kl_mutual.pair_launches)
+        before = _kl_counts()
         out = fn(a, a if fixed_grad else a.detach(), w, temperature=T)
-        if rises is None:
-            rises = (kl_mutual.square_launches - before[0],
-                     kl_mutual.pair_launches - before[1])
         (g,) = torch.autograd.grad(out, a, gbar)
+        if rises is None:
+            rises = tuple(n - m for n, m in zip(_kl_counts(), before))
         outs.append(out.detach())
         grads.append(g.float())
     torch.testing.assert_close(outs[0], outs[1], atol=1e-4, rtol=1e-4)
@@ -286,7 +298,7 @@ def test_kl_square_kernel_matches_plain(cuda, dtype, weights, K):
     part = None if weights == "uniform" else [1.0] * max(K - 1, 1) + [0.0]
     w = _pair_mask(K, part[:K] if part else None, cuda)
     for T in (0.5, 1.0, 1.7):
-        assert _square_check(x, w, T) == (1, 0)
+        assert _square_check(x, w, T) == (1, 0, 1, 0)
         if weights == "uniform":
             from repro_torch.kernels import kl_mutual
             torch.testing.assert_close(kl_mutual.kl_mutual(x, temperature=T),
@@ -296,16 +308,19 @@ def test_kl_square_kernel_matches_plain(cuda, dtype, weights, K):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["ragged", "offset_view", "odd_view",
-                                    "live_is_fixed"])
+                                    "live_is_fixed", "ragged_rows"])
 def test_kl_square_kernel_layouts(cuda, dtype, layout):
     """Rows the vector loads do not tile: V = 4,099 (a partial tile and a
     scalar tail), a view x[..., 1:] whose rows start off the 16-byte grid
     at one phase for every client (a scalar head), a view whose clients'
-    phases differ (one-element loads), and fixed = live itself, so that
-    the backward after the square forward also writes dfixed."""
+    phases differ (one-element loads), fixed = live itself, so that the
+    backward after the square forward also writes dfixed, and B = 8 rows
+    of V = 4,099, whose client planes keep the 16-byte phase while the rows
+    do not (the backward's vector loads and stores after a head that
+    differs from row to row)."""
     from repro_torch.core.mutual import _pair_mask
     gen = torch.Generator(device=cuda).manual_seed(11)
-    K, B, V = 3, 5, 4_099
+    K, B, V = 3, 8 if layout == "ragged_rows" else 5, 4_099
 
     def randn(*shape):
         return (2 * torch.randn(*shape, generator=gen, device=cuda)).to(dtype)
@@ -317,7 +332,21 @@ def test_kl_square_kernel_layouts(cuda, dtype, layout):
     else:
         x = randn(K, B, V)
     w = _pair_mask(K, [1.0, 1.0, 0.0], cuda)
-    assert _square_check(x, w, 1.3, layout == "live_is_fixed") == (1, 0)
+    assert _square_check(x, w, 1.3, layout == "live_is_fixed") == \
+        (1, 0, 1, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 2, 5, 8])
+def test_kl_square_backward_writes_dfixed(cuda, dtype, K):
+    """``kl_mutual_pair(x, x, w)`` with x requiring grad: the square
+    backward writes both sides' gradients of the one tensor from the same
+    registers (q = p), at client counts around one launch's 8."""
+    from repro_torch.core.mutual import _pair_mask
+    gen = torch.Generator(device=cuda).manual_seed(20 + K)
+    x = (2 * torch.randn(K, 4, 3_001, generator=gen, device=cuda)).to(dtype)
+    w = _pair_mask(K, None, cuda)
+    assert _square_check(x, w, 0.8, fixed_grad=True) == (1, 0, 1, 0)
 
 
 @pytest.mark.parametrize("K", [9, 16])
@@ -329,7 +358,7 @@ def test_kl_square_kernel_in_client_blocks(cuda, K):
     gen = torch.Generator(device=cuda).manual_seed(K)
     x = 2 * torch.randn(K, 4, 2_000, generator=gen, device=cuda)
     w = _pair_mask(K, [1.0] * (K - 1) + [0.0], cuda)
-    assert _square_check(x, w, 1.2) == (1, 1)
+    assert _square_check(x, w, 1.2) == (1, 1, 1, 1)
 
 
 def test_kl_forward_kernel_follows_the_storage(cuda):
@@ -505,6 +534,38 @@ def test_sparse_kl_kernels_match_plain(cuda, dtype, Kl, J, B, V, k, T,
     assert (sparse_kl.launches, sparse_kl.bwd_launches) == \
         (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(outs[0], outs[1], atol=1e-4, rtol=1e-4)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    got, want = grads
+    assert ((got - want).norm() / want.norm()).item() < tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_kl_forward_on_views(cuda, dtype):
+    """The sparse forward on rows that start off the 16-byte grid (an
+    offset view, each row at its own phase) with V % 8 != 0: out and the
+    statistics Z and -H against the plain version, and the backward fed
+    them against autograd of ``ref.sparse_kl_pair``."""
+    from repro_torch.kernels import sparse_kl
+    Kl, J, B, V, k, T = 3, 3, 6, 5_003, 64, 1.3
+    live, idx, lp, w, gbar = _sparse_inputs(cuda, dtype, Kl, J, B, V + 6, k,
+                                            T, True)
+    live = live[..., 3:V + 3]
+    idx = idx.clamp(max=V - 1)
+    assert live.data_ptr() % 16 and live.stride(1) * live.element_size() % 16
+    out, stats = sparse_kl._forward(live, idx, lp, w, T)
+    lpl = torch.log_softmax(live.float() / T, -1)
+    torch.testing.assert_close(out, ref.sparse_kl_pair(live, idx, lp, w, T),
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(stats[0], torch.logsumexp(live.float() / T,
+                                                         -1),
+                               atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(stats[1], (lpl.exp() * lpl).sum(-1),
+                               atol=1e-4, rtol=1e-4)
+    grads = []
+    for fn in (sparse_kl.sparse_kl_topk, ref.sparse_kl_pair):
+        a = live.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(fn(a, idx, lp, w, temperature=T), a, gbar)
+        grads.append(g.float())
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     got, want = grads
     assert ((got - want).norm() / want.norm()).item() < tol

@@ -18,6 +18,7 @@ Tolerances, all fp32:
   - a session's per-round losses atol 2e-5 and final params atol 1e-4, as
     in ``test_torch_train.py`` (AdamW divides by each gradient's RMS).
 """
+import math
 import os
 import subprocess
 import sys
@@ -35,6 +36,7 @@ from repro.api import SparseDML as JSparseDML
 from repro.configs import get_reduced as jget_reduced
 from repro.core import mutual as jmutual
 from repro.kernels import ref as jref
+from repro.kernels.sparse_kl import _sparse_kl_forward as jsparse_forward
 from repro.kernels.sparse_kl import sparse_kl_topk as jsparse_kl
 from repro_torch import interop
 from repro_torch.api import Federation, LMClients, SparseDML, get_strategy
@@ -121,6 +123,132 @@ def test_sparse_kl_pair_and_grad_match_jax(Kl, J, B, V, k, T, dup, scale):
         want, dlive = _jax_value_and_vjp(fn, live, gbar)
         _close(got, want)
         _close(lt.grad, dlive)
+
+
+def _sparse_forward_model(live, idx, logp, w, T, lanes=4, warps=2,
+                          width=8):
+    """The sparse forward's order of arithmetic on fp32 logits live (Kl, B,
+    V): per row, ``lanes * warps`` threads stream tiles of ``width``
+    elements (thread t takes tiles t, t + threads, ...) carrying (m, A, U)
+    in log2 units (y = x c, c = log2(e) / T; A = sum 2^(y - m), U = sum
+    2^(y - m) (y - m)), one rescale a tile; the states merge by a
+    butterfly within each warp (lane 0's result), then warp after warp;
+    Z = ln 2 (m + log2 A) and -H = ln 2 (U / A - log2 A).  Then each
+    sender's s, cross and sum e^logp at the received indices.  Returns
+    out (Kl, B) and stats (3, Kl, B) = Z, -H, C1."""
+    Kl, B, V = live.shape
+    J, _, k = idx.shape
+    c = torch.tensor(math.log2(math.e) / T, dtype=torch.float32)
+    ln2 = math.log(2)
+    threads = lanes * warps
+    out = torch.zeros(Kl, B)
+    stats = torch.zeros(3, Kl, B)
+
+    def merge(s1, s2):
+        (m1, a1, u1), (m2, a2, u2) = s1, s2
+        mn = torch.maximum(m1, m2)
+        d1, d2 = m1 - mn, m2 - mn
+        e1, e2 = torch.exp2(d1), torch.exp2(d2)
+        return mn, a1 * e1 + a2 * e2, e1 * (u1 + d1 * a1) + e2 * (u2 + d2 * a2)
+    for i in range(Kl):
+        for b in range(B):
+            row = live[i, b]
+            states = []
+            for t in range(threads):
+                m, a, u = (torch.tensor(-1e30), torch.tensor(0.0),
+                           torch.tensor(0.0))
+                for v0 in range(t * width, V, threads * width):
+                    tile = row[v0:v0 + width]
+                    mx = torch.maximum(m, tile.max() * c)
+                    d = m - mx
+                    sc = torch.exp2(d)
+                    u, a, m = sc * (u + d * a), a * sc, mx
+                    y = tile * c - m
+                    e = torch.exp2(y)
+                    a, u = a + e.sum(), u + (e * y).sum()
+                states.append((m, a, u))
+            merged = []
+            for wp in range(warps):      # butterfly: lane 0's view
+                lane = states[wp * lanes:(wp + 1) * lanes]
+                step = lanes // 2
+                while step:
+                    lane = [merge(lane[q], lane[q ^ step])
+                            for q in range(lanes)]
+                    step //= 2
+                merged.append(lane[0])
+            m, a, u = merged[0]
+            for st in merged[1:]:
+                m, a, u = merge((m, a, u), st)
+            z = ln2 * (m + torch.log2(a))
+            neg_h = ln2 * (u / a - torch.log2(a))
+            o = c1 = 0.0
+            for j in range(J):
+                pa = torch.exp(row[idx[j, b].long()] / T - z)
+                lq = logp[j, b]
+                s_, cross = pa.sum(), (pa * lq).sum()
+                cj = torch.log(torch.clamp(1 - torch.exp(lq).sum(), 1e-9, 1)
+                               / max(V - k, 1))
+                o = o + w[i, j] * (neg_h - cj * (1 - s_) - cross)
+                c1 = c1 + w[i, j] * (cj * s_ - cross)
+            out[i, b] = o
+            stats[:, i, b] = torch.stack([z, neg_h, torch.as_tensor(c1)])
+    return out, stats
+
+
+def _sparse_backward_from_stats(live, idx, logp, w, stats, gbar, T):
+    """The sparse backward's formula from the forward's stats (what the
+    backward kernel reads): dlive = s gbar p [R (lp - (-H)) - C1] + s gbar
+    p sum_j w_ij (c_j a^j_v - l^j_v), with a^j_v the multiplicity of v in
+    sender j's set and l^j_v the sum of its log-probs there."""
+    Kl, B, V = live.shape
+    J, _, k = idx.shape
+    z, neg_h, c1 = stats
+    lp = live / T - z[..., None]
+    p = torch.exp(lp)
+    cj = torch.log(torch.clamp(1 - torch.exp(logp).sum(-1), 1e-9, 1)
+                   / max(V - k, 1))                            # (J, B)
+    mult = torch.zeros(J, B, V).scatter_add_(-1, idx.long(),
+                                             torch.ones(J, B, k))
+    lsum = torch.zeros(J, B, V).scatter_add_(-1, idx.long(), logp)
+    sparse = torch.einsum("ij,jbv->ibv", w, cj[..., None] * mult - lsum)
+    r = w.sum(1)[:, None, None]
+    dense = r * (lp - neg_h[..., None]) - c1[..., None]
+    return (gbar / T)[..., None] * p * (dense + sparse)
+
+
+@pytest.mark.parametrize("Kl,J,B,V,k,T,dup", [
+    (3, 3, 4, 301, 16, 1.0, False),     # the path's Kl = J, ragged V
+    (1, 2, 3, 200, 8, 2.0, True),       # Kl = 1, overlapping sets
+    (2, 3, 3, 90, 90, 0.7, False),      # k = V: no uniform tail
+])
+def test_sparse_forward_arithmetic_matches_jax(Kl, J, B, V, k, T, dup):
+    """The sparse forward's order of arithmetic (log2 state, the
+    butterfly-then-warp merge, statistics in natural units), modelled in
+    fp32 on the CPU: out against JAX's interpreted ``_sparse_kl_forward``;
+    Z, -H and C1 against the plain version; and the backward's formula fed
+    those statistics against autograd of ``ref.sparse_kl_pair``."""
+    live, idx, lp, w, gbar = _inputs(Kl, J, B, V, k, T, seed=5, dup=dup,
+                                     scale=2.0)
+    lt, it, lpt, wt, gt = (torch.from_numpy(a)
+                           for a in (live, idx, lp, w, gbar))
+    out, stats = _sparse_forward_model(lt, it, lpt, wt, T)
+    _close(out, jsparse_forward(jnp.asarray(live), jnp.asarray(idx),
+                                jnp.asarray(lp), jnp.asarray(w), T, True, 4,
+                                64))
+    lpl = torch.log_softmax(lt / T, -1)
+    p_at = torch.gather(lpl.exp()[:, None].expand(Kl, J, B, V), -1,
+                        it.long()[None].expand(Kl, J, B, k))
+    cj = torch.log(torch.clamp(1 - lpt.exp().sum(-1), 1e-9, 1)
+                   / max(V - k, 1))
+    c1 = torch.einsum("ij,ijb->ib", wt, cj[None] * p_at.sum(-1)
+                      - (p_at * lpt[None]).sum(-1))
+    _close(stats[0], torch.logsumexp(lt / T, -1))
+    _close(stats[1], (lpl.exp() * lpl).sum(-1))
+    _close(stats[2], c1)
+    a = lt.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(
+        ref.sparse_kl_pair(a, it, lpt, wt, temperature=T), a, gt)
+    _close(_sparse_backward_from_stats(lt, it, lpt, wt, stats, gt, T), want)
 
 
 def test_ops_sparse_mutual_kl_dispatch():

@@ -170,17 +170,18 @@ def test_square_identity_under_masked_weights(K, part, T, V):
     _close(xt.grad, dx)
 
 
-def _square_kernel_model(x, w, T, threads=4, width=8):
+def _square_kernel_model(x, w, T, threads=4, width=8, return_lse=False):
     """The square kernel's arithmetic order on fp32 logits x (K, B, V):
     per row, ``threads`` streams over tiles of ``width`` elements (thread t
     takes tiles t, t + threads, ...); a tile takes its max in log2 units
     (x c, c = log2(e) / T), rescales the thread's partition and cross sums
     once, then adds e = 2^(x c - m) and e_i (x_i - x_j) on the raw logits;
     the threads' states merge pairwise in the kernel's butterfly order, and
-    KL_ij = (Z_j - Z_i) + T_ij / (T A_i) with Z = ln 2 (m + log2 A)."""
+    KL_ij = (Z_j - Z_i) + T_ij / (T A_i) with Z = ln 2 (m + log2 A).
+    Returns out, or (out, Z) with ``return_lse``."""
     K, B, V = x.shape
     c = torch.tensor(math.log2(math.e) / T, dtype=torch.float32)
-    out = torch.zeros(K, B)
+    out, lse = torch.zeros(K, B), torch.zeros(K, B)
     for b in range(B):
         states = []
         for t in range(threads):
@@ -210,7 +211,8 @@ def _square_kernel_model(x, w, T, threads=4, width=8):
         z = math.log(2) * (m + torch.log2(a))
         kl = (z[None] - z[:, None]) + cross / (T * a[:, None])
         out[:, b] = (w * kl * (1 - torch.eye(K))).sum(1)
-    return out
+        lse[:, b] = z
+    return (out, lse) if return_lse else out
 
 
 @pytest.mark.parametrize("K,part,T,V", [
@@ -229,6 +231,63 @@ def test_square_kernel_arithmetic_matches_jax(K, part, T, V):
     _close(got, jref.mutual_kl_pair(jnp.asarray(x), jnp.asarray(x), jw, T))
     _close(got, jkl_pair(jnp.asarray(x), jax.lax.stop_gradient(
         jnp.asarray(x)), jw, temperature=T, block_v=128, interpret=True))
+
+
+def _square_bwd_model(x, w, T, out, z, gbar, want_fixed=False):
+    """The square backward's order of arithmetic on fp32 logits x (K, B, V),
+    from the forward's out and logsumexp z (K, B): per-row constants
+    kap_i = -R_i Z_i + sum_{j != i} w_ij Z_j - out_i (R_i = sum_{j != i}
+    w_ij), p_i = 2^(x_i c - Z_i log2 e) in log2 units, the cross term on the
+    raw logits, dlive_i = s gbar_i p_i (s R_i x_i - s sum_{j != i} w_ij x_j
+    + kap_i); with ``want_fixed`` also the fixed side's gradient of the same
+    x, dfixed_j = s col_j p_j - s sum_{i != j} w_ij gbar_i p_i (q = p),
+    col_j = sum_{i != j} w_ij gbar_i.  Returns dlive, or dlive + dfixed."""
+    K = x.shape[0]
+    s = 1.0 / T
+    c = torch.tensor(math.log2(math.e) / T, dtype=torch.float32)
+    off = w * (1 - torch.eye(K))                     # pairs i = j left out
+    r = off.sum(1)
+    kap = -r[:, None] * z + off @ z - out
+    p = torch.exp2(x * c - (z * math.log2(math.e))[..., None])
+    t = (s * r)[:, None, None] * x + kap[..., None] \
+        + torch.einsum("ij,jbv->ibv", -s * off, x)
+    grad = (s * gbar)[..., None] * p * t
+    if want_fixed:
+        col = s * torch.einsum("ij,ib->jb", off, gbar)
+        grad = grad + col[..., None] * p + torch.einsum(
+            "ij,ibv->jbv", -s * off, gbar[..., None] * p)
+    return grad
+
+
+@pytest.mark.parametrize("want_fixed", [False, True])
+@pytest.mark.parametrize("weights", ["masked", "uniform"])
+@pytest.mark.parametrize("K,T,V", [(1, 0.7, 77), (2, 1.5, 130),
+                                   (3, 0.7, 300), (4, 1.5, 203)])
+def test_square_backward_arithmetic_matches_jax(K, T, V, weights,
+                                                want_fixed):
+    """The square backward's order of arithmetic (log2 units, the cross
+    term on raw logits, the per-row constant kap), modelled in fp32 on the
+    CPU from the square forward model's out and logsumexp, against
+    ``jax.vjp`` of JAX's interpreted ``kl_mutual_pair(x,
+    stop_gradient(x), w)`` (the DML round's call: dlive) or of
+    ``kl_mutual_pair(x, x, w)`` (both sides on one tensor: dlive +
+    dfixed), with the participation mask or w = (1 - I) / (K - 1), V not a
+    multiple of 8.  Relative norm error 1e-5."""
+    x, _, gbar = _kl_inputs(K, V, seed=6)
+    part = [1] * max(K - 1, 1) + [0] if weights == "masked" else None
+    w = mutual._pair_mask(K, part[:K] if part else None)
+    xt = torch.from_numpy(x)
+    out, z = _square_kernel_model(xt, w, T, return_lse=True)
+    got = _square_bwd_model(xt, w, T, out, z, torch.from_numpy(gbar),
+                            want_fixed).numpy()
+    jw = jnp.asarray(w.numpy())
+
+    def fn(a):
+        b = a if want_fixed else jax.lax.stop_gradient(a)
+        return jkl_pair(a, b, jw, temperature=T, block_v=128, interpret=True)
+    want = np.asarray(jax.jit(lambda a, cot: jax.vjp(fn, a)[1](cot)[0])(
+        jnp.asarray(x), jnp.asarray(gbar)))
+    assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)
 
 
 @pytest.mark.parametrize("part", [None, [1, 1, 0]])
