@@ -49,7 +49,20 @@ Phases, each fatal on failure:
      ``FedAvg()`` (every leaf identical across clients after each) and 3 of
      ``AsyncWeights(delta=2, min_round=1)`` (shallow, deep, shallow: the
      scheduled group synced, the other not), comm bytes against the
-     analytic value, through the flash kernels' local steps.
+     analytic value, through the flash kernels' local steps;
+  9. the paper's VisionNet case study at full width (100x100x3, convs
+     32/64/128, dense 64; K = 5 clients on ``make_paper_datasets`` at the
+     paper's sizes, 3,833 train and 5,988 unseen test images): DML round 1
+     without dropout on the card (deterministic cuDNN) against the same
+     round on the CPU (params within relative norm error 1e-3, losses
+     1e-4), then 12 rounds each of
+     ``DML()``, ``FedAvg()`` and ``AsyncWeights(delta=3, min_round=5)``
+     with dropout and ``evaluate`` on the unseen set: comm bytes analytic,
+     FedAvg and async syncs as scheduled, round wall, trained images/s,
+     one profiled DML round's device idle share, peak memory and the
+     Table-II analogue.  No kernel of this repo lies on this path (cuDNN
+     convolutions and cuBLAS matmuls in fp32, TF32 off): every launch
+     count must stay 0.
 Phases 3-7 hold the prefill logits and the per-client gradients to the
 plain path by one parity rule (``_parity``): in fp32 on the same weights,
 and in bf16 against the bf16 plain path's own distance from fp32.
@@ -1114,6 +1127,13 @@ def _timed(fn):
 def device_busy(run) -> dict:
     """{kernel name: (device microseconds, launches)} of ``run()`` under
     ``torch.profiler``."""
+    return device_spans(run)[0]
+
+
+def device_spans(run) -> tuple:
+    """``device_busy``'s dict, and the microseconds during which at least
+    one device activity ran (the union of their time ranges: activities
+    that overlap count once), of ``run()`` under ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1121,11 +1141,18 @@ def device_busy(run) -> dict:
         run()
         torch.cuda.synchronize()
     acc: dict = {}
+    spans = []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             us, cnt = acc.get(e.name, (0.0, 0))
             acc[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
-    return acc
+            spans.append((e.time_range.start, e.time_range.end))
+    union, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return acc, union
 
 
 def _print_top(by_name, per: float, unit: str, n: int = 6) -> None:
@@ -1687,6 +1714,228 @@ def phase_weights(card: str, cfg, mixer, K: int = 3, B: int = 4,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9
+
+# every kernel's launch counter, by the name of its row in the kernels line:
+# (module of repro_torch.kernels, counter)
+KERNEL_COUNTERS = {
+    "flash_attention_fwd": ("flash_attention", "launches"),
+    "flash_attention_bwd": ("flash_attention", "bwd_launches"),
+    "kl_mutual_pair_fwd": ("kl_mutual", "pair_launches"),
+    "kl_mutual_square_fwd": ("kl_mutual", "square_launches"),
+    "kl_mutual_square_bwd": ("kl_mutual", "square_bwd_launches"),
+    "kl_mutual_pair_bwd": ("kl_mutual", "pair_bwd_launches"),
+    "mutual_kl": ("kl_mutual", "mutual_kl_launches"),
+    "ssd_scan_fwd": ("ssd_scan", "launches"),
+    "ssd_scan_bwd": ("ssd_scan", "bwd_launches"),
+    "sparse_kl_fwd": ("sparse_kl", "launches"),
+    "sparse_kl_bwd": ("sparse_kl", "bwd_launches"),
+}
+
+
+def _kernel_counts(zero: bool = False) -> dict:
+    """Every kernel's launch count (set to 0 first when ``zero``)."""
+    import importlib
+    counts = {}
+    for name, (module, attr) in KERNEL_COUNTERS.items():
+        mod = importlib.import_module(f"repro_torch.kernels.{module}")
+        if zero:
+            setattr(mod, attr, 0)
+        counts[name] = getattr(mod, attr)
+    return counts
+
+
+def phase_vision(card: str, cfg=None, K: int = 5, rounds: int = 12,
+                 epochs: int = 3, B: int = 16, lr: float = 0.05,
+                 n_train: int = 3833, n_test: int = 5988) -> dict:
+    """The paper's VisionNet case study on the card, the protocol of the
+    JAX package's ``examples/federated_visionnet.py`` at full width
+    (``configs/visionnet.CONFIG`` by default: 100x100x3, convs 32/64/128,
+    dense 64; K = 5 clients, ``make_paper_datasets`` at the paper's Table I
+    sizes, 3 local epochs of batch 16, lr 0.05).  (1) Round 1 of DML with
+    dropout off on the card and on the CPU from the same state, the card
+    on cuDNN's deterministic algorithms: each client's params within
+    relative norm error 1e-3, the round's client_loss and kl_loss vectors
+    within 1e-4.  The losses amplify the params' rounding (saturated
+    logits, |z| ~ 15): with the card's nondeterministic weight gradients
+    its state varied run to run and the losses' error with it, up to
+    3.7e-4.  (2) 12 rounds each of DML,
+    FedAvg and AsyncWeights(delta=3, min_round=5) with the paper's dropout,
+    then ``evaluate`` on dataset 2: comm bytes equal to the analytic
+    values, every leaf identical across clients after each FedAvg round,
+    the scheduled group (and only it) after each async round, finite
+    losses, accuracies in [0, 1]; round wall, trained images/s, one
+    profiled DML round's device busy time, peak memory and the Table-II
+    analogue printed.  No kernel of this repo lies on the path: returns
+    every kernel's launch count over the phase, all 0."""
+    from repro_torch.api import (DML, AsyncWeights, FedAvg, Federation,
+                                 VisionClients)
+    from repro_torch.configs.visionnet import CONFIG
+    from repro_torch.core.async_fl import layer_schedule
+    from repro_torch.data.synthetic import make_paper_datasets
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = cfg or CONFIG
+    # the shallow/deep rule as ``_synced``'s float lerp mask
+    conv_mask = lambda pop: tree_map(              # noqa: E731
+        lambda sh: torch.tensor([float(sh)]), pop.shallow_mask)
+    t0 = time.perf_counter()
+    (tx, ty), (ex, ey) = make_paper_datasets(
+        image_size=cfg.image_size, n_train=n_train, n_test=n_test)
+    # the parameter counts, from the config alone
+    k2 = cfg.kernel_size ** 2
+    chans = (cfg.channels,) + tuple(cfg.conv_features)
+    n_shallow = sum(k2 * a * b + b for a, b in zip(chans, chans[1:]))
+    side = cfg.image_size // 4
+    n_deep = (side * side * chans[-1] * cfg.dense_features
+              + cfg.dense_features + cfg.dense_features * cfg.n_classes
+              + cfg.n_classes)
+    n_params = n_shallow + n_deep
+    print(f"vision: {K} x VisionNet {cfg.image_size}x{cfg.image_size}x"
+          f"{cfg.channels}, convs {cfg.conv_features}, dense "
+          f"{cfg.dense_features}: {n_params:,} params each ({n_shallow:,} "
+          f"shallow, {n_deep:,} deep); datasets {len(tx)} train / "
+          f"{len(ex)} unseen test made in {time.perf_counter() - t0:.1f} s")
+    kw = dict(n_clients=K, rounds=rounds, local_epochs=epochs,
+              batch_size=B, lr=lr)
+    torch.cuda.reset_peak_memory_stats()
+    _kernel_counts(zero=True)                     # the main path starts here
+
+    # (1) round 1 of DML, card against CPU, dropout off; cuDNN's
+    # deterministic algorithms, so that every run holds the same state and
+    # round (its weight gradients otherwise sum in a varying order)
+    cfg0 = cfg.replace(dropout_rate=0.0)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        pop = VisionClients(cfg0, tx, ty, **kw)
+        host = VisionClients(cfg0, tx, ty, device="cpu", **kw)
+        host.load_state_dict(tree_map(lambda t: t.cpu(), pop.state_dict()),
+                             pop.meta_dict())
+        (h_card, secs) = _timed(lambda: Federation(pop, DML()).run(until=1))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if pop.params_per_client != n_params:
+        raise AssertionError(f"{pop.params_per_client} params a client, "
+                             f"not {n_params}")
+    t1 = time.perf_counter()
+    h_host = Federation(host, DML()).run(until=1)
+    host_secs = time.perf_counter() - t1
+    a, b = h_card.rounds[0], h_host.rounds[0]
+    e_loss = _rel(torch.tensor(a.client_loss), torch.tensor(b.client_loss))
+    e_kl = _rel(torch.tensor(a.kl_loss), torch.tensor(b.kl_loss))
+    e_par = [_rel(*(torch.cat([t[c].flatten().cpu() for t in tree_leaves(p)])
+                    for p in (pop.client_params, host.client_params)))
+             for c in range(K)]
+    print(f"DML round 1 without dropout, card ({secs:.3f} s) vs CPU "
+          f"({host_secs:.1f} s) from the same state: client_loss "
+          f"{_fmt(a.client_loss, '.7f')} vs {_fmt(b.client_loss, '.7f')}, "
+          f"kl_loss {_fmt(a.kl_loss, '.7f')} vs {_fmt(b.kl_loss, '.7f')}; "
+          f"relative norm error client_loss {e_loss:.3g}, kl_loss "
+          f"{e_kl:.3g} (limit 1e-4), params by client {_fmt(e_par, '.3g')} "
+          f"(limit 1e-3)")
+    if not (e_loss <= 1e-4 and e_kl <= 1e-4 and max(e_par) <= 1e-3):
+        raise AssertionError("the vision round on the card disagrees with "
+                             "the CPU")
+    del pop, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) the paper's run, with dropout
+    results = {}
+    for strategy in (DML(kl_weight=1.0, mutual_epochs=1), FedAvg(),
+                     AsyncWeights(delta=3, min_round=5)):
+        name = strategy.name
+        pop = VisionClients(cfg, tx, ty, **kw)
+        fed = Federation(pop, strategy)
+        walls, images, busy = [], [], None
+        for r in range(rounds):
+            if name == "dml" and r == rounds - 1:    # profile the last round
+                (by_name, union), prof_secs = _timed(
+                    lambda: device_spans(lambda: fed.run(until=r + 1)))
+                busy = sum(us for us, _ in by_name.values()) / 1e3
+            else:
+                _, s = _timed(lambda: fed.run(until=r + 1))
+                walls.append(s)
+            rl = fed.history.rounds[-1]
+            fold = [len(f) for f in pop._last_folds]
+            payload = len(pop.folds._folds[pop.folds._cursor - 1])
+            n_img = sum(epochs * (n // B) * B for n in fold)
+            if name == "dml":
+                want = 2 * K * payload * 4
+                n_img += K * payload
+                ok, what = True, "-"
+            elif name == "fedavg":
+                want = 2 * K * n_params * 4
+                ok = _synced(pop.client_params, conv_mask(pop), K, "all")
+                what = "every leaf identical across clients"
+            else:
+                layer = layer_schedule(r, 3, 5)
+                other = "deep" if layer == "shallow" else "shallow"
+                want = 2 * K * (n_shallow if layer == "shallow"
+                                else n_deep) * 4
+                n_img += epochs * (payload // B) * B
+                ok = rl.layer == layer and \
+                    _synced(pop.client_params, conv_mask(pop), K, layer) and \
+                    not _synced(pop.client_params, conv_mask(pop), K, other)
+                what = (f"{layer} group identical across clients, {other} "
+                        f"group not")
+            images.append(n_img)
+            if rl.comm_bytes != want or not ok or \
+                    not np.isfinite(rl.client_loss + rl.kl_loss).all():
+                raise AssertionError(
+                    f"{name} round {r}: comm_bytes {rl.comm_bytes} "
+                    f"(analytic {want}), {what}: {ok}, losses "
+                    f"{rl.client_loss} {rl.kl_loss}")
+        (h, eval_secs) = _timed(lambda: fed.evaluate(split=(ex, ey)))
+        accs = h.client_test_acc + [h.global_test_acc]
+        if not all(np.isfinite(x) and 0.0 <= x <= 1.0 for x in accs) or \
+                len(h.client_test_acc) != K:
+            raise AssertionError(f"{name}: bad accuracies {accs}")
+        steady = walls[1:]
+        rate = sum(images[1:len(walls)]) / sum(steady)
+        print(f"{name}: {rounds} rounds, round wall {_fmt(walls, '.4f')} s "
+              f"(round 0 first; mean after it {np.mean(steady):.4f} s), "
+              f"{rate:.0f} trained images/s; comm {h.total_comm_bytes} "
+              f"bytes (analytic every round); evaluate {eval_secs:.3f} s "
+              f"wall ({len(ex)} images x {K + 1} models, eval_batch "
+              f"{pop.eval_batch}); last-round loss {_fmt(rl.client_loss)}")
+        if busy is not None:
+            mean = float(np.mean(steady))
+            print(f"  one DML round profiled ({prof_secs * 1e3:.1f} ms "
+                  f"wall): {sum(c for _, c in by_name.values())} device "
+                  f"activities, {busy:.2f} ms summed, {union / 1e3:.2f} ms "
+                  f"with one running (their union) against {mean * 1e3:.1f} "
+                  f"ms unprofiled wall -> device idle "
+                  f"{1 - union / 1e6 / mean:.1%}")
+            _print_top(by_name, 1, "round", 6)
+        results[name] = h
+        del fed, pop
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"vision peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"GB on {card}")
+    print("paper Table II analogue (accuracy % on the unseen dataset 2):")
+    print(f"  {'framework':28s}" + "".join(f"client{c}  " for c in range(K))
+          + "global")
+    names = {"fedavg": "Vanilla FL", "async": "Async Weight FL",
+             "dml": "Mutual Learning FL (ours)"}
+    for name in ("fedavg", "async", "dml"):
+        h = results[name]
+        print(f"  {names[name]:28s}" + "".join(
+            f"{100 * x:7.2f}  " for x in h.client_test_acc)
+            + f"{100 * h.global_test_acc:6.2f}")
+    ratio = results["fedavg"].total_comm_bytes / results["dml"].total_comm_bytes
+    print(f"  DML moves {ratio:.0f}x fewer bytes than FedAvg "
+          f"({results['dml'].total_comm_bytes} against "
+          f"{results['fedavg'].total_comm_bytes} over {rounds} rounds)")
+    counts = _kernel_counts()                     # ... and ends here
+    if any(counts.values()):
+        raise AssertionError(f"the vision path launched a kernel: {counts}")
+    return counts
+
+
 def main() -> int:
     check_cuda()
     env = phase_env()
@@ -1743,14 +1992,16 @@ def main() -> int:
                                 strategy=SparseDML(k=64),
                                 eq2=("sparse_kl_fwd", "sparse_kl_bwd",
                                      sparse_kl)),
-            lambda: phase_weights(env["card"], tcfg, flash, TK, TB, TS)):
+            lambda: phase_weights(env["card"], tcfg, flash, TK, TB, TS),
+            lambda: phase_vision(env["card"])):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         paths.append(phase())
     print("launches on each path (qwen3-4b serving, qwen3-4b DML training, "
           "mamba2-780m serving, mamba2-780m training, qwen3-4b SparseDML "
-          "training, qwen3-4b FedAvg + AsyncWeights): " + json.dumps(paths))
+          "training, qwen3-4b FedAvg + AsyncWeights, VisionNet DML + FedAvg + "
+          "AsyncWeights): " + json.dumps(paths))
     for row in kernels:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)
     print(json.dumps({"kernels": kernels}))

@@ -98,5 +98,7 @@ def restore(path: str) -> Tuple[Any, dict]:
             out[k] = torch.from_numpy(
                 arr.view(np.int16).copy()).view(torch.bfloat16)
         else:
-            out[k] = torch.from_numpy(np.ascontiguousarray(arr))
+            # ascontiguousarray alone would turn a 0-d leaf into (1,)
+            out[k] = torch.from_numpy(
+                np.ascontiguousarray(arr).reshape(arr.shape))
     return unflatten(out), meta

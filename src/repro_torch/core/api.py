@@ -69,6 +69,11 @@ class Federation:
     def rounds(self) -> int:
         return self.population.rounds
 
+    @property
+    def dispatch_log(self):
+        """The population's (round, phase) entries, where it keeps them."""
+        return getattr(self.population, "dispatch_log", [])
+
     def participants(self, r: int) -> List[int]:
         """The M clients sampled for round r (stateless in r)."""
         return sample_participants(self.n_clients, self.participation,

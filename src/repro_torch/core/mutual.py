@@ -15,8 +15,12 @@ The sparse half: clients publish only the top-k (index, log-prob) pairs of
 their predictions (``topk_predictions``) and the receiver rebuilds each
 distribution with a uniform tail over the other V - k entries
 (``sparse_mutual_kl_loss``, ``sparse_kl_to_received``); impl "cuda" runs
-the sparse-KL kernel and its backward.  The robust and Bernoulli halves
-come with their slices.
+the sparse-KL kernel and its backward.
+
+The Bernoulli half is VisionNet's (the paper's case study): each client
+shares one sigmoid probability per example, and Eq. 2 is the Bernoulli KL,
+in plain PyTorch as in the JAX package.  The robust half comes with its
+slice.
 """
 from __future__ import annotations
 
@@ -228,3 +232,59 @@ def sparse_share_bytes(n_clients: int, n_examples: int, k: int) -> int:
     """Per-round traffic of top-k sharing (int32 idx + fp32 logp, up and
     down)."""
     return 2 * n_clients * n_examples * k * 8
+
+
+# ---------------------------------------------------------------------------
+# Bernoulli case (VisionNet sigmoid head -- the paper's actual case study)
+
+def _bernoulli_kl(pi, pj):
+    return pi * torch.log(pi / pj) + (1 - pi) * torch.log((1 - pi) / (1 - pj))
+
+
+def bernoulli_mutual_terms_vs(live_probs, fixed_probs, pair_w):
+    """Rectangular Bernoulli Eq. 2: (Kl, B) live x (Kg, B) fixed -> (Kl, B)
+    with explicit (Kl, Kg) pair weights; both sides clipped to
+    [1e-6, 1 - 1e-6]."""
+    pi = torch.clamp(live_probs.float(), 1e-6, 1 - 1e-6)[:, None, :]
+    pj = torch.clamp(fixed_probs.float(), 1e-6, 1 - 1e-6)[None, :, :]
+    return torch.sum(_bernoulli_kl(pi, pj) * pair_w[:, :, None], dim=1)
+
+
+def bernoulli_mutual_terms(live_probs, fixed_probs, part_mask=None):
+    """Eq. 2 with the j-side fixed, Bernoulli case: (K,B) x (K,B) -> (K,B).
+
+    out[i, b] = 1/(K-1) sum_{j != i} KL(Bern(live_i) || Bern(fixed_j)).
+    Callers wanting the federated gradient semantics detach the fixed side.
+    ``part_mask`` (K,) 0/1 drops non-participants from both sides of the
+    average.
+    """
+    K = live_probs.shape[0]
+    return bernoulli_mutual_terms_vs(
+        live_probs, fixed_probs,
+        _pair_mask(K, part_mask, device=live_probs.device))
+
+
+def bernoulli_mutual_loss(all_probs, stop_grad_others: bool = True,
+                          fixed_probs=None, part_mask=None):
+    """all_probs: (K, B) sigmoid outputs -> (K,) per-client Eq.-2 means.
+
+    ``fixed_probs`` optionally supplies the received (j-side) predictions;
+    it defaults to ``all_probs`` itself.
+    """
+    fixed = all_probs if fixed_probs is None else fixed_probs
+    if stop_grad_others:
+        fixed = fixed.detach()
+    return torch.mean(bernoulli_mutual_terms(all_probs, fixed,
+                                             part_mask=part_mask), dim=-1)
+
+
+def bernoulli_mutual_eval(all_probs):
+    return ref.bernoulli_mutual_kl(all_probs)
+
+
+def bernoulli_kl_to_target(live_probs, target_probs):
+    """Elementwise Bernoulli KL(live || target): (K, B) x (K, B) -> (K, B),
+    the target held fixed (detached)."""
+    pi = torch.clamp(live_probs.float(), 1e-6, 1 - 1e-6)
+    pj = torch.clamp(target_probs.detach().float(), 1e-6, 1 - 1e-6)
+    return _bernoulli_kl(pi, pj)

@@ -1,0 +1,431 @@
+"""Stacked-VisionNet client population -- the paper's Algorithm-1 case
+study as a ``Federation`` population (``repro/core/populations/vision.py``).
+
+K clients are a *stacked* tree (leading axis K, ``core.stacking``) and
+every phase runs all K at once through ``models.visionnet``'s stacked
+forward (one grouped conv per layer, ``torch.bmm`` for the dense layers):
+
+  local phase    a loop over the fixed-shape (K, T, B) batch plan from
+                 ``data.federated``; padded steps are masked out of the
+                 update, as the JAX scan's ``_masked_lerp`` does
+  mutual phase   per mutual epoch: the dropout-free shared predictions on
+                 the public fold, then one Eq.-1 descent (BCE + kl_weight
+                 x the Bernoulli Eq.-2 KLD against them, held fixed) with
+                 a per-client SGD update and clip
+  prediction     dropout-free stacked inference: fold scores and eval
+
+``dispatch_log`` keeps the JAX package's (round, name) entries at the same
+points (``local_scan``, ``mutual_scan``, ``accuracy_scan``, ``predict``);
+here each entry marks one phase call, not one jitted program.  Losses are
+reduced on the device and read once a phase.  The training pool is
+uploaded to the device once and every batch is gathered there.  The
+convolutions and matmuls run in full fp32 (``visionnet.strict_fp32``: no
+TF32), as the JAX reference does.
+
+Dropout draws are the port's own: the checkpoint's ``"key"`` leaf
+(uint32 (2,), the JAX package's raw PRNG key) is advanced once per phase
+by numpy and seeds that phase's ``torch.Generator``; each package restores
+the other's checkpoints, but the masks differ.  ``device=None`` means the
+CUDA device and raises without one.
+
+The population executes ``dml`` / ``fedavg`` / ``async``; ``sparse-dml``
+is refused -- the VisionNet head shares Bernoulli probabilities (one float
+per example), which have no top-k structure to sparsify.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.visionnet import VisionNetConfig
+from repro_torch.core import async_fl, fedavg, stacking
+from repro_torch.core.distributed import value_and_grad
+from repro_torch.core.mutual import _pair_mask, bernoulli_mutual_terms_vs
+from repro_torch.core.populations.base import Population
+from repro_torch.data.federated import (FoldScheduler, NonIIDScheduler,
+                                        round_batch_indices)
+from repro_torch.kernels import ops
+from repro_torch.models.visionnet import (bce_loss, init_visionnet,
+                                          shallow_deep_split, strict_fp32,
+                                          visionnet_forward)
+from repro_torch.optim import SGDConfig, sgd_init, sgd_update
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def _masked_lerp(old, new, w: torch.Tensor):
+    """Per client, ``new`` where the step is real (w = 1) and ``old`` where
+    it is padding (w = 0): the select that the JAX package's
+    ``w * new + (1 - w) * old`` is for finite values."""
+    def sel(a, b):
+        return torch.where(w.reshape((-1,) + (1,) * (a.dim() - 1)) > 0, b, a)
+    return tree_map(sel, old, new)
+
+
+def _masked_step(params, opt, grads, w: torch.Tensor, cfg: SGDConfig,
+                 all_real: bool):
+    """``sgd_update`` applied only to the clients where w = 1; the others'
+    params and velocity ride through unchanged and their step stays."""
+    new_p, new_o, _ = sgd_update(params, grads, opt, cfg)
+    if all_real:
+        return new_p, new_o
+    return (_masked_lerp(params, new_p, w),
+            {"vel": _masked_lerp(opt["vel"], new_o["vel"], w),
+             "step": opt["step"] + w.to(torch.int32)})
+
+
+class VisionClients(Population):
+    """K stacked VisionNet clients on a (train_images, train_labels) pool.
+
+    The JAX constructor's signature and defaults, plus ``device``.  Its
+    ``byzantine``, ``record_payloads`` and ``mesh`` features are not ported:
+    passing them raises.
+    """
+
+    engine_name = "federated"
+    supported = frozenset({"dml", "fedavg", "async"})
+
+    def __init__(self, vn_cfg: VisionNetConfig, train_images: np.ndarray,
+                 train_labels: np.ndarray, n_clients: int = 5,
+                 rounds: int = 12, local_epochs: int = 2,
+                 batch_size: int = 32, lr: float = 0.05,
+                 momentum: float = 0.9, clip_norm: float = 1.0,
+                 non_iid_alpha: float = 0.0, seed: int = 0,
+                 eval_batch: int = 256, byzantine=None,
+                 record_payloads: bool = False, mesh=None, device=None):
+        if byzantine or record_payloads:
+            raise NotImplementedError(
+                "byzantine clients and payload recording are not ported "
+                "yet; they come with the privacy and robustness item of "
+                "queue 1")
+        if mesh is not None:
+            raise NotImplementedError(
+                "a client mesh is not ported yet; it comes with the "
+                "client-sharding item of queue 1")
+        self.device = ops.resolve_device(device)
+        self.vn_cfg = vn_cfg
+        self.images = train_images
+        self.labels = train_labels
+        self.n_clients = n_clients
+        self.rounds = rounds
+        self.local_epochs = local_epochs
+        self.batch_size = batch_size
+        self.eval_batch = eval_batch
+        self.seed = seed
+        self.sgd_cfg = SGDConfig(lr=lr, momentum=momentum,
+                                 clip_norm=clip_norm)
+        # the JAX package's PRNGKey(seed) data: (high, low) 32-bit words
+        self.key = np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                            np.uint32)
+        self._plan_seed = seed * 100_003 + 17
+        self.dispatch_log: List[Tuple[int, str]] = []
+        self._round_idx = -1                      # -1 = init phase
+        # the pool, on the device once; every batch is gathered there
+        self._images = torch.as_tensor(train_images, dtype=torch.float32,
+                                       device=self.device)
+        self._labels = torch.as_tensor(train_labels, device=self.device)
+        # Algorithm 1 line 1: Fold <- (1+Clients) x Rounds + 1
+        if non_iid_alpha > 0:
+            self.folds = NonIIDScheduler(train_labels, n_clients, rounds,
+                                         alpha=non_iid_alpha, seed=seed)
+        else:
+            self.folds = FoldScheduler(train_labels, n_clients, rounds,
+                                       seed=seed)
+        # line 3/6: global model trained on public fold
+        init_gen = torch.Generator().manual_seed(self._split_key())
+        self.global_params = init_visionnet(init_gen, vn_cfg, self.device)
+        self.global_opt = sgd_init(self.global_params)
+        self._train_single(self.folds.pop())
+        # lines 7-8: clients start from G
+        self.client_params = stacking.broadcast_stack(self.global_params,
+                                                      n_clients)
+        self.client_opts = stacking.stacked_sgd_init(self.client_params)
+        self.n_params = sum(p.numel()
+                            for p in tree_leaves(self.global_params))
+        self.shallow_mask = shallow_deep_split(self.global_params)
+        self._last_folds: Optional[list] = None
+
+    def validate_strategy(self, strategy) -> None:
+        if strategy.name == "sparse-dml":
+            raise ValueError(
+                "sparse-dml needs a categorical prediction space to take a "
+                "top-k of; the stacked VisionNet population shares Bernoulli "
+                "probabilities (one float per example).  Use DML here, or "
+                "SparseDML with the hetero / LM populations.")
+        super().validate_strategy(strategy)
+
+    # -- helpers ----------------------------------------------------------
+    def begin_round(self, r: int) -> None:
+        self._round_idx = r
+
+    def _next_plan_seed(self) -> int:
+        self._plan_seed += 1
+        return self._plan_seed
+
+    def _split_key(self) -> int:
+        """Advance ``key`` (where the JAX package splits it) and return a
+        seed for the phase's generator."""
+        rng = np.random.default_rng(self.key)
+        self.key = rng.integers(0, 2 ** 32, size=2, dtype=np.uint32)
+        return int(rng.integers(0, 2 ** 63))
+
+    def _dropout_generator(self) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(
+            self._split_key())
+
+    def _batch(self, idx: np.ndarray):
+        """Images and labels at ``idx`` (any shape), gathered on the device."""
+        i = torch.as_tensor(idx, device=self.device)
+        return self._images[i], self._labels[i]
+
+    def _local_steps(self, params, opt, idx: np.ndarray, mask: np.ndarray):
+        """Every client's local epochs: a loop over the (K, T, B) plan
+        ``idx``; step t updates client c only where mask[c, t] = 1.
+        Returns (params, opt, mean BCE per client (K,) on the device)."""
+        gen = self._dropout_generator()
+        w = torch.as_tensor(mask, device=self.device)
+        loss_sum = torch.zeros(mask.shape[0], device=self.device)
+        with strict_fp32():
+            for t in range(idx.shape[1]):
+                images, labels = self._batch(idx[:, t])
+
+                def loss_fn(q):
+                    probs = visionnet_forward(q, self.vn_cfg, images,
+                                              train=True, generator=gen)
+                    bce = bce_loss(probs, labels)
+                    return torch.sum(bce), bce.detach()
+
+                _, bce, grads = value_and_grad(loss_fn, params)
+                params, opt = _masked_step(params, opt, grads, w[:, t],
+                                           self.sgd_cfg,
+                                           bool(mask[:, t].all()))
+                loss_sum += bce * w[:, t]
+        return params, opt, loss_sum / torch.clamp(w.sum(1), min=1.0)
+
+    def _train_single(self, fold: np.ndarray) -> float:
+        """Global-model training = the same local steps with K = 1."""
+        idx, mask = round_batch_indices([fold], self.local_epochs,
+                                        self.batch_size,
+                                        seed=self._next_plan_seed())
+        if idx.shape[1] == 0:
+            return 0.0
+        gp, go, losses = self._local_steps(
+            stacking.expand_stack(self.global_params),
+            stacking.expand_stack(self.global_opt), idx, mask)
+        self.dispatch_log.append((self._round_idx, "local_scan"))
+        self.global_params = stacking.client_slice(gp, 0)
+        self.global_opt = stacking.client_slice(go, 0)
+        return float(losses[0])
+
+    def _local_round(self, part_mask: Optional[np.ndarray] = None):
+        """Pop K client folds and run every client's local epochs.  Returns
+        (folds, per-client mean loss).  ``part_mask`` (K,) 0/1 zeroes the
+        whole batch plan of absent clients."""
+        K = self.n_clients
+        folds, idx, mask = self.folds.pop_round(
+            K, self.local_epochs, self.batch_size,
+            seed=self._next_plan_seed())
+        if idx.shape[1] == 0:
+            return folds, [0.0] * K
+        if part_mask is not None:
+            mask = mask * part_mask[:, None]
+        self.client_params, self.client_opts, losses = self._local_steps(
+            self.client_params, self.client_opts, idx, mask)
+        self.dispatch_log.append((self._round_idx, "local_scan"))
+        return folds, losses.tolist()
+
+    @torch.no_grad()
+    def _predict(self, stacked_params, images) -> torch.Tensor:
+        with strict_fp32():
+            return visionnet_forward(stacked_params, self.vn_cfg, images)
+
+    def _fold_accuracies(self, folds) -> List[float]:
+        """Each client scored on its OWN fold, over a padded (K, N) stack
+        (the async baseline's weighting metric)."""
+        n = max(max((len(f) for f in folds), default=0), 1)
+        K = len(folds)
+        idx = np.zeros((K, n), np.int64)
+        mask = np.zeros((K, n), np.float32)
+        for c, f in enumerate(folds):
+            idx[c, :len(f)] = f
+            mask[c, :len(f)] = 1.0
+        images, labels = self._batch(idx)
+        probs = self._predict(self.client_params, images)
+        hit = ((probs > 0.5) == (labels > 0.5)).float()
+        m = torch.as_tensor(mask, device=self.device)
+        acc = torch.sum(hit * m, dim=1) / torch.clamp(m.sum(1), min=1.0)
+        self.dispatch_log.append((self._round_idx, "accuracy_scan"))
+        return acc.tolist()
+
+    def _accuracy_chunked(self, stacked_params, images: torch.Tensor,
+                          labels: torch.Tensor) -> np.ndarray:
+        """All clients' accuracy on a SHARED dataset (on the device),
+        eval_batch examples at a time.  Returns (K,)."""
+        K = tree_leaves(stacked_params)[0].shape[0]
+        correct = torch.zeros((K,), dtype=torch.int64, device=self.device)
+        for i in range(0, len(images), self.eval_batch):
+            probs = self._predict(stacked_params,
+                                  images[i:i + self.eval_batch])
+            self.dispatch_log.append((self._round_idx, "predict"))
+            correct += torch.sum(
+                (probs > 0.5) == (labels[None, i:i + self.eval_batch] > 0.5),
+                dim=1)
+        return correct.cpu().numpy() / len(images)
+
+    # -- strategy capabilities --------------------------------------------
+    def local_phase(self, r: int, part: List[int], pm) -> List[float]:
+        K = self.n_clients
+        folds, losses = self._local_round(pm if len(part) < K else None)
+        self._last_folds = folds
+        return losses
+
+    def public_payload(self, r: int):
+        # public fold: rotating common test set from the server
+        return self.folds.pop()
+
+    def weights_payload(self, r: int):
+        return self.folds.pop()
+
+    def mutual_phase(self, r, part, pm, payload, kl_weight, mutual_epochs,
+                     sparse_k: int = 0) -> dict:
+        K = self.n_clients
+        pub = payload.data
+        out = {"ran": False, "positions": len(pub)}
+        if mutual_epochs > 0 and len(part) >= 2:
+            images, labels = self._batch(pub)
+            gen = self._dropout_generator()
+            pmt = torch.as_tensor(pm, dtype=torch.float32,
+                                  device=self.device)
+            pair_w = _pair_mask(K, pm, device=self.device)
+            params, opt = self.client_params, self.client_opts
+            for _ in range(mutual_epochs):
+                # what goes over the wire: dropout-free, held fixed
+                shared = self._predict(params, images)
+
+                def loss_fn(q):
+                    live = visionnet_forward(q, self.vn_cfg, images,
+                                             train=True, generator=gen)
+                    bce = bce_loss(live, labels)
+                    kld = torch.mean(
+                        bernoulli_mutual_terms_vs(live, shared, pair_w),
+                        dim=-1)
+                    return (torch.sum(bce * pmt) + kl_weight * torch.sum(kld),
+                            (bce.detach(), kld.detach()))
+
+                with strict_fp32():
+                    _, (bce, kld), grads = value_and_grad(loss_fn, params)
+                    params, opt = _masked_step(params, opt, grads, pmt,
+                                               self.sgd_cfg,
+                                               len(part) == K)
+            self.client_params, self.client_opts = params, opt
+            self.dispatch_log.append((r, "mutual_scan"))
+            loss, kld = torch.stack([bce + kl_weight * kld, kld]).tolist()
+            out = {"ran": True, "positions": len(pub),
+                   "client_loss": [x * m for x, m in zip(loss, pm)],
+                   "kl_loss": kld}
+        return out
+
+    def fedavg_combine(self, part: List[int], pm) -> None:
+        if len(part) == self.n_clients:
+            self.client_params = fedavg.average_weights(self.client_params)
+            avg = self.client_params
+        else:
+            # server averages the M participants; only they receive the
+            # broadcast back (absentees are offline this round)
+            avg = fedavg.weighted_average_weights(self.client_params, pm)
+            self.client_params = stacking.client_lerp(self.client_params,
+                                                      avg, pm)
+        self.global_params = stacking.client_slice(avg, 0)
+
+    def async_combine(self, r, part, pm, delta, min_round, pub) -> str:
+        scores = self._fold_accuracies(self._last_folds)
+        # absentees contribute no weight to the aggregate and receive none
+        # of it back (scores masked -> their average weight is 0)
+        synced, layer = async_fl.async_round_update(
+            self.client_params, np.asarray(scores) * pm, self.shallow_mask,
+            r, delta, min_round)
+        # Algorithm 1 lines 17-18: G takes the aggregate then trains on a
+        # fold -- sliced from the SYNCED tree, where every client received
+        # the round's average
+        self.global_params = stacking.client_slice(synced, 0)
+        if len(part) < self.n_clients:
+            synced = stacking.client_lerp(self.client_params, synced, pm)
+        self.client_params = synced
+        self._train_single(pub)
+        return layer
+
+    def async_param_counts(self):
+        return async_fl.count_params_by_mask(self.global_params,
+                                             self.shallow_mask)
+
+    @property
+    def params_per_client(self) -> int:
+        return self.n_params
+
+    # -- final eval (paper Table II / Fig. 3) ------------------------------
+    def evaluate(self, history, split=None):
+        if split is None:
+            raise ValueError(
+                "the stacked VisionNet population scores clients on a "
+                "held-out dataset: evaluate(split=(test_images, "
+                "test_labels))")
+        self._round_idx = self.rounds                  # eval phase
+        images = torch.as_tensor(split[0], dtype=torch.float32,
+                                 device=self.device)
+        labels = torch.as_tensor(split[1], device=self.device)
+        history.client_test_acc = [
+            float(a) for a in self._accuracy_chunked(self.client_params,
+                                                     images, labels)]
+        gp = stacking.expand_stack(self.global_params)
+        history.global_test_acc = float(
+            self._accuracy_chunked(gp, images, labels)[0])
+        return history
+
+    # -- checkpoint/resume -------------------------------------------------
+    def state_dict(self) -> dict:
+        return {"client_params": self.client_params,
+                "client_opts": self.client_opts,
+                "global_params": self.global_params,
+                "global_opt": self.global_opt,
+                "key": torch.from_numpy(self.key.copy())}
+
+    def meta_dict(self) -> dict:
+        return {"engine": self.engine_name,
+                "n_clients": self.n_clients,
+                "n_rounds": self.rounds,
+                "pool_n": len(self.labels),
+                "plan_seed": self._plan_seed,
+                "scheduler": self.folds.state()}
+
+    def check_meta(self, meta: dict) -> None:
+        if meta.get("n_clients") != self.n_clients:
+            raise ValueError(
+                f"checkpoint K={meta.get('n_clients')} != config "
+                f"K={self.n_clients}")
+        # fold partition is deterministic in (labels, K, rounds, seed); a
+        # different schedule/pool would silently resume on the wrong folds
+        if meta.get("n_rounds", self.rounds) != self.rounds or \
+                meta.get("pool_n", len(self.labels)) != len(self.labels):
+            raise ValueError(
+                f"checkpoint schedule (rounds={meta.get('n_rounds')}, "
+                f"pool={meta.get('pool_n')}) != config "
+                f"(rounds={self.rounds}, pool={len(self.labels)}); "
+                "resume needs the same fold partition -- save with the full "
+                "round budget and stop early via run(until=...)")
+
+    def load_state_dict(self, state: dict, meta: dict) -> None:
+        """Takes trees of tensors or numpy arrays on any device (a restored
+        checkpoint's are CPU tensors, the JAX package's numpy arrays) and
+        moves them to the population's device."""
+        to = lambda t: torch.as_tensor(t).to(self.device)  # noqa: E731
+        self.client_params = tree_map(to, state["client_params"])
+        self.client_opts = tree_map(to, state["client_opts"])
+        self.global_params = tree_map(to, state["global_params"])
+        self.global_opt = tree_map(to, state["global_opt"])
+        key = state["key"]
+        if isinstance(key, torch.Tensor):
+            key = key.cpu().numpy()
+        self.key = np.array(key, dtype=np.uint32).reshape(2)
+        self._plan_seed = int(meta["plan_seed"])
+        self.folds.load_state(meta["scheduler"])

@@ -7,13 +7,21 @@ multi-device slice of the port.
 """
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 Params = Any
+
+
+def stacked_init(generator: torch.Generator,
+                 init_fn: Callable[[torch.Generator], Params],
+                 n_clients: int) -> Params:
+    """K independent initialisations, stacked on a leading client axis:
+    ``init_fn`` draws each client from ``generator`` in turn."""
+    return stack_params([init_fn(generator) for _ in range(n_clients)])
 
 
 def broadcast_stack(params: Params, n_clients: int) -> Params:
@@ -25,6 +33,14 @@ def broadcast_stack(params: Params, n_clients: int) -> Params:
 def zeros_like_stack(stacked_params: Params) -> Params:
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                           device=p.device), stacked_params)
+
+
+def stacked_sgd_init(stacked_params: Params) -> dict:
+    """SGD-momentum state with per-client step counters: (K,) int32."""
+    k = tree_leaves(stacked_params)[0].shape[0]
+    return {"vel": zeros_like_stack(stacked_params),
+            "step": torch.zeros((k,), dtype=torch.int32,
+                                device=tree_leaves(stacked_params)[0].device)}
 
 
 def expand_stack(tree: Params) -> Params:

@@ -106,6 +106,18 @@ def mutual_kl_pair(live, fixed, pair_w, temperature: float = 1.0
     return torch.sum(kl * pair_w.float()[:, :, None], dim=1)
 
 
+def bernoulli_mutual_kl(probs) -> torch.Tensor:
+    """Eq. 2 for the paper's sigmoid binary head.  probs: (K, B) in (0, 1),
+    clipped to [1e-7, 1 - 1e-7].  Returns (K, B) fp32."""
+    K = probs.shape[0]
+    p = torch.clamp(probs.float(), 1e-7, 1 - 1e-7)
+    pi = p[:, None, :]                                   # (i,1,B)
+    pj = p[None, :, :]                                   # (1,j,B)
+    kl = pi * torch.log(pi / pj) + (1 - pi) * torch.log((1 - pi) / (1 - pj))
+    mask = (1.0 - torch.eye(K, device=probs.device))[:, :, None]
+    return torch.sum(kl * mask, dim=1) / max(K - 1, 1)
+
+
 def sparse_kl_pair(live, idx, logp_top, pair_w, temperature: float = 1.0
                    ) -> torch.Tensor:
     """Pair-weighted Eq. 2 against RECEIVED sparse (top-k) predictions

@@ -1,12 +1,14 @@
-"""AdamW with decoupled weight decay, one global-norm clip and schedules:
-the port of ``repro/optim/__init__.py`` for the LM path.
+"""AdamW with decoupled weight decay, one global-norm clip and schedules
+for the LM path, and SGD with momentum for the VisionNet path: the port of
+``repro/optim/__init__.py``.
 
 State is a plain dict of trees ({"mu", "nu", "step"}) so it checkpoints in
 the JAX package's schema.  Unlike the JAX version, ``adamw_update`` updates
 the params and the fp32 moments IN PLACE, one leaf at a time, so its fp32
 temporaries are the size of one leaf (the embedding's are 4.7 GB each at
-K = 3 full-width qwen3-4b clients) instead of the whole tree.  SGD comes
-with the vision slice of the port.
+K = 3 full-width qwen3-4b clients) instead of the whole tree.
+``sgd_update`` takes a client-stacked tree and clips each client by its
+own global norm, as the JAX package's ``sgd_update`` does under ``vmap``.
 """
 from __future__ import annotations
 
@@ -141,3 +143,52 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
         del u
     return params, state, {"grad_norm": gnorm,
                            "lr": torch.tensor(lr, dtype=torch.float32)}
+
+
+# ---------------------------------------------------------------------------
+# SGD + momentum (VisionNet path)
+
+@dataclass(frozen=True)
+class SGDConfig:
+    lr: float = 0.05
+    momentum: float = 0.9
+    clip_norm: Optional[float] = None
+
+
+def sgd_init(params) -> dict:
+    """fp32 zero velocity shaped like ``params`` and a 0-d int32 step."""
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
+                                  device=p.device)
+    return {"vel": tree_map(zeros, params),
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=tree_leaves(params)[0].device)}
+
+
+def client_norms(tree) -> torch.Tensor:
+    """(K,) fp32: for each client of a client-stacked tree, the global norm
+    of its slices of every leaf."""
+    sq = [torch.sum(torch.square(x.float()).reshape(x.shape[0], -1), dim=1)
+          for x in tree_leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(sq), dim=0))
+
+
+def _per_client(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return v.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def sgd_update(params, grads, state: dict, cfg: SGDConfig):
+    """One SGD-momentum step of every client of client-stacked trees: each
+    client's gradient is clipped by its own global norm (``client_norms``),
+    then vel = momentum * vel + g and p = p - lr * vel, in fp32.  Returns
+    new trees (params, {"vel", "step": step + 1}, {"grad_norm": (K,)})."""
+    norm = client_norms(grads)
+    if cfg.clip_norm is not None:
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(norm, min=1e-9),
+                            max=1.0)
+        grads = tree_map(lambda g: g.float() * _per_client(scale, g), grads)
+    vel = tree_map(lambda v, g: cfg.momentum * v + g.float(), state["vel"],
+                   grads)
+    new_params = tree_map(
+        lambda p, v: (p.float() - cfg.lr * v).to(p.dtype), params, vel)
+    return new_params, {"vel": vel, "step": state["step"] + 1}, \
+        {"grad_norm": norm}

@@ -1,20 +1,26 @@
-"""Nested-dict helpers: the port's parameter and cache trees are plain
-dicts of tensors (``jax.tree.map`` / ``jax.tree.leaves`` in the JAX
-package)."""
+"""Nested-container helpers: the port's parameter and cache trees are
+dicts, lists and tuples of tensors (``jax.tree.map`` / ``jax.tree.leaves``
+in the JAX package, which recurse into the same three containers)."""
 from __future__ import annotations
 
 from typing import Any, Callable, List
 
 
 def tree_map(fn: Callable, tree, *rest):
-    """Apply ``fn`` leaf-wise over one or more trees of the same structure."""
+    """Apply ``fn`` leaf-wise over one or more trees of the same structure;
+    dicts, lists and tuples keep their type."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> List[Any]:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]

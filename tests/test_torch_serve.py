@@ -315,8 +315,8 @@ def test_serve_cli_on_cpu(capsys):
     assert "arch=mamba2-780m random-init" in out
 
 
-# the training and SSM slices' modules, named so that the walk below cannot
-# miss one
+# the training, SSM and vision slices' modules, named so that the walk
+# below cannot miss one
 TRAINING_MODULES = (
     "repro_torch.api", "repro_torch.core.api", "repro_torch.core.distributed",
     "repro_torch.core.mutual", "repro_torch.core.stacking",
@@ -327,7 +327,9 @@ TRAINING_MODULES = (
     "repro_torch.configs.mamba2_780m", "repro_torch.kernels.ssd_scan",
     "repro_torch.models.ssm", "repro_torch.kernels.sparse_kl",
     "repro_torch.core.fedavg", "repro_torch.core.async_fl",
-    "repro_torch.core.strategies.weights")
+    "repro_torch.core.strategies.weights", "repro_torch.configs.visionnet",
+    "repro_torch.models.visionnet", "repro_torch.core.populations.vision",
+    "repro_torch.launch.visionnet", "repro_torch.data.synthetic")
 
 
 def test_port_imports_no_jax_and_no_repro():
