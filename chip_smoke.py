@@ -63,9 +63,34 @@ Phases, each fatal on failure:
      Table-II analogue.  No kernel of this repo lies on this path (cuDNN
      convolutions and cuBLAS matmuls in fp32, TF32 off): every launch
      count must stay 0.
-Phases 3-7 hold the prefill logits and the per-client gradients to the
-plain path by one parity rule (``_parity``): in fp32 on the same weights,
-and in bf16 against the bf16 plain path's own distance from fp32.
+  10. phase 3 for K=2 clients of qwen2-moe-a2.7b at full width and depth
+     (d 2048, 16 heads of 128 with QKV bias, 60 experts top-4 of width 1408
+     and 4 shared, vocab 151,936, 24 layers: 14.32 B params a client, 57.3
+     GB for two in bf16), through the flash forward; its MoE FFNs route in
+     groups of min(256, S) tokens that must tile a prompt, so every prompt
+     is at most 256 tokens or a multiple of 256, as the JAX engine's
+     prefill at the request's own length requires; a decode step runs all
+     60 experts of every layer (capacity buffers of one slot); the prefill
+     parity on a copy of the first 4 layers of both clients (an fp32 copy
+     of the whole would be 114 GB), with the tokens per layer whose kept
+     experts differ between the two impls;
+  11. phase 4 for K=3 qwen2-moe-a2.7b clients at full width, cut to 1 of
+     24 layers (3.58 B params a client with the embedding and head; 2
+     layers would need ~90 GB), through the flash pair and the square
+     Eq.-2 pair, with each client's load_balance and router_z;
+  12. phase 3 for K=2 dbrx-132b clients at full width (d 6144, 48/8 heads,
+     16 experts top-4 of width 10,752, vocab 100,352) cut to 4 of 40
+     layers (57 GB in bf16): the flash forward at GQA 6:1, the expert
+     products at their widest; the prefill parity on a copy of the first
+     layer of both clients.
+jamba-1.5-large-398b does not run on the card: one full-width period (8
+layers, 4 MoE FFNs of 16 experts of width 24,576) holds ~44 B params, 88
+GB a client in bf16, and no depth cut goes below a period; the CPU tests
+hold it against the JAX package at its reduced config.
+Phases 3-7 and 10-12 hold the prefill logits and the per-client
+gradients to the plain path by one parity rule (``_parity``): in fp32 on
+the same weights, and in bf16 against the bf16 plain path's own distance
+from fp32.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is one JSON object with the per-kernel numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -249,13 +274,14 @@ def _check(flash_attention, ref, q, k, v, causal, window, tol, what):
 
 
 def phase_flash_fwd(main_shape, admit_batch, admit_lens,
-                    train_shapes) -> dict:
+                    train_shapes, more=()) -> dict:
     """Flash forward against ``ref.attention_lse`` on the card: a sweep of
     heads, lengths, windows and dtypes, and every shape the serving run of
     phase 3 gives the kernel -- K*B sequences of the generate and route
     prompts (``main_shape``) and ``admit_batch`` = K sequences of each
     admitted request length (``admit_lens``), bf16, causal -- and the
-    training run's (``train_shapes``: (batch, S) pairs)."""
+    training run's (``train_shapes``: (batch, S) pairs); ``more`` the other
+    paths' shapes as (batch, (Hq, Hkv, hd), S), bf16, causal."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -275,6 +301,7 @@ def phase_flash_fwd(main_shape, admit_batch, admit_lens,
              for S in admit_lens]
     path += [(b, (Hq, Hkv, hd), S, None, bf16, True)
              for b, S in train_shapes]
+    path += [(b, heads, S, None, bf16, True) for b, heads, S in more]
     worst = {}
     for b, (hq, hkv, d), S, window, dtype, causal in cases + path:
         q, k, v = _qkv(b, S, hq, hkv, d, dtype, gen)
@@ -283,7 +310,7 @@ def phase_flash_fwd(main_shape, admit_batch, admit_lens,
                       f"window={window} {dtype} causal={causal}")
         n, e, el = worst.get(dtype, (0, 0.0, 0.0))
         worst[dtype] = (n + 1, max(e, errs[0]), max(el, errs[1]))
-        if (b, S) == (B, S0):
+        if (b, S, hq, hkv) == (B, S0, Hq, Hkv):
             max_err = errs[0]
     for dtype, (n, e, el) in worst.items():
         t = tol[dtype]
@@ -292,7 +319,8 @@ def phase_flash_fwd(main_shape, admit_batch, admit_lens,
               f"err| {el:.3g} (limit {t['lse']})")
     print(f"  of them at the serving path's shapes: B={B} S={S0}, and "
           f"B={admit_batch} S in {list(admit_lens)}; at the training "
-          f"path's: (B, S) in {list(train_shapes)}")
+          f"path's: (B, S) in {list(train_shapes)}; at the MoE paths' "
+          f"(B, (Hq, Hkv, hd), S): {sorted(set(more))}")
 
     # time at the serving path's generate/route prefill shape, then at the
     # training path's shapes (16 launches a DML round there)
@@ -363,11 +391,12 @@ def _flash_grads(fn, qkv, dout, Hq, Hkv, window):
     return grad.float()
 
 
-def phase_flash_bwd(train_shape, train_shapes) -> dict:
+def phase_flash_bwd(train_shape, train_shapes, more=()) -> dict:
     """Flash backward (dq, dk, dv) against autograd of ``ref.attention_lse``
     on the card: a sweep of heads, lengths, windows and dtypes, and every
     shape the training run of phase 4 gives it (``train_shapes``: (batch,
-    S) pairs at the full width, bf16, causal).  Tolerance: max |err| <=
+    S) pairs at the full width, bf16, causal), and ``more`` (batch, (Hq,
+    Hkv, hd), S) of the other training paths.  Tolerance: max |err| <=
     tol * max(max |grad|, 1) for each of dq, dk, dv, tol 1e-4 in fp32
     (summation order) and 2e-2 in bf16 (the gradients are rounded to bf16
     once, and the plain version differentiates its fp32 softmax while the
@@ -383,6 +412,7 @@ def phase_flash_bwd(train_shape, train_shapes) -> dict:
              for window in (None, 256)
              for dtype in (torch.float32, BF16)]
     cases += [(b, (Hq, Hkv, hd), S, None, BF16) for b, S in train_shapes]
+    cases += [(b, heads, S, None, BF16) for b, heads, S in more]
     worst, max_err = {}, None
     for b, (hq, hkv, d), S, window, dtype in cases:
         qkv = torch.randn(b, S, hq + 2 * hkv, d, device="cuda",
@@ -402,7 +432,7 @@ def phase_flash_bwd(train_shape, train_shapes) -> dict:
             errs.append(err)
         n, e = worst.get(dtype, (0, 0.0))
         worst[dtype] = (n + 1, max(e, *errs))
-        if (b, S) == (B0, S0):
+        if (b, S, hq, hkv) == (B0, S0, Hq, Hkv):
             max_err = max(errs)
     for dtype, (n, e) in worst.items():
         print(f"flash backward vs autograd of ref, {n} cases "
@@ -1189,13 +1219,20 @@ def profile_decode(eng, prompts, step_secs: float, ttft_secs: float,
     _print_top(by_name, steps, "step")
 
 
-def make_requests(vocab_size: int, n: int = 6, seed: int = 0) -> list:
+def make_requests(vocab_size: int, n: int = 6, seed: int = 0,
+                  moe: bool = False) -> list:
     """``n`` (prompt, max_new) requests of 64-1024 prompt tokens and 16-64
-    new ones, for continuous batching."""
+    new ones, for continuous batching.  With ``moe`` a length past 256 is
+    cut down to a multiple of 256: an MoE FFN routes a prompt in groups of
+    min(256, S) tokens that must tile it (``models/moe.py``, as
+    ``repro/models/moe.py:68`` asserts and the JAX engine's prefill at the
+    request's own length requires)."""
     rng = np.random.default_rng(seed)
     reqs = []
     for _ in range(n):
         s0 = int(rng.integers(64, 1025))
+        if moe and s0 > 256:
+            s0 -= s0 % 256
         reqs.append((rng.integers(0, vocab_size, (s0,)).astype(np.int32),
                      int(rng.integers(16, 65))))
     return reqs
@@ -1235,35 +1272,83 @@ def _parity(what, e32, e16, floor, e_bf16, bf16_limit) -> None:
         raise AssertionError(f"{what} disagree with the plain path")
 
 
-def _prefill_parity(cfg, params, ids, kw, kernel_bf16, plain_bf16,
-                    bf16_limit) -> None:
-    """The parity rule on the engine's prefill last-token logits:
-    ``kernel_bf16`` and ``plain_bf16`` come from the bf16 engines at
-    impl "cuda" and "ref"; the fp32 engines run here."""
+def _route_flips(a, b, n_experts: int) -> list:
+    """Per ``apply_moe`` call of two runs (``moe.route_log`` lists, in call
+    order: layer by layer), the tokens whose kept experts differ."""
+    def kept(idx, keep):
+        out = torch.zeros(*idx.shape[:-1], n_experts, dtype=torch.bool,
+                          device=idx.device)
+        return out.scatter_(-1, idx, keep)
+    return [int((kept(*ra) != kept(*rb)).any(-1).sum())
+            for ra, rb in zip(a, b)]
+
+
+def _logged_routes(cfg, fn):
+    """``fn()`` with every MoE call's routes logged (``moe.route_log``):
+    (its result, the log, or None without MoE layers)."""
+    from repro_torch.models import moe
+    moe.route_log = [] if cfg.moe else None
+    try:
+        return fn(), moe.route_log
+    finally:
+        moe.route_log = None
+
+
+def _first_layers(params, cfg, n_layers: int):
+    """The first ``n_layers`` layers of every client, copied (so that the
+    full population can be freed), with the embedding, final norm and
+    head; and the config cut to that depth."""
+    from repro_torch.tree import tree_map
+    cut = cfg.replace(n_layers=n_layers)
+    out = dict(params)
+    out["periods"] = tree_map(lambda t: t[:, :cut.n_periods].clone(),
+                              params["periods"])
+    return out, cut
+
+
+def _prefill_parity(cfg, params, ids, kw, bf16_limit) -> None:
+    """The parity rule on the engine's prefill last-token logits of
+    ``params`` (bf16): engines at impl "cuda" and "ref" on them and on an
+    fp32 copy.  For MoE layers, also the tokens per layer whose kept
+    experts differ between the two impls, and the largest |logit|."""
     from repro_torch.serve import ServeEngine
     from repro_torch.tree import tree_map
+
+    def prefill(c, p, impl):
+        eng = ServeEngine(c, p, mode="average", impl=impl, **kw)
+        return _logged_routes(c, lambda: eng._prefill(ids)[0].float())
+
+    (kernel_bf16, r16), (plain_bf16, p16) = (prefill(cfg, params, impl)
+                                             for impl in ("cuda", "ref"))
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
     p32 = tree_map(lambda t: t.float(), params)
-    out = {}
-    for impl in ("cuda", "ref"):
-        eng = ServeEngine(cfg32, p32, mode="average", impl=impl, **kw)
-        out[impl] = eng._prefill(ids)[0].float()
-        del eng
+    (kernel32, r32), (plain32, p32r) = (prefill(cfg32, p32, impl)
+                                        for impl in ("cuda", "ref"))
     del p32
-    _parity("prefill last-token logits", [_rel(out["cuda"], out["ref"])],
-            [_rel(kernel_bf16, out["ref"])], [_rel(plain_bf16, out["ref"])],
+    if cfg.moe:
+        print(f"  routes of the {len(r16)} MoE layers: tokens whose kept "
+              f"experts differ between impl=cuda and impl=ref, bf16 "
+              f"{_route_flips(r16, p16, cfg.moe.n_experts)}, fp32 "
+              f"{_route_flips(r32, p32r, cfg.moe.n_experts)} "
+              f"(of {ids.numel()} a client); largest |logit| bf16 "
+              f"{kernel_bf16.abs().max().item():.4g}")
+    _parity("prefill last-token logits", [_rel(kernel32, plain32)],
+            [_rel(kernel_bf16, plain32)], [_rel(plain_bf16, plain32)],
             [_rel(kernel_bf16, plain_bf16)], bf16_limit)
 
 
 def phase_serve(card: str, cfg, reqs, kernel, K: int = 2, B: int = 2,
                 S0: int = 512, gen: int = 32,
-                bf16_limit: float | None = 2e-2) -> dict:
+                bf16_limit: float | None = 2e-2,
+                parity_layers: int | None = None) -> dict:
     """The port's serving path at the full width and depth of ``cfg``.
     ``kernel`` = (name, module): the mixer kernel whose module counter
     ``launches`` must show that every prefill and router call ran through
     it.  The prefill is held against an ``impl="ref"`` engine on the same
-    weights by the parity rule (``_parity``).  Returns the launch count
-    over the served requests."""
+    weights by the parity rule (``_parity``): on the whole population, or
+    with ``parity_layers`` on a copy of its first layers (every client),
+    made after the population is freed, where an fp32 copy of the whole
+    would not fit.  Returns the launch count over the served requests."""
     from repro_torch.data.synthetic import make_token_stream
     from repro_torch.models import transformer as tfm
     from repro_torch.serve import ServeEngine
@@ -1295,8 +1380,8 @@ def phase_serve(card: str, cfg, reqs, kernel, K: int = 2, B: int = 2,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     calls = {}
-    for eng in (avg, route):
-        for prog, c in eng.dispatch_counts().items():
+    for counts in (avg.dispatch_counts(), route.dispatch_counts()):
+        for prog, c in counts.items():
             calls[prog] = calls.get(prog, 0) + c
     need = cfg.n_layers * (calls["prefill"] + calls["router"])
     print(f"program calls {calls}; {name} launches {launches} "
@@ -1309,21 +1394,11 @@ def phase_serve(card: str, cfg, reqs, kernel, K: int = 2, B: int = 2,
         raise AssertionError("token id out of range")
     if not np.isfinite(lg).all():
         raise AssertionError("non-finite logits")
+    print(f"largest |logit| of the greedy generate: {np.abs(lg).max():.4g}")
     if not np.array_equal(toks, steady_toks):
         raise AssertionError("greedy generate is not repeatable")
     if sorted(len(done[r]) for r in rids) != sorted(n for _, n in reqs):
         raise AssertionError("continuous batching lost tokens")
-
-    # the engine's prefill program against an engine at the plain version
-    # on the same weights
-    plain = ServeEngine(cfg, params, mode="average", impl="ref", **kw)
-    ids = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
-    a, _ = avg._prefill(ids)
-    b, _ = plain._prefill(ids)
-    del plain
-    print(f"prefill parity, engine impl={avg.impl} vs engine impl=ref on "
-          f"the same weights (relative norm errors):")
-    _prefill_parity(cfg, params, ids, kw, a, b, bf16_limit)
 
     step = (steady - ttft) / (gen - 1)
     profile_decode(avg, prompts, step, ttft)
@@ -1337,6 +1412,24 @@ def phase_serve(card: str, cfg, reqs, kernel, K: int = 2, B: int = 2,
           f"{cb_secs:.3f} s = {n_cb / cb_secs:.1f} tok/s; decode step "
           f"{step * 1e3:.1f} ms; route generate "
           f"{route_secs:.3f} s; peak memory {peak_gb:.1f} GB")
+
+    # the engine's prefill program against an engine at the plain version
+    # on the same weights
+    del avg, route, leaves
+    what = "the same weights"
+    if parity_layers:
+        params, cfg = _first_layers(params, cfg, parity_layers)
+        what = (f"a copy of the first {parity_layers} layers of "
+                f"{cfg.name}, every client")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ids = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
+    print(f"prefill parity, engine impl=cuda vs engine impl=ref on {what} "
+          f"(relative norm errors):")
+    _prefill_parity(cfg, params, ids, kw, bf16_limit)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return {name: launches}
 
 
@@ -1447,8 +1540,9 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
                 pop.client_params, cfg, pub0, impl=pop.impl).reshape(
                     K, -1, cfg.vocab_size), sparse_k)
     loss_kw = {"sparse_k": sparse_k, "received": received}
-    _, _, grads = D.value_and_grad(D.dml_total_loss, pop.client_params, cfg,
-                                   tokens0, pub0, impl=pop.impl, **loss_kw)
+    (_, _, grads), routes = _logged_routes(cfg, lambda: D.value_and_grad(
+        D.dml_total_loss, pop.client_params, cfg, tokens0, pub0,
+        impl=pop.impl, **loss_kw))
     g_cuda = tree_map(lambda t: t.cpu(), grads)
     del grads
 
@@ -1533,6 +1627,13 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
            if sparse_k else "mutual_kl_eval, kernel 3")
     print(f"Eq.-2 readout of round {rounds - 1}'s public logits ({how}): "
           f"per-client mean {_fmt(readout.mean(1))}")
+    if cfg.moe:
+        with torch.no_grad():
+            _, m = tfm.loss_fn_clients(pop.client_params, cfg, tokens0,
+                                       impl=pop.impl)
+        print(f"after {rounds} rounds, on round 0's private batch: "
+              f"load_balance {_fmt(m['load_balance'], '.6f')} router_z "
+              f"{_fmt(m['router_z'], '.6f')} (summed over the MoE layers)")
     busy_us = sum(us for us, _ in by_name.values())
     n_kernels = sum(cnt for _, cnt in by_name.values())
     steady = walls[-1]
@@ -1565,9 +1666,16 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
     # round 1 again through the plain versions, from the same weights
     torch.cuda.reset_peak_memory_stats()
     pop = population("ref")
-    _, _, grads = D.value_and_grad(D.dml_total_loss, pop.client_params, cfg,
-                                   tokens0, pub0, impl="ref", **loss_kw)
+    (_, _, grads), ref_routes = _logged_routes(cfg, lambda: D.value_and_grad(
+        D.dml_total_loss, pop.client_params, cfg, tokens0, pub0, impl="ref",
+        **loss_kw))
     g_ref = tree_map(lambda t: t.cpu(), grads)
+    if cfg.moe:
+        print(f"routes of round 1's gradient: tokens whose kept experts "
+              f"differ between impl=cuda and impl=ref, per MoE call in "
+              f"call order (forwards, then the recomputes of remat) "
+              f"{_route_flips(routes, ref_routes, cfg.moe.n_experts)}"
+              f" of {tokens0.numel()} and {K * pub0.numel()}")
     del grads
     ref_first = Federation(pop, strategy).run(until=1).rounds[0]
     print(f"round 1 at impl=ref: private_loss {_fmt(ref_first.client_loss)} "
@@ -1954,6 +2062,20 @@ def main() -> int:
     MK, MB, MS0 = 2, 2, 1024           # mamba2 serving: 4 chunks a prompt
     MTK, MTB, MTS = 3, 4, 1024         # the mamba2 training run
     mreqs = make_requests(mcfg.vocab_size)
+    qcfg = get_config("qwen2-moe-a2.7b")   # full width and depth: serving
+    QK, QB, QS0 = 2, 2, 512
+    qtcfg = qcfg.replace(n_layers=1)   # training: K = 3 fits at 1 of 24
+    QTK, QTB, QTS = 3, 4, 512
+    qreqs = make_requests(qcfg.vocab_size, moe=True)
+    # dbrx: two clients of 4 of its 40 layers hold 57 GB in bf16
+    dcfg = get_config("dbrx-132b").replace(n_layers=4)
+    dreqs = make_requests(dcfg.vocab_size, moe=True)
+    qheads = (qcfg.n_heads, qcfg.n_kv_heads, qcfg.head_dim_)
+    dheads = (dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim_)
+    qtrain = [(b, qheads, QTS) for b in (QTK * QTB, QTK * max(1, QTB // 2))]
+    moe_flash = ([(QK * QB, qheads, QS0), (2 * 2, dheads, 512)] + qtrain
+                 + [(QK, qheads, n) for n in {len(p) for p, _ in qreqs}]
+                 + [(2, dheads, n) for n in {len(p) for p, _ in dreqs}])
     s = mcfg.ssm
     nh, P, G, N = s.n_heads(mcfg.d_model), s.head_dim, s.n_groups, s.d_state
     # the scan sees the K clients as K * nh heads in K * G groups
@@ -1965,8 +2087,9 @@ def main() -> int:
 
     kernels = [phase_flash_fwd((K * B, S0) + heads, K,
                                sorted({len(p) for p, _ in reqs}),
-                               train_shapes),
-               phase_flash_bwd(train_shapes[0] + heads, train_shapes)]
+                               train_shapes, moe_flash),
+               phase_flash_bwd(train_shapes[0] + heads, train_shapes,
+                               qtrain)]
     kernels += phase_kl(TK, max(1, TB // 2) * TS, cfg.vocab_size)
     # the mamba2 round's Eq.-2 term: checked, its rows kept at qwen3-4b's
     phase_kl(MTK, max(1, MTB // 2) * MTS, mcfg.vocab_size)
@@ -1993,7 +2116,15 @@ def main() -> int:
                                 eq2=("sparse_kl_fwd", "sparse_kl_bwd",
                                      sparse_kl)),
             lambda: phase_weights(env["card"], tcfg, flash, TK, TB, TS),
-            lambda: phase_vision(env["card"])):
+            lambda: phase_vision(env["card"]),
+            lambda: phase_serve(env["card"], qcfg, qreqs,
+                                ("flash_attention_fwd", fa), QK, QB, QS0, 32,
+                                None, parity_layers=4),
+            lambda: phase_train(env["card"], qtcfg, flash, QTK, QTB, QTS, 3,
+                                None),
+            lambda: phase_serve(env["card"], dcfg, dreqs,
+                                ("flash_attention_fwd", fa), 2, 2, 512, 32,
+                                None, parity_layers=1)):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2001,7 +2132,8 @@ def main() -> int:
     print("launches on each path (qwen3-4b serving, qwen3-4b DML training, "
           "mamba2-780m serving, mamba2-780m training, qwen3-4b SparseDML "
           "training, qwen3-4b FedAvg + AsyncWeights, VisionNet DML + FedAvg + "
-          "AsyncWeights): " + json.dumps(paths))
+          "AsyncWeights, qwen2-moe-a2.7b serving, qwen2-moe-a2.7b DML "
+          "training, dbrx-132b serving): " + json.dumps(paths))
     for row in kernels:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)
     print(json.dumps({"kernels": kernels}))

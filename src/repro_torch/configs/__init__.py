@@ -1,7 +1,8 @@
 """Config registry: ``get_config(arch_id)`` / ``get_reduced(arch_id)``.
 
-Lists the archs the port serves and trains so far.  The JAX package's
-other archs need the MoE or prefix-frontend slices of the port.
+Lists the archs the port serves and trains: the JAX package's registry
+less the two prefix-token archs (llava-next-mistral-7b, musicgen-medium),
+which need the prefix-frontend slice of the port.
 """
 from __future__ import annotations
 
@@ -11,8 +12,14 @@ from typing import Dict, List
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
 _MODULES: Dict[str, str] = {
-    "qwen3-4b": "qwen3_4b",
+    "dbrx-132b": "dbrx_132b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "qwen3-8b": "qwen3_8b",
+    "minitron-4b": "minitron_4b",
     "mamba2-780m": "mamba2_780m",
+    "qwen3-4b": "qwen3_4b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "qwen1.5-110b": "qwen1_5_110b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

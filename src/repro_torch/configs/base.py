@@ -168,3 +168,14 @@ class ModelConfig:
         if self.prefix_tokens:
             n += self.prefix_dim * d + d               # projector
         return n
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        n_moe_layers = sum(1 for s in self.period
+                           if s.ffn == "moe") * self.n_periods
+        per_expert = 3 * self.d_model * m.d_expert
+        inactive = n_moe_layers * (m.n_experts - m.top_k) * per_expert
+        return self.param_count() - inactive

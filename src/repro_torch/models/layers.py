@@ -15,24 +15,39 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 # init helpers
 
+def _stacked(lead: Tuple[int, ...], shape: Tuple[int, ...], dtype, device,
+             draw) -> torch.Tensor:
+    """A (lead + shape) tensor of ``dtype`` filled one ``shape`` slice at a
+    time (per client and layer): ``draw(t)`` fills an fp32 slice in place,
+    which is then cast into the output.  The fp32 temporary is one slice,
+    never the whole stacked leaf (a qwen2-moe expert leaf of two clients is
+    33 GB in fp32)."""
+    out = torch.empty(lead + tuple(shape), dtype=dtype, device=device)
+    flat = out.view(-1, *shape)
+    tmp = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    for i in range(flat.shape[0]):
+        flat[i].copy_(draw(tmp))
+    return out
+
+
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
                scale: Optional[float] = None, lead: Tuple[int, ...] = ()):
     """Truncated-normal fan-in init (LeCun-style): std * N(0, 1) cut to
-    [-2, 2], std = fan_in ** -0.5.  ``lead`` prepends stacking axes (clients,
-    layers) that do not count towards the fan-in."""
+    [-2, 2], std = fan_in ** -0.5 with fan_in = ``shape[0]`` (the JAX
+    rule: an (E, d, de) expert leaf gets E ** -0.5).  ``lead`` prepends
+    stacking axes (clients, layers) that do not count towards the
+    fan-in."""
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
-    t = torch.empty(lead + tuple(shape), dtype=torch.float32,
-                    device=gen.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return t.mul_(std).to(dtype)
+    return _stacked(lead, shape, dtype, gen.device, lambda t: (
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        .mul_(std)))
 
 
 def embed_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
                lead: Tuple[int, ...] = ()):
-    t = torch.empty(lead + tuple(shape), dtype=torch.float32,
-                    device=gen.device)
-    return t.normal_(0.0, 1.0, generator=gen).mul_(0.02).to(dtype)
+    return _stacked(lead, shape, dtype, gen.device, lambda t: (
+        t.normal_(0.0, 1.0, generator=gen).mul_(0.02)))
 
 
 # ---------------------------------------------------------------------------

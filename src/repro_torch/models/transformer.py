@@ -13,10 +13,11 @@ period runs under ``torch.utils.checkpoint`` (the JAX package's
 ``jax.checkpoint`` of the period body), so its activations are recomputed
 in the backward.
 
-The slot program dispatches on each slot's mixer: attention
-(``models/attention.py``) or a Mamba2 SSD block (``models/ssm.py``).  MoE
-FFNs and prefix-token frontends are not ported yet and raise
-``NotImplementedError``.
+The slot program dispatches on each slot's mixer, attention
+(``models/attention.py``) or a Mamba2 SSD block (``models/ssm.py``), and
+on its FFN, a SwiGLU MLP or a mixture of experts (``models/moe.py``), whose
+aux losses the training forward sums over the layers.  Prefix-token
+frontends are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
                                        init_mlp, per_client, rms_norm)
@@ -37,10 +39,6 @@ Params = Dict[str, Any]
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    for spec in cfg.period:
-        if spec.ffn == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE FFNs come with the MoE slice of the port")
     if cfg.prefix_tokens:
         raise NotImplementedError(
             f"{cfg.name}: prefix-token frontends come with the frontend "
@@ -69,7 +67,10 @@ def _init_slot(gen, cfg: ModelConfig, spec, lead):
         p["mixer"] = ssm_mod.init_mamba(gen, cfg, lead)
     if spec.ffn != "none":
         p["norm2"] = torch.zeros(lead + (cfg.d_model,), **zeros)
+    if spec.ffn == "mlp":
         p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdtype(), lead)
+    elif spec.ffn == "moe":
+        p["ffn"] = moe_mod.init_moe(gen, cfg, lead)
     return p
 
 
@@ -103,10 +104,15 @@ def init_model(seed: int, cfg: ModelConfig, *, n_clients: int = 0,
 # forward
 
 def _ffn(sp, cfg: ModelConfig, spec, x):
+    """The slot's FFN on the residual x: (x, aux), aux the MoE's
+    {"load_balance", "router_z"} of (K,), or None."""
     if spec.ffn == "none":
-        return x
+        return x, None
     h = rms_norm(x, per_client(sp["norm2"], x), cfg.rms_eps)
-    return x + apply_mlp(sp["ffn"], h)
+    if spec.ffn == "mlp":
+        return x + apply_mlp(sp["ffn"], h), None
+    y, aux = moe_mod.apply_moe(sp["ffn"], cfg, h)
+    return x + y, aux
 
 
 def _embed(params, cfg: ModelConfig, tokens):
@@ -132,7 +138,12 @@ def _unembed(params, cfg: ModelConfig, x):
 
 def _period(sparams_period, cfg: ModelConfig, x, positions,
             window: Optional[int], impl: str):
-    """One period of layers on x (K, B, S, d)."""
+    """One period of layers on x (K, B, S, d) -> (x, load_balance,
+    router_z): the aux losses (K,) summed over the period's slots, returned
+    so that a checkpointed period keeps their gradient."""
+    K = x.shape[0]
+    lb = torch.zeros(K, dtype=torch.float32, device=x.device)
+    rz = torch.zeros_like(lb)
     for i, spec in enumerate(cfg.period):
         sp = sparams_period[f"slot{i}"]
         h = rms_norm(x, per_client(sp["norm1"], x), cfg.rms_eps)
@@ -141,16 +152,20 @@ def _period(sparams_period, cfg: ModelConfig, x, positions,
                                            window=window, impl=impl)
         else:
             h = ssm_mod.mamba_forward(sp["mixer"], cfg, h, impl=impl)
-        x = _ffn(sp, cfg, spec, x + h)
-    return x
+        x, aux = _ffn(sp, cfg, spec, x + h)
+        if aux is not None:
+            lb = lb + aux["load_balance"]
+            rz = rz + aux["router_z"]
+    return x, lb, rz
 
 
 def forward_hidden_clients(sparams, cfg: ModelConfig, tokens, *,
                            window: Optional[int] = None, remat: bool = True,
                            impl: str):
     """Backbone only: final hidden states (K, B, S, d), before the final
-    norm, and the aux losses {"load_balance", "router_z"} (K,) -- zeros,
-    as the JAX package returns for dense layers.  ``tokens`` is (B, S)
+    norm, and the aux losses {"load_balance", "router_z"} (K,) summed over
+    the MoE layers (zeros without any, as the JAX package returns for dense
+    layers).  ``tokens`` is (B, S)
     shared or (K, B, S) per client.  ``remat`` checkpoints each period
     when autograd records a gradient of the params (not in serving or
     under ``torch.no_grad``)."""
@@ -160,23 +175,25 @@ def forward_hidden_clients(sparams, cfg: ModelConfig, tokens, *,
     positions = torch.arange(S, device=x.device).expand(B, S)
     remat = remat and torch.is_grad_enabled() and any(
         t.requires_grad for t in tree_leaves(sparams))
+    lb = torch.zeros(K, dtype=torch.float32, device=x.device)
+    rz = torch.zeros_like(lb)
     for idx in range(cfg.n_periods):
         period = _layer(sparams["periods"], idx)
         if remat:
-            x = checkpoint(_period, period, cfg, x, positions, window, impl,
-                           use_reentrant=False)
+            x, plb, prz = checkpoint(_period, period, cfg, x, positions,
+                                     window, impl, use_reentrant=False)
         else:
-            x = _period(period, cfg, x, positions, window, impl)
-    zeros = torch.zeros(K, dtype=torch.float32, device=x.device)
-    return x, {"load_balance": zeros, "router_z": zeros}
+            x, plb, prz = _period(period, cfg, x, positions, window, impl)
+        lb, rz = lb + plb, rz + prz
+    return x, {"load_balance": lb, "router_z": rz}
 
 
 def forward_clients(sparams, cfg: ModelConfig, tokens, *,
                     window: Optional[int] = None, remat: bool = True,
                     impl: str):
     """K clients on tokens (B, S) shared or (K, B, S) per client -> logits
-    (K, B, S, V).  (The JAX ``forward`` also returns the aux losses; dense
-    layers have none.)"""
+    (K, B, S, V).  (The JAX ``forward`` also returns the aux losses; they
+    are ``forward_hidden_clients``'s.)"""
     x, _ = forward_hidden_clients(sparams, cfg, tokens, window=window,
                                   remat=remat, impl=impl)
     return _unembed(sparams, cfg, x)
@@ -307,8 +324,10 @@ def prefill_clients(sparams, cfg: ModelConfig, tokens, *, max_seq: int,
                     ) -> Tuple[torch.Tensor, Params]:
     """Prompt ingestion for K clients on shared tokens (B, S): attention
     and SSD scans through ``impl``.  (The JAX prefill passes no impl to
-    either, so it runs the ambient one.)  Returns (last-token logits
-    (K, B, V), cache (K, n_periods, B, ...))."""
+    either, so it runs the ambient one.)  MoE FFNs route the prompt in
+    groups of min(256, S) tokens, so S must be at most 256 or a multiple of
+    it, and their aux losses are dropped, as in the JAX prefill.  Returns
+    (last-token logits (K, B, V), cache (K, n_periods, B, ...))."""
     _check_ported(cfg)
     if window is None:
         window = cfg.sliding_window
@@ -330,7 +349,7 @@ def prefill_clients(sparams, cfg: ModelConfig, tokens, *, max_seq: int,
                     sp["mixer"], cfg, h, return_state=True, impl=impl)
                 c["conv"].copy_(conv)
                 c["ssm"].copy_(ssm_state)
-            x = _ffn(sp, cfg, spec, x + out)
+            x, _ = _ffn(sp, cfg, spec, x + out)
     return _unembed(sparams, cfg, x[:, :, -1:])[:, :, 0], cache
 
 
@@ -347,7 +366,9 @@ def decode_step_clients(sparams, cfg: ModelConfig, token, cache, pos, *,
                         window: Optional[int] = None):
     """One decode step for K clients.  token: (B, 1) shared; cache: the
     (K, n_periods, B, ...) tree, updated IN PLACE; pos: an int or a (B,)
-    tensor of per-sequence positions.  Returns (logits (K, B, V), cache)."""
+    tensor of per-sequence positions.  An MoE FFN routes each token alone
+    (a group of one: no token is dropped, every expert runs) and its aux
+    losses are dropped.  Returns (logits (K, B, V), cache)."""
     _check_ported(cfg)
     if window is None:
         window = cfg.sliding_window
@@ -365,7 +386,7 @@ def decode_step_clients(sparams, cfg: ModelConfig, token, cache, pos, *,
             else:
                 out, _ = ssm_mod.mamba_decode(sp["mixer"], cfg, h,
                                               layer_cache[f"slot{i}"])
-            x = _ffn(sp, cfg, spec, x + out)
+            x, _ = _ffn(sp, cfg, spec, x + out)
     return _unembed(sparams, cfg, x)[:, :, 0], cache
 
 

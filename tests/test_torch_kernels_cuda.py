@@ -154,6 +154,79 @@ def test_flash_bf16_tensor_core_edges(cuda, B, S, T, Hq, Hkv, hd, window,
         assert ((got - exp).norm() / max(exp.norm().item(), 1.0)) < 2e-2
 
 
+@pytest.mark.parametrize("Hq,Hkv", [(16, 16), (48, 8), (24, 8), (64, 8)])
+def test_flash_at_the_new_archs_head_layouts(cuda, Hq, Hkv):
+    """The bf16 flash forward and backward at the head layouts of
+    qwen2-moe-a2.7b (16/16), dbrx-132b (48/8, GQA 6:1), minitron-4b (24/8)
+    and qwen1.5-110b (64/8), head_dim 128, q, k, v slices of a fused QKV:
+    out atol/rtol 2e-2 and lse atol 1e-3 against ``ref.attention_lse``,
+    dq, dk, dv within relative norm 2e-2 of its autograd (the tolerances
+    of ``test_flash_bf16_tensor_core_edges``)."""
+    B, S, hd = 2, 300, 128
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    qkv = torch.randn(B, S, Hq + 2 * Hkv, hd, generator=gen,
+                      device=cuda).bfloat16()
+    dout = torch.randn(B, S, Hq, hd, generator=gen, device=cuda).bfloat16()
+    outs, grads = [], []
+    before = fa.launches, fa.bwd_launches
+    for fn in (fa.flash_attention, ref.attention_lse):
+        x = qkv.clone().requires_grad_(True)
+        out, lse = fn(x[:, :, :Hq], x[:, :, Hq:Hq + Hkv], x[:, :, Hq + Hkv:])
+        out.backward(dout)
+        outs.append((out.detach().float(), lse))
+        grads.append(x.grad.float())
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    (out, lse), (want, want_lse) = outs
+    torch.testing.assert_close(out, want, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    got, exp = grads
+    for sl in (slice(0, Hq), slice(Hq, Hq + Hkv), slice(Hq + Hkv, None)):
+        err = (got[:, :, sl] - exp[:, :, sl]).norm() / exp[:, :, sl].norm()
+        assert err.item() < 2e-2
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "dbrx-132b"])
+def test_moe_on_the_card_matches_the_cpu(cuda, arch):
+    """``models.moe.apply_moe`` on the card against the same module on the
+    CPU from one state (reduced config, fp32, TF32 off, K = 3, two groups
+    of 256): the same routes, y and the aux losses within 1e-5 of their
+    largest magnitude, and every gradient (x, router, experts, shared
+    experts) too.  The MoE FFN has no kernel of its own; this holds its
+    index dispatch (``index_copy``, ``index_select``, ``bmm``) on CUDA."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_leaves
+    cfg = get_reduced(arch)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    params = moe.init_moe(gen, cfg, lead=(3,))
+    x = torch.randn(3, 1, 512, cfg.d_model, generator=gen)
+    gy = torch.randn(x.shape, generator=gen)
+    runs = []
+    for device in ("cpu", cuda):
+        p = {k: (v.to(device) if torch.is_tensor(v)
+                 else {n: t.to(device) for n, t in v.items()})
+             for k, v in params.items()}
+        leaves = [t.requires_grad_(True) for t in tree_leaves(p)]
+        xd = x.to(device).requires_grad_(True)
+        moe.route_log = []
+        try:
+            y, aux = moe.apply_moe(p, cfg, xd)
+            routes = moe.route_log
+        finally:
+            moe.route_log = None
+        total = (y * gy.to(device)).sum() + aux["load_balance"].sum() \
+            + aux["router_z"].sum()
+        grads = torch.autograd.grad(total, [xd] + leaves)
+        runs.append(([y, aux["load_balance"], aux["router_z"], *grads],
+                     routes))
+    (cpu, cpu_routes), (card, card_routes) = runs
+    for a, b in zip(cpu_routes[0], card_routes[0]):
+        assert torch.equal(a, b.cpu())
+    for a, b in zip(cpu, card):
+        err = (b.cpu() - a).abs().max().item()
+        assert err <= 1e-5 * max(a.abs().max().item(), 1.0)
+
+
 @pytest.mark.parametrize("which", ["q", "k", "v"])
 def test_flash_bf16_refuses_misaligned_view(cuda, which):
     """A bf16 view 2 bytes off a 16-byte boundary (``x[..., 1:1 + hd]`` of

@@ -22,7 +22,6 @@ from repro.models import layers as jlayers
 from repro.models import transformer as jtfm
 from repro_torch import checkpoint, interop
 from repro_torch.configs import get_config, get_reduced
-from repro_torch.configs.base import LayerSpec
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttfm
@@ -253,9 +252,6 @@ def test_checkpoint_schema_both_ways(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    dict(period=(LayerSpec("mamba", "none"), LayerSpec("mamba", "moe")),
-         n_layers=4),
-    dict(period=(LayerSpec("attn", "moe"),)),
     dict(prefix_tokens=4, prefix_dim=8),
 ])
 def test_unported_layers_raise(change):

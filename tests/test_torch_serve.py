@@ -286,8 +286,8 @@ def test_load_serving_params_rejects_unservable(tmp_path):
                                          "arch": "qwen3-4b"})
     with pytest.raises(ValueError, match="not servable"):
         load_serving_params(bad, device="cpu")
-    other = str(tmp_path / "dbrx.npz")
-    jckpt.save(other, {"x": np.zeros(2)}, {"arch": "dbrx-132b"})
+    other = str(tmp_path / "llava.npz")      # a prefix-token arch
+    jckpt.save(other, {"x": np.zeros(2)}, {"arch": "llava-next-mistral-7b"})
     with pytest.raises(ValueError, match="not in"):
         load_serving_params(other, device="cpu")
 
@@ -315,7 +315,7 @@ def test_serve_cli_on_cpu(capsys):
     assert "arch=mamba2-780m random-init" in out
 
 
-# the training, SSM and vision slices' modules, named so that the walk
+# the training, SSM, vision and MoE slices' modules, named so that the walk
 # below cannot miss one
 TRAINING_MODULES = (
     "repro_torch.api", "repro_torch.core.api", "repro_torch.core.distributed",
@@ -329,7 +329,12 @@ TRAINING_MODULES = (
     "repro_torch.core.fedavg", "repro_torch.core.async_fl",
     "repro_torch.core.strategies.weights", "repro_torch.configs.visionnet",
     "repro_torch.models.visionnet", "repro_torch.core.populations.vision",
-    "repro_torch.launch.visionnet", "repro_torch.data.synthetic")
+    "repro_torch.launch.visionnet", "repro_torch.data.synthetic",
+    "repro_torch.models.moe", "repro_torch.configs.qwen2_moe_a2_7b",
+    "repro_torch.configs.dbrx_132b",
+    "repro_torch.configs.jamba_1_5_large_398b",
+    "repro_torch.configs.qwen3_8b", "repro_torch.configs.minitron_4b",
+    "repro_torch.configs.qwen1_5_110b")
 
 
 def test_port_imports_no_jax_and_no_repro():
