@@ -13,11 +13,16 @@ Phases, each fatal on failure:
      serving and training paths' shapes and around them, with the kernel's
      time beside its bound, the plain version's time and a library
      yardstick (and for the flash kernels the achieved TFLOP/s of each; the
-     forward also at the training path's shapes): the flash-attention
+     forward also at the training path's shapes; both at the prefix
+     archs' shapes: llava's windowed ones, window 4096 at 4416 and 4160
+     positions, timed against a bound over the unmasked pairs only and
+     SDPA with an explicit boolean mask, and musicgen's 24/24 heads of
+     64): the flash-attention
      forward and backward, the Eq.-2 KL's square forward and backward
      (fixed is live: the DML round's term and ``mutual_kl``) and pair
      forward and backward (distinct live and fixed) (at qwen3-4b's and
-     mamba2-780m's vocabularies, and past one launch's 8 clients a side:
+     mamba2-780m's vocabularies, checked also at llava's and musicgen's
+     (32,000 and 2,048), and past one launch's 8 clients a side:
      K = 9 and 16 in client blocks), the SSD chunked scan's forward and
      backward, and the
      sparse (top-k) KL's
@@ -82,12 +87,39 @@ Phases, each fatal on failure:
      16 experts top-4 of width 10,752, vocab 100,352) cut to 4 of 40
      layers (57 GB in bf16): the flash forward at GQA 6:1, the expert
      products at their widest; the prefill parity on a copy of the first
-     layer of both clients.
+     layer of both clients;
+  13. phase 3 for K=2 llava-next-mistral-7b clients at full width and depth
+     (d 4096, 32/8 heads of 128, d_ff 14,336, vocab 32,000, 32 layers:
+     7.24 B params a client, 29 GB for two): each prompt of 1536 tokens
+     stands behind its own 2880-position image prefix of dim 1024 (seeded
+     N(0, 1), through the projector), so P + S = 4416 is past the 4096
+     window: the flash forward runs windowed and decode wraps the 4096-key
+     ring; 6 mixed requests each with its own prefix, and route mode; the
+     prefill parity on a copy of the first 4 layers of both clients (an
+     fp32 copy of the whole would be 58 GB, and the plain attention holds
+     ~10 GB of fp32 scores a layer), with qwen3-4b's bf16 limit;
+  14. phase 4 for K=3 llava-next-mistral-7b clients at full width cut to 4
+     of 32 layers (1.14 B params a client; 8 would need ~72 GB before
+     activations), batch 4, public 2, seq 1280 behind the prefixes
+     ``LMClients`` draws: P + S = 4160 > 4096, so the window bites in the
+     flash backward too; 23,040 trained text tokens a round in 74,880
+     positions; round 1 is held against ``impl="ref"`` on a copy from the
+     same seed cut to 1 layer, K = 2, batch 1 (public 1), the window
+     still biting: the plain attention's fp32 scores for the population's
+     18 sequences would be ~40 GB a layer;
+  15. phase 3 for K=2 musicgen-medium clients at full width and depth (d
+     1536, 24/24 heads of 64, vocab 2048, 48 layers: 1.82 B params a
+     client) behind a 64-position conditioning prefix of dim 768; the
+     prefill parity on the whole population;
+  16. phase 4 for K=3 musicgen-medium clients at full width and depth
+     (5.46 B params, ~65 GB of params, gradients and AdamW moments), batch
+     4, public 2, seq 512, round 1 and the gradients held on the whole
+     population.
 jamba-1.5-large-398b does not run on the card: one full-width period (8
 layers, 4 MoE FFNs of 16 experts of width 24,576) holds ~44 B params, 88
 GB a client in bf16, and no depth cut goes below a period; the CPU tests
 hold it against the JAX package at its reduced config.
-Phases 3-7 and 10-12 hold the prefill logits and the per-client
+Phases 3-7 and 10-16 hold the prefill logits and the per-client
 gradients to the plain path by one parity rule (``_parity``): in fp32 on
 the same weights, and in bf16 against the bf16 plain path's own distance
 from fp32.
@@ -244,23 +276,53 @@ def _qkv(B, S, Hq, Hkv, hd, dtype, gen):
     return q, k, v
 
 
-def attention_bound_ms(B, S, Hq, Hkv, hd, dtype) -> tuple:
+def causal_pairs(S: int, window=None) -> float:
+    """Unmasked (query, key) pairs of causal self-attention over S
+    positions: S(S+1)/2, and with a window w each query sees at most w
+    keys (itself and the w - 1 before it)."""
+    if window is None or window >= S:
+        return S * (S + 1) / 2
+    return window * (window + 1) / 2 + (S - window) * window
+
+
+def attention_bound_ms(B, S, Hq, Hkv, hd, dtype, window=None) -> tuple:
     """The two lower bounds on causal self-attention over these inputs, in
-    ms: 4*hd flops per unmasked (query, key) pair, S*(S+1)/2 pairs per
+    ms: 4*hd flops per unmasked (query, key) pair (``causal_pairs``) per
     sequence and head, at the peak rate for the dtype; and q, k, v read once
     and out, lse written once at HBM bandwidth."""
-    flops = 4.0 * hd * B * Hq * S * (S + 1) / 2
+    flops = 4.0 * hd * B * Hq * causal_pairs(S, window)
     elt = torch.finfo(dtype).bits // 8
     nbytes = (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd) * elt \
         + B * Hq * S * 4
     return flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+# fp32 scores the plain attention may hold at once (it keeps about three
+# tensors of them, five under autograd); longer inputs run it in batch
+# slices, which give the same result: sequences are independent
+REF_SCORES = 4e9
+
+
+def _ref_rows(B, S, Hq) -> int:
+    """Sequences per slice of the plain attention over (B, S, Hq)."""
+    return max(1, min(B, int(REF_SCORES // (Hq * S * S * 4))))
+
+
+def _ref_lse(ref, q, k, v, causal, window):
+    """``ref.attention_lse`` over batch slices of ``_ref_rows``."""
+    n = _ref_rows(*q.shape[:3])
+    outs = [ref.attention_lse(q[i:i + n], k[i:i + n], v[i:i + n],
+                              causal=causal, window=window)
+            for i in range(0, q.shape[0], n)]
+    return (torch.cat([o for o, _ in outs]), torch.cat([lse for _, lse in
+                                                         outs]))
+
+
 def _check(flash_attention, ref, q, k, v, causal, window, tol, what):
     """Kernel vs ``ref.attention_lse`` on the same inputs; raises outside
     the tolerance, else returns (max |out err|, max |lse err|)."""
     out, lse = flash_attention(q, k, v, causal=causal, window=window)
-    want, want_lse = ref.attention_lse(q, k, v, causal=causal, window=window)
+    want, want_lse = _ref_lse(ref, q, k, v, causal, window)
     torch.cuda.synchronize()
     err = (out.float() - want.float()).abs().max().item()
     err_lse = (lse - want_lse).abs().max().item()
@@ -274,14 +336,17 @@ def _check(flash_attention, ref, q, k, v, causal, window, tol, what):
 
 
 def phase_flash_fwd(main_shape, admit_batch, admit_lens,
-                    train_shapes, more=()) -> dict:
+                    train_shapes, more=(), timed=()) -> dict:
     """Flash forward against ``ref.attention_lse`` on the card: a sweep of
     heads, lengths, windows and dtypes, and every shape the serving run of
     phase 3 gives the kernel -- K*B sequences of the generate and route
     prompts (``main_shape``) and ``admit_batch`` = K sequences of each
     admitted request length (``admit_lens``), bf16, causal -- and the
     training run's (``train_shapes``: (batch, S) pairs); ``more`` the other
-    paths' shapes as (batch, (Hq, Hkv, hd), S), bf16, causal."""
+    paths' shapes as (batch, (Hq, Hkv, hd), S, window), bf16, causal.
+    ``timed`` (batch, (Hq, Hkv, hd), S, window) are timed beside the
+    serving shape: against a bound over the unmasked pairs only and SDPA
+    with an explicit boolean mask where there is a window."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -301,7 +366,7 @@ def phase_flash_fwd(main_shape, admit_batch, admit_lens,
              for S in admit_lens]
     path += [(b, (Hq, Hkv, hd), S, None, bf16, True)
              for b, S in train_shapes]
-    path += [(b, heads, S, None, bf16, True) for b, heads, S in more]
+    path += [(b, heads, S, w, bf16, True) for b, heads, S, w in more]
     worst = {}
     for b, (hq, hkv, d), S, window, dtype, causal in cases + path:
         q, k, v = _qkv(b, S, hq, hkv, d, dtype, gen)
@@ -319,8 +384,9 @@ def phase_flash_fwd(main_shape, admit_batch, admit_lens,
               f"err| {el:.3g} (limit {t['lse']})")
     print(f"  of them at the serving path's shapes: B={B} S={S0}, and "
           f"B={admit_batch} S in {list(admit_lens)}; at the training "
-          f"path's: (B, S) in {list(train_shapes)}; at the MoE paths' "
-          f"(B, (Hq, Hkv, hd), S): {sorted(set(more))}")
+          f"path's: (B, S) in {list(train_shapes)}; at the other paths' "
+          f"(B, (Hq, Hkv, hd), S, window): "
+          f"{sorted(set(more), key=str)}")
 
     # time at the serving path's generate/route prefill shape, then at the
     # training path's shapes (16 launches a DML round there)
@@ -357,12 +423,74 @@ def phase_flash_fwd(main_shape, admit_batch, admit_lens,
         else:
             line += f"; bound {max(ops_ms, bytes_ms):.4f} ms"
         print(line)
+    for b, heads, S, window in timed:
+        _time_other_fwd(fa, b, heads, S, window, gen)
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:34",
             "launches": None, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def _sdpa_inputs(q, k, v, window):
+    """q, k, v in SDPA's (B, H, S, hd) layout with the kv heads repeated,
+    and the boolean mask of causal attention within ``window`` (None
+    without a window: SDPA's own causal flag then)."""
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    mask = None
+    if window is not None:
+        i = torch.arange(q.shape[1], device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    return qt, kt, vt, mask
+
+
+def _sdpa(qt, kt, vt, mask):
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if mask is None:
+        return sdpa(qt, kt, vt, is_causal=True)
+    return sdpa(qt, kt, vt, attn_mask=mask)
+
+
+def sdpa_backend(fn) -> str:
+    """The name of SDPA's kernel that ``fn()`` launches, from the profiler
+    (``flash``, ``efficient``/``mem_eff``, ``cudnn`` or the math path)."""
+    names = [n.lower() for n in device_busy(fn)]
+    for key, name in (("cudnn", "CUDNN_ATTENTION"),
+                      ("flash", "FLASH_ATTENTION"),
+                      ("fmha", "EFFICIENT_ATTENTION"),
+                      ("mem_eff", "EFFICIENT_ATTENTION"),
+                      ("efficient", "EFFICIENT_ATTENTION")):
+        if any(key in n for n in names):
+            return name
+    return "MATH"
+
+
+def _time_other_fwd(fa, b, heads, S, window, gen) -> None:
+    """The flash forward at another path's shape: its time through
+    ``flash_attention()`` against the bound over the unmasked pairs, and
+    SDPA's (with an explicit boolean mask where there is a window), its
+    backend named."""
+    Hq, Hkv, hd = heads
+    q, k, v = _qkv(b, S, Hq, Hkv, hd, BF16, gen)
+    t_ms = time_ms(lambda: fa.flash_attention(q, k, v, window=window))
+    ins = _sdpa_inputs(q, k, v, window)
+    lib_ms = time_ms(lambda: _sdpa(*ins), iters=5)
+    backend = sdpa_backend(lambda: _sdpa(*ins))
+    ops_ms, bytes_ms = attention_bound_ms(b, S, Hq, Hkv, hd, BF16, window)
+    bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+    print(f"flash_attention at (B={b}, S={S}, Hq={Hq}, Hkv={Hkv}, hd={hd}, "
+          f"window={window}) bf16: {t_ms:.4f} ms ({ops_ms * 989 / t_ms:.1f} "
+          f"TFLOP/s over the unmasked pairs); bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({causal_pairs(S, window):.0f} unmasked pairs a "
+          f"head); sdpa {backend}"
+          f"{' with a boolean mask' if window else ', is_causal'} "
+          f"{lib_ms:.4f} ms")
+    del q, k, v, ins
+    torch.cuda.empty_cache()
 
 
 def _bound(flops: float, nbytes: float, dtype) -> tuple:
@@ -380,23 +508,29 @@ def _grad_err(got, want, tol):
     return err, err <= tol * max(want.abs().max().item(), 1.0)
 
 
-def _flash_grads(fn, qkv, dout, Hq, Hkv, window):
+def _flash_grads(fn, qkv, dout, Hq, Hkv, window, rows=None):
     """Gradient of sum(out * dout) with respect to a fused (B, S,
     Hq + 2 Hkv, hd) QKV, through ``fn(q, k, v)`` on its strided slices:
-    the layout the training path hands the kernels."""
-    x = qkv.clone().requires_grad_(True)
-    out = fn(x[:, :, :Hq], x[:, :, Hq:Hq + Hkv], x[:, :, Hq + Hkv:],
-             window=window)[0]
-    (grad,) = torch.autograd.grad(out, x, dout)
-    return grad.float()
+    the layout the training path hands the kernels; with ``rows``, over
+    batch slices of that many sequences (the same gradient: sequences are
+    independent)."""
+    n = rows or qkv.shape[0]
+    grads = []
+    for i in range(0, qkv.shape[0], n):
+        x = qkv[i:i + n].clone().requires_grad_(True)
+        out = fn(x[:, :, :Hq], x[:, :, Hq:Hq + Hkv], x[:, :, Hq + Hkv:],
+                 window=window)[0]
+        grads.append(torch.autograd.grad(out, x, dout[i:i + n])[0].float())
+    return torch.cat(grads)
 
 
-def phase_flash_bwd(train_shape, train_shapes, more=()) -> dict:
+def phase_flash_bwd(train_shape, train_shapes, more=(), timed=()) -> dict:
     """Flash backward (dq, dk, dv) against autograd of ``ref.attention_lse``
     on the card: a sweep of heads, lengths, windows and dtypes, and every
     shape the training run of phase 4 gives it (``train_shapes``: (batch,
     S) pairs at the full width, bf16, causal), and ``more`` (batch, (Hq,
-    Hkv, hd), S) of the other training paths.  Tolerance: max |err| <=
+    Hkv, hd), S, window) of the other training paths; ``timed`` of these
+    are timed beside the row's shape.  Tolerance: max |err| <=
     tol * max(max |grad|, 1) for each of dq, dk, dv, tol 1e-4 in fp32
     (summation order) and 2e-2 in bf16 (the gradients are rounded to bf16
     once, and the plain version differentiates its fp32 softmax while the
@@ -412,7 +546,7 @@ def phase_flash_bwd(train_shape, train_shapes, more=()) -> dict:
              for window in (None, 256)
              for dtype in (torch.float32, BF16)]
     cases += [(b, (Hq, Hkv, hd), S, None, BF16) for b, S in train_shapes]
-    cases += [(b, heads, S, None, BF16) for b, heads, S in more]
+    cases += [(b, heads, S, w, BF16) for b, heads, S, w in more]
     worst, max_err = {}, None
     for b, (hq, hkv, d), S, window, dtype in cases:
         qkv = torch.randn(b, S, hq + 2 * hkv, d, device="cuda",
@@ -420,7 +554,8 @@ def phase_flash_bwd(train_shape, train_shapes, more=()) -> dict:
         dout = torch.randn(b, S, hq, d, device="cuda",
                            generator=gen).to(dtype)
         got = _flash_grads(fa.flash_attention, qkv, dout, hq, hkv, window)
-        want = _flash_grads(ref.attention_lse, qkv, dout, hq, hkv, window)
+        want = _flash_grads(ref.attention_lse, qkv, dout, hq, hkv, window,
+                            _ref_rows(b, S, hq) // 2 or 1)
         errs = []
         for sl in (slice(0, hq), slice(hq, hq + hkv), slice(hq + hkv, None)):
             err, ok = _grad_err(got[:, :, sl], want[:, :, sl], tol[dtype])
@@ -467,12 +602,8 @@ def phase_flash_bwd(train_shape, train_shapes, more=()) -> dict:
         with torch.no_grad():
             sdpa(*lib, is_causal=True)
     library_ms = time_ms(lib_fb) - time_ms(lib_f)
-    elt = 2
-    pairs = B0 * Hq * S0 * (S0 + 1) / 2
-    nbytes = (4 * B0 * S0 * Hq * hd + 4 * B0 * S0 * Hkv * hd) * elt \
-        + B0 * Hq * S0 * 4
-    bound_ms, bound_by = _bound(10.0 * hd * pairs, nbytes, BF16)
-    tflops = 10.0 * hd * pairs / ms / 1e9          # TFLOP/s
+    bound_ms, bound_by = _bwd_bound(B0, S0, Hq, Hkv, hd, None)
+    tflops = 10.0 * hd * B0 * Hq * causal_pairs(S0) / ms / 1e9  # TFLOP/s
     print(f"flash backward at (B={B0}, S={S0}, Hq={Hq}, Hkv={Hkv}, hd={hd}) "
           f"bf16: {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain (autograd of "
           f"ref, fwd+bwd - fwd) {plain_ms:.4f} ms, sdpa (library, fwd+bwd "
@@ -481,12 +612,58 @@ def phase_flash_bwd(train_shape, train_shapes, more=()) -> dict:
           f"(10 hd flops per unmasked pair / 989 TFLOP/s; q, k, v, out, "
           f"dout, lse read and dq, dk, dv written / 3.35 TB/s); max |err| "
           f"{max_err:.3g}")
+    del q, k, v, out, lse, dout, leaves, lib
+    for b, heads, S, window in timed:
+        _time_other_bwd(fa, b, heads, S, window, gen)
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:145",
             "launches": None, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def _bwd_bound(B, S, Hq, Hkv, hd, window) -> tuple:
+    """The flash backward's bound: 10 hd flops per unmasked pair at the
+    bf16 peak; q, k, v, out, dout, lse read and dq, dk, dv written."""
+    nbytes = (4 * B * S * Hq * hd + 4 * B * S * Hkv * hd) * 2 \
+        + B * Hq * S * 4
+    return _bound(10.0 * hd * B * Hq * causal_pairs(S, window), nbytes, BF16)
+
+
+def _time_other_bwd(fa, b, heads, S, window, gen) -> None:
+    """The flash backward's launch function at another path's shape
+    against ``_bwd_bound`` over the unmasked pairs, and SDPA's backward
+    (fwd+bwd - fwd, with an explicit boolean mask where there is a
+    window), its backend named."""
+    Hq, Hkv, hd = heads
+    q, k, v = _qkv(b, S, Hq, Hkv, hd, BF16, gen)
+    out, lse = fa._forward(q, k, v, True, window)
+    dout = torch.randn(out.shape, device="cuda", generator=gen).to(BF16)
+    ms = time_ms(lambda: fa._backward(q, k, v, out, lse, dout, True, window),
+                 iters=5)
+    *lib, mask = _sdpa_inputs(q, k, v, window)
+    lib = [t.detach().requires_grad_(True) for t in lib]
+    dout_t = dout.transpose(1, 2)
+
+    def lib_fb():
+        torch.autograd.grad(_sdpa(*lib, mask), lib, dout_t)
+
+    def lib_f():
+        with torch.no_grad():
+            _sdpa(*lib, mask)
+    lib_ms = time_ms(lib_fb, iters=5) - time_ms(lib_f, iters=5)
+    backend = sdpa_backend(lib_fb)
+    bound_ms, bound_by = _bwd_bound(b, S, Hq, Hkv, hd, window)
+    flops = 10.0 * hd * b * Hq * causal_pairs(S, window)
+    print(f"flash backward at (B={b}, S={S}, Hq={Hq}, Hkv={Hkv}, hd={hd}, "
+          f"window={window}) bf16: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s over the unmasked pairs); bound {bound_ms:.4f} ms by "
+          f"{bound_by}; sdpa {backend} backward"
+          f"{' with a boolean mask' if window else ', is_causal'} "
+          f"(fwd+bwd - fwd) {lib_ms:.4f} ms")
+    del q, k, v, out, lse, dout, lib, mask
+    torch.cuda.empty_cache()
 
 
 def _kl_ops(Kl, Kg, B, V, square: bool = False) -> float:
@@ -1193,21 +1370,23 @@ def _print_top(by_name, per: float, unit: str, n: int = 6) -> None:
 
 
 def profile_decode(eng, prompts, step_secs: float, ttft_secs: float,
-                   steps: int = 8) -> None:
+                   steps: int = 8, prefix=None) -> None:
     """Device time under ``torch.profiler`` of the first token (a generate
     of one token: the prefill and its sample) against its unprofiled wall
     time ``ttft_secs``, and of the decode loop: the kernels of ``steps``
     decode steps (a generate of ``steps`` minus one of a single step),
     their busy time per step against the unprofiled wall time per step
-    ``step_secs``, and the kernels that take most of each."""
-    first = device_busy(lambda: eng.generate(prompts, 1))
+    ``step_secs``, and the kernels that take most of each.  ``prefix``
+    goes to every generate."""
+    first = device_busy(lambda: eng.generate(prompts, 1, prefix=prefix))
     first_us = sum(us for us, _ in first.values())
     print(f"time to first token: {ttft_secs * 1e3:.1f} ms wall "
           f"(unprofiled), {first_us / 1e3:.2f} ms device busy in "
           f"{sum(cnt for _, cnt in first.values())} kernels (profiled) -> "
           f"device idle {1 - first_us / 1e6 / ttft_secs:.1%}")
     _print_top(first, 1, "call", 4)
-    by_name = device_busy(lambda: eng.generate(prompts, 1 + steps))
+    by_name = device_busy(lambda: eng.generate(prompts, 1 + steps,
+                                               prefix=prefix))
     for name, (us, cnt) in first.items():
         us0, cnt0 = by_name.get(name, (0.0, 0))
         by_name[name] = (us0 - us, cnt0 - cnt)
@@ -1219,22 +1398,26 @@ def profile_decode(eng, prompts, step_secs: float, ttft_secs: float,
     _print_top(by_name, steps, "step")
 
 
-def make_requests(vocab_size: int, n: int = 6, seed: int = 0,
-                  moe: bool = False) -> list:
-    """``n`` (prompt, max_new) requests of 64-1024 prompt tokens and 16-64
-    new ones, for continuous batching.  With ``moe`` a length past 256 is
-    cut down to a multiple of 256: an MoE FFN routes a prompt in groups of
-    min(256, S) tokens that must tile it (``models/moe.py``, as
-    ``repro/models/moe.py:68`` asserts and the JAX engine's prefill at the
-    request's own length requires)."""
+def make_requests(cfg, n: int = 6, seed: int = 0) -> list:
+    """``n`` (prompt, max_new, prefix) requests of 64-1024 prompt tokens
+    and 16-64 new ones, for continuous batching; each request of a
+    prefix-token arch has its own (P, prefix_dim) prefix, drawn as the
+    serving CLI draws one, else None.  For
+    an MoE arch a length past 256 is cut down to a multiple of 256: an MoE
+    FFN routes a prompt in groups of min(256, S) tokens that must tile it
+    (``models/moe.py``, as ``repro/models/moe.py:68`` asserts and the JAX
+    engine's prefill at the request's own length requires)."""
+    from repro_torch.launch.serve import _random_prefix
     rng = np.random.default_rng(seed)
     reqs = []
-    for _ in range(n):
+    for i in range(n):
         s0 = int(rng.integers(64, 1025))
-        if moe and s0 > 256:
+        if cfg.moe and s0 > 256:
             s0 -= s0 % 256
-        reqs.append((rng.integers(0, vocab_size, (s0,)).astype(np.int32),
-                     int(rng.integers(16, 65))))
+        prefix = _random_prefix(cfg, 1, seed + 1 + i)
+        reqs.append((rng.integers(0, cfg.vocab_size, (s0,)).astype(np.int32),
+                     int(rng.integers(16, 65)),
+                     None if prefix is None else prefix[0]))
     return reqs
 
 
@@ -1306,17 +1489,19 @@ def _first_layers(params, cfg, n_layers: int):
     return out, cut
 
 
-def _prefill_parity(cfg, params, ids, kw, bf16_limit) -> None:
+def _prefill_parity(cfg, params, ids, kw, bf16_limit, prefix=None) -> None:
     """The parity rule on the engine's prefill last-token logits of
-    ``params`` (bf16): engines at impl "cuda" and "ref" on them and on an
-    fp32 copy.  For MoE layers, also the tokens per layer whose kept
-    experts differ between the two impls, and the largest |logit|."""
+    ``params`` (bf16) on ``ids`` behind ``prefix`` (None without one):
+    engines at impl "cuda" and "ref" on them and on an fp32 copy.  For MoE
+    layers, also the tokens per layer whose kept experts differ between
+    the two impls, and the largest |logit|."""
     from repro_torch.serve import ServeEngine
     from repro_torch.tree import tree_map
 
     def prefill(c, p, impl):
         eng = ServeEngine(c, p, mode="average", impl=impl, **kw)
-        return _logged_routes(c, lambda: eng._prefill(ids)[0].float())
+        return _logged_routes(c, lambda: eng._prefill(
+            ids, eng._prefix(prefix))[0].float())
 
     (kernel_bf16, r16), (plain_bf16, p16) = (prefill(cfg, params, impl)
                                              for impl in ("cuda", "ref"))
@@ -1340,15 +1525,18 @@ def _prefill_parity(cfg, params, ids, kw, bf16_limit) -> None:
 def phase_serve(card: str, cfg, reqs, kernel, K: int = 2, B: int = 2,
                 S0: int = 512, gen: int = 32,
                 bf16_limit: float | None = 2e-2,
-                parity_layers: int | None = None) -> dict:
+                parity_layers: int | None = None, prefix=None) -> dict:
     """The port's serving path at the full width and depth of ``cfg``.
     ``kernel`` = (name, module): the mixer kernel whose module counter
     ``launches`` must show that every prefill and router call ran through
-    it.  The prefill is held against an ``impl="ref"`` engine on the same
-    weights by the parity rule (``_parity``): on the whole population, or
-    with ``parity_layers`` on a copy of its first layers (every client),
-    made after the population is freed, where an fp32 copy of the whole
-    would not fit.  Returns the launch count over the served requests."""
+    it.  ``reqs`` are ``make_requests``'s; a prefix-token arch serves its
+    B prompts of S0 behind ``prefix`` (B, P, prefix_dim) and each request
+    behind its own, and its arena holds P positions more.  The prefill is
+    held against an ``impl="ref"`` engine on the same weights by the
+    parity rule (``_parity``): on the whole population, or with
+    ``parity_layers`` on a copy of its first layers (every client), made
+    after the population is freed, where an fp32 copy of the whole would
+    not fit.  Returns the launch count over the served requests."""
     from repro_torch.data.synthetic import make_token_stream
     from repro_torch.models import transformer as tfm
     from repro_torch.serve import ServeEngine
@@ -1361,21 +1549,30 @@ def phase_serve(card: str, cfg, reqs, kernel, K: int = 2, B: int = 2,
     print(f"init {K} x {cfg.name} clients (seeded random weights): "
           f"{n / 1e9:.3f} B params each, {gb:.1f} GB on the card, "
           f"{secs:.1f} s")
-    max_seq = 1152
+    P = cfg.prefix_tokens
+    max_seq = P + max(1152, S0 + gen)
     kw = dict(slots=4, max_seq=max_seq)
     avg = ServeEngine(cfg, params, mode="average", **kw)
     route = ServeEngine(cfg, params, mode="route", **kw)
     prompts = make_token_stream(B, S0, cfg.vocab_size, seed=0)
+    if P:
+        ring = min(cfg.sliding_window or max_seq, max_seq)
+        print(f"prefix of {P} positions of dim {cfg.prefix_dim} before each "
+              f"prompt: generate at {P + S0} positions + {gen} new; arena "
+              f"of {max_seq} positions, a ring of {ring} keys a layer"
+              f"{' (the window bites: decode wraps the ring)' if P + S0 + gen > ring else ''}")
 
     name, mod = kernel
     mod.launches = 0                   # the main path starts here
-    (toks, lg), warm = _timed(lambda: avg.generate(prompts, gen,
-                                                   return_logits=True))
-    steady_toks, steady = _timed(lambda: avg.generate(prompts, gen))
-    _, ttft = _timed(lambda: avg.generate(prompts, 1))
-    rids = [avg.submit(p, n_new) for p, n_new in reqs]
+    (toks, lg), warm = _timed(lambda: avg.generate(
+        prompts, gen, prefix=prefix, return_logits=True))
+    steady_toks, steady = _timed(lambda: avg.generate(prompts, gen,
+                                                      prefix=prefix))
+    _, ttft = _timed(lambda: avg.generate(prompts, 1, prefix=prefix))
+    rids = [avg.submit(p, n_new, prefix=pe) for p, n_new, pe in reqs]
     done, cb_secs = _timed(avg.run)
-    rtoks, route_secs = _timed(lambda: route.generate(prompts, 16))
+    rtoks, route_secs = _timed(lambda: route.generate(prompts, 16,
+                                                      prefix=prefix))
     launches = mod.launches            # ... and ends here
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -1397,11 +1594,11 @@ def phase_serve(card: str, cfg, reqs, kernel, K: int = 2, B: int = 2,
     print(f"largest |logit| of the greedy generate: {np.abs(lg).max():.4g}")
     if not np.array_equal(toks, steady_toks):
         raise AssertionError("greedy generate is not repeatable")
-    if sorted(len(done[r]) for r in rids) != sorted(n for _, n in reqs):
+    if sorted(len(done[r]) for r in rids) != sorted(n for _, n, _ in reqs):
         raise AssertionError("continuous batching lost tokens")
 
     step = (steady - ttft) / (gen - 1)
-    profile_decode(avg, prompts, step, ttft)
+    profile_decode(avg, prompts, step, ttft, prefix=prefix)
     n_cb = sum(len(done[r]) for r in rids)
     print(f"serve {cfg.name} on {card}: average K={K} B={B} prompt {S0}: "
           f"warmup "
@@ -1426,7 +1623,7 @@ def phase_serve(card: str, cfg, reqs, kernel, K: int = 2, B: int = 2,
     ids = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
     print(f"prefill parity, engine impl=cuda vs engine impl=ref on {what} "
           f"(relative norm errors):")
-    _prefill_parity(cfg, params, ids, kw, bf16_limit)
+    _prefill_parity(cfg, params, ids, kw, bf16_limit, prefix)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1452,24 +1649,35 @@ def _fmt(xs, spec: str = ".5f") -> str:
     return "[" + ", ".join(f"{x:{spec}}" for x in xs) + "]"
 
 
-def _grad_parity(cfg, K: int, tokens, pub, g_kernel_bf16, g_plain_bf16,
+def _round0_inputs(pop) -> dict:
+    """Round 0's DML inputs as the population draws them: the private and
+    public batches and, for a prefix-token arch, their prefixes (None
+    without), keyed as ``dml_total_loss`` takes them."""
+    pub = pop._public_batch(0)
+    return {"tokens": pop._private_batch(0), "public_tokens": pub,
+            "prefix": pop._private_prefix(0),
+            "public_prefix": pop._prefix(10_000, pub.shape[0])}
+
+
+def _grad_parity(cfg, K: int, inputs, g_kernel_bf16, g_plain_bf16,
                  bf16_limit, loss_kw) -> None:
-    """The parity rule on each client's gradient of round 1's loss, by
-    relative norm: ``g_kernel_bf16`` and ``g_plain_bf16`` (on the host)
-    come from the bf16 population at impl "cuda" and "ref"; the fp32
-    gradients run here.  ``loss_kw`` (SparseDML's ``sparse_k`` and
-    ``received`` sets) goes to every gradient's loss alike."""
+    """The parity rule on each client's gradient of round 1's loss on
+    ``inputs`` (``_round0_inputs``), by relative norm: ``g_kernel_bf16``
+    and ``g_plain_bf16`` (on the host) come from the bf16 population at
+    impl "cuda" and "ref"; the fp32 gradients run here.  ``loss_kw``
+    (SparseDML's ``sparse_k`` and ``received`` sets) goes to every
+    gradient's loss alike."""
     from repro_torch.core import distributed as D
     from repro_torch.tree import tree_map
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
     p32 = tree_map(lambda t: t.float(),
                    D.stacked_init(0, cfg, K, device="cuda"))
-    _, _, g = D.value_and_grad(D.dml_total_loss, p32, cfg32, tokens, pub,
+    _, _, g = D.value_and_grad(D.dml_total_loss, p32, cfg32, **inputs,
                                impl="cuda", **loss_kw)
     g_kernel32 = tree_map(lambda t: t.cpu(), g)
     del g
-    _, _, g_plain32 = D.value_and_grad(D.dml_total_loss, p32, cfg32, tokens,
-                                       pub, impl="ref", **loss_kw)
+    _, _, g_plain32 = D.value_and_grad(D.dml_total_loss, p32, cfg32,
+                                       **inputs, impl="ref", **loss_kw)
     del p32
     e32 = _client_grad_errors(g_kernel32, g_plain32, K)
     floor = _client_grad_errors(g_plain_bf16, g_plain32, K)
@@ -1481,29 +1689,104 @@ def _grad_parity(cfg, K: int, tokens, pub, g_kernel_bf16, g_plain_bf16,
             _client_grad_errors(g_kernel_bf16, g_plain_bf16, K), bf16_limit)
 
 
+def _round1_parity(population, cfg, K: int, strategy, bf16_limit, loss_kw,
+                   first=None, g_cuda=None, routes=None) -> None:
+    """Round 1 at ``impl="ref"`` against the same round through the
+    kernels, from the same seeded weights and batches: each client's
+    private_loss, public_ce and kld_avg within relative error 2e-2 (plus
+    1e-3 absolute on kld_avg), and its gradient of the round's total loss
+    by the parity rule (``_parity``).  ``population(impl)`` makes the
+    population of ``cfg`` and K clients; ``first`` (round 1's log) and
+    ``g_cuda`` (its gradient on the host, and the MoE ``routes`` it took)
+    come from the main run when it is this population, else they are made
+    here at impl "cuda"."""
+    from repro_torch.api import Federation
+    from repro_torch.core import distributed as D
+    from repro_torch.tree import tree_map
+
+    def grads(pop, impl):
+        (_, _, g), routes = _logged_routes(cfg, lambda: D.value_and_grad(
+            D.dml_total_loss, pop.client_params, cfg, **inputs, impl=impl,
+            **loss_kw))
+        return tree_map(lambda t: t.cpu(), g), routes
+
+    if first is None:
+        pop = population(None)
+        inputs = _round0_inputs(pop)
+        g_cuda, routes = grads(pop, "cuda")
+        first = Federation(pop, strategy).run(until=1).rounds[0]
+        print(f"round 1 at impl=cuda: private_loss {_fmt(first.client_loss)}"
+              f" public_ce {_fmt(first.public_ce)} kld_avg "
+              f"{_fmt(first.kl_loss)}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        del pop
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pop = population("ref")
+    inputs = _round0_inputs(pop)
+    g_ref, ref_routes = grads(pop, "ref")
+    if cfg.moe and routes is not None:
+        print(f"routes of round 1's gradient: tokens whose kept experts "
+              f"differ between impl=cuda and impl=ref, per MoE call in "
+              f"call order (forwards, then the recomputes of remat) "
+              f"{_route_flips(routes, ref_routes, cfg.moe.n_experts)}"
+              f" of {inputs['tokens'].numel()} and "
+              f"{K * inputs['public_tokens'].numel()}")
+    ref_first = Federation(pop, strategy).run(until=1).rounds[0]
+    print(f"round 1 at impl=ref: private_loss {_fmt(ref_first.client_loss)} "
+          f"public_ce {_fmt(ref_first.public_ce)} kld_avg "
+          f"{_fmt(ref_first.kl_loss)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    rel = lambda a, b: abs(a - b) / abs(b)                  # noqa: E731
+    worst = {
+        "private_loss": max(map(rel, first.client_loss,
+                                ref_first.client_loss)),
+        "public_ce": max(map(rel, first.public_ce, ref_first.public_ce)),
+        # |a - b| <= 2e-2 |b| + 1e-3  <=>  |a - b| / (|b| + 0.05) <= 2e-2
+        "kld_avg": max(abs(a - b) / (abs(b) + 0.05) for a, b in
+                       zip(first.kl_loss, ref_first.kl_loss))}
+    print(f"round 1, impl=cuda vs impl=ref: worst relative error {worst} "
+          f"(limit 2e-2; kld_avg within 2e-2 |ref| + 1e-3)")
+    if not all(v <= 2e-2 for v in worst.values()):
+        raise AssertionError("the training round disagrees with the plain "
+                             "path")
+    del pop
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _grad_parity(cfg, K, inputs, g_cuda, g_ref, bf16_limit, loss_kw)
+    del g_ref, g_cuda
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
                 rounds: int = 3, bf16_limit: float | None = 2e-2,
-                strategy=None, eq2=None) -> dict:
+                strategy=None, eq2=None, check=None) -> dict:
     """The port's training path: ``Federation(LMClients(cfg, K), strategy)``
     (``DML()`` by default) at the full width of ``cfg`` (depth as given),
     ``rounds`` fused rounds through the kernels, then Eq. 2 of the final
     public logits: through ``mutual_kl``, or for SparseDML through the
-    sparse-KL forward against the clients' top-k sets.  ``mixer`` and
+    sparse-KL forward against the clients' top-k sets.  A prefix-token
+    arch trains behind the prefixes ``LMClients`` draws, and its Eq.-2
+    term and readout read the token positions only.  ``mixer`` and
     ``eq2`` = (forward name, backward name, module): the mixer kernels and,
     for SparseDML, the sparse-KL kernels, counted by the module's
     ``launches`` and ``bwd_launches``.  A DML run's Eq.-2 terms and readout
     must all run the square forward (fixed is live: the pair KL's
     ``square_launches``) and its terms the square backward
     (``square_bwd_launches``), never a pair kernel; a SparseDML run must
-    launch no pair-KL kernel.  Then round 1 again at ``impl="ref"`` from the same
-    seeded weights and batches: each client's private_loss, public_ce and
-    kld_avg within relative error 2e-2 (plus 1e-3 absolute on kld_avg),
-    and its gradient of the round's total loss by the parity rule
-    (``_parity``).  The two impls' bf16 logits differ in rounding, so their
-    top-k sets can differ at near-ties: the SparseDML round 1 of each impl
-    shares its own sets, but every gradient of the parity runs on one
-    (idx, logp) computed once, from the kernel path's logits.  Returns the
-    kernels' launch counts over the training run."""
+    launch no pair-KL kernel.  Then round 1 is held against the same round
+    at ``impl="ref"`` (``_round1_parity``): on this population, or with
+    ``check`` = (n_layers, K, B) on a smaller copy from the same seed at
+    the same width and sequence length, where the plain attention's
+    scores over the whole population would not fit.  The two impls' bf16
+    logits differ in rounding, so their top-k sets can differ at
+    near-ties: the SparseDML round 1 of each impl shares its own sets, but
+    every gradient of the parity runs on one (idx, logp) computed once,
+    from the kernel path's logits.  Returns the kernels' launch counts over
+    the training run."""
     from repro_torch.api import DML, Federation, LMClients
     from repro_torch.core import distributed as D
     from repro_torch.configs import get_config
@@ -1518,9 +1801,17 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
     strategy = strategy or DML()
     sparse_k = strategy.sparse_k
 
-    def population(impl):
-        return LMClients(cfg, n_clients=K, rounds=rounds, batch=B, seq=S,
+    def population(impl, c=cfg, k=K, b=B):
+        return LMClients(c, n_clients=k, rounds=rounds, batch=b, seq=S,
                          seed=0, kernel_impl=impl)
+
+    def public_logits(pop, inputs):
+        """The token positions' public logits (K, B_pub * S, V)."""
+        with torch.no_grad():
+            return D._public_ce_and_logits(
+                pop.client_params, cfg, inputs["public_tokens"],
+                inputs["public_prefix"], False, pop.impl)[1].reshape(
+                    K, -1, cfg.vocab_size)
 
     torch.cuda.reset_peak_memory_stats()
     pop, secs = _timed(lambda: population(None))
@@ -1532,19 +1823,18 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
           f"full width (seeded random weights): {n / 1e9:.3f} B params "
           f"each, {state_gb:.1f} GB of params and AdamW moments on the card, "
           f"{secs:.1f} s; kernels impl={pop.impl}")
-    tokens0, pub0 = pop._private_batch(0), pop._public_batch(0)
+    inputs = _round0_inputs(pop)
     received = None
     if sparse_k:                  # one (idx, logp) for every gradient below
-        with torch.no_grad():
-            received = topk_predictions(tfm.forward_clients(
-                pop.client_params, cfg, pub0, impl=pop.impl).reshape(
-                    K, -1, cfg.vocab_size), sparse_k)
+        received = topk_predictions(public_logits(pop, inputs), sparse_k)
     loss_kw = {"sparse_k": sparse_k, "received": received}
-    (_, _, grads), routes = _logged_routes(cfg, lambda: D.value_and_grad(
-        D.dml_total_loss, pop.client_params, cfg, tokens0, pub0,
-        impl=pop.impl, **loss_kw))
-    g_cuda = tree_map(lambda t: t.cpu(), grads)
-    del grads
+    g_cuda = routes = None
+    if check is None:             # the parity's kernel gradient, this state
+        (_, _, grads), routes = _logged_routes(cfg, lambda: D.value_and_grad(
+            D.dml_total_loss, pop.client_params, cfg, **inputs,
+            impl=pop.impl, **loss_kw))
+        g_cuda = tree_map(lambda t: t.cpu(), grads)
+        del grads
 
     fed = Federation(pop, strategy)
     fwd_name, bwd_name, mod = mixer
@@ -1555,6 +1845,7 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
     klm.square_launches = klm.pair_launches = 0
     klm.square_bwd_launches = klm.pair_bwd_launches = 0
     tokens = K * (B + max(1, B // 2)) * S
+    positions = K * (B + max(1, B // 2)) * (cfg.prefix_tokens + S)
     walls = []
     for r in range(rounds):
         torch.cuda.reset_peak_memory_stats()
@@ -1573,11 +1864,10 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
               f"{_fmt(rl.client_loss)} public_ce {_fmt(rl.public_ce)} "
               f"kld_avg {_fmt(rl.kl_loss)}; peak memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    last = {"public_tokens": pop._public_batch(rounds - 1),
+            "public_prefix": pop._prefix(10_000 + rounds - 1, max(1, B // 2))}
+    flat = public_logits(pop, last)
     with torch.no_grad():
-        pub = pop._public_batch(rounds - 1)
-        logits = tfm.forward_clients(pop.client_params, cfg, pub,
-                                     impl=pop.impl)
-        flat = logits.reshape(K, -1, cfg.vocab_size)
         if sparse_k:
             readout = ops.sparse_mutual_kl(
                 flat, *topk_predictions(flat, sparse_k),
@@ -1615,7 +1905,7 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
                          or klm.square_bwd_launches != rounds):
         raise AssertionError("a DML round's Eq.-2 term left the square "
                              "kernels")
-    if readout.shape != (K, pub.numel()) or \
+    if readout.shape != (K, last["public_tokens"].numel()) or \
             not bool(torch.isfinite(readout).all()) or \
             float(readout.min()) < -1e-3:
         raise AssertionError(f"bad Eq.-2 readout {tuple(readout.shape)}")
@@ -1629,7 +1919,8 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
           f"per-client mean {_fmt(readout.mean(1))}")
     if cfg.moe:
         with torch.no_grad():
-            _, m = tfm.loss_fn_clients(pop.client_params, cfg, tokens0,
+            _, m = tfm.loss_fn_clients(pop.client_params, cfg,
+                                       inputs["tokens"], inputs["prefix"],
                                        impl=pop.impl)
         print(f"after {rounds} rounds, on round 0's private batch: "
               f"load_balance {_fmt(m['load_balance'], '.6f')} router_z "
@@ -1637,21 +1928,25 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
     busy_us = sum(us for us, _ in by_name.values())
     n_kernels = sum(cnt for _, cnt in by_name.values())
     steady = walls[-1]
+    behind = (f"; {positions} positions with the prefixes, "
+              f"{positions / steady:.0f} a second"
+              if cfg.prefix_tokens else "")
     print(f"train round on {card}: {steady:.3f} s wall (round {rounds - 2}, "
           f"unprofiled) = {tokens / steady:.0f} trained tok/s "
-          f"(K*(B + B_pub)*S = {tokens} tokens a round); round "
+          f"(K*(B + B_pub)*S = {tokens} text tokens a round{behind}); round "
           f"{rounds - 1}: {busy_us / 1e3:.1f} ms device busy in {n_kernels} "
           f"kernels (profiled) -> device idle {1 - busy_us / 1e6 / steady:.1%}")
     _print_top(by_name, 1, "round", n=8)
     # the round's two halves timed apart, on a fourth update
     (_, _, grads), grad_secs = _timed(lambda: D.value_and_grad(
-        D.dml_total_loss, pop.client_params, cfg, tokens0, pub0,
-        impl=pop.impl, sparse_k=sparse_k))
+        D.dml_total_loss, pop.client_params, cfg, **inputs, impl=pop.impl,
+        sparse_k=sparse_k))
     _, opt_secs = _timed(lambda: adamw_update(        # keep only metrics
         pop.client_params, grads, pop.client_opts, pop.opt_cfg)[2])
     print(f"round breakdown (a fourth update, host clock around "
           f"synchronised work): loss, forward and backward {grad_secs:.3f} "
-          f"s; AdamW with the global-norm clip {opt_secs:.3f} s")
+          f"s; AdamW with the global-norm clip {opt_secs:.3f} s; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     if sparse_k:
         topk_ms = time_ms(lambda: topk_predictions(flat, sparse_k), iters=5)
         print(f"  of it, the top-{sparse_k} payload of the public logits "
@@ -1659,50 +1954,23 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
               f"{topk_ms:.3f} ms")
     del grads
     first = hist[0]
-    del fed, pop, logits, flat, readout
+    del fed, pop, flat, readout, inputs, last
     gc.collect()
     torch.cuda.empty_cache()
 
-    # round 1 again through the plain versions, from the same weights
-    torch.cuda.reset_peak_memory_stats()
-    pop = population("ref")
-    (_, _, grads), ref_routes = _logged_routes(cfg, lambda: D.value_and_grad(
-        D.dml_total_loss, pop.client_params, cfg, tokens0, pub0, impl="ref",
-        **loss_kw))
-    g_ref = tree_map(lambda t: t.cpu(), grads)
-    if cfg.moe:
-        print(f"routes of round 1's gradient: tokens whose kept experts "
-              f"differ between impl=cuda and impl=ref, per MoE call in "
-              f"call order (forwards, then the recomputes of remat) "
-              f"{_route_flips(routes, ref_routes, cfg.moe.n_experts)}"
-              f" of {tokens0.numel()} and {K * pub0.numel()}")
-    del grads
-    ref_first = Federation(pop, strategy).run(until=1).rounds[0]
-    print(f"round 1 at impl=ref: private_loss {_fmt(ref_first.client_loss)} "
-          f"public_ce {_fmt(ref_first.public_ce)} kld_avg "
-          f"{_fmt(ref_first.kl_loss)}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-    rel = lambda a, b: abs(a - b) / abs(b)                  # noqa: E731
-    worst = {
-        "private_loss": max(map(rel, first.client_loss,
-                                ref_first.client_loss)),
-        "public_ce": max(map(rel, first.public_ce, ref_first.public_ce)),
-        # |a - b| <= 2e-2 |b| + 1e-3  <=>  |a - b| / (|b| + 0.05) <= 2e-2
-        "kld_avg": max(abs(a - b) / (abs(b) + 0.05) for a, b in
-                       zip(first.kl_loss, ref_first.kl_loss))}
-    print(f"round 1, impl=cuda vs impl=ref: worst relative error {worst} "
-          f"(limit 2e-2; kld_avg within 2e-2 |ref| + 1e-3)")
-    if not all(v <= 2e-2 for v in worst.values()):
-        raise AssertionError("the training round disagrees with the plain "
-                             "path")
-    del pop
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    _grad_parity(cfg, K, tokens0, pub0, g_cuda, g_ref, bf16_limit, loss_kw)
-    del g_ref, g_cuda
-    gc.collect()
-    torch.cuda.empty_cache()
+    if check is None:
+        _round1_parity(population, cfg, K, strategy, bf16_limit, loss_kw,
+                       first, g_cuda, routes)
+    else:
+        n_layers, ck, cb = check
+        ccfg = cfg.replace(n_layers=n_layers)
+        print(f"round 1 parity on a copy of {ck} x {cfg.name} clients cut "
+              f"to {n_layers} layers, batch {cb} (public "
+              f"{max(1, cb // 2)}), seq {S}, from the same seed: the plain "
+              f"attention's fp32 scores over the whole population's "
+              f"{K * (B + max(1, B // 2))} sequences would not fit")
+        _round1_parity(lambda impl: population(impl, ccfg, ck, cb), ccfg,
+                       ck, strategy, bf16_limit, loss_kw)
     return counts
 
 
@@ -2051,31 +2319,68 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import sparse_kl, ssd_scan
+    from repro_torch.launch.serve import _random_prefix
     cfg = get_config("qwen3-4b")
     tcfg = cfg.replace(n_layers=4)     # full width; depth cut to fit K=3
     K, B, S0 = 2, 2, 512
     TK, TB, TS = 3, 4, 512             # the qwen3-4b training run
     train_shapes = [(TK * TB, TS), (TK * max(1, TB // 2), TS)]
     heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
-    reqs = make_requests(cfg.vocab_size)
+    reqs = make_requests(cfg)
     mcfg = get_config("mamba2-780m")   # full width and depth
     MK, MB, MS0 = 2, 2, 1024           # mamba2 serving: 4 chunks a prompt
     MTK, MTB, MTS = 3, 4, 1024         # the mamba2 training run
-    mreqs = make_requests(mcfg.vocab_size)
+    mreqs = make_requests(mcfg)
     qcfg = get_config("qwen2-moe-a2.7b")   # full width and depth: serving
     QK, QB, QS0 = 2, 2, 512
     qtcfg = qcfg.replace(n_layers=1)   # training: K = 3 fits at 1 of 24
     QTK, QTB, QTS = 3, 4, 512
-    qreqs = make_requests(qcfg.vocab_size, moe=True)
+    qreqs = make_requests(qcfg)
     # dbrx: two clients of 4 of its 40 layers hold 57 GB in bf16
     dcfg = get_config("dbrx-132b").replace(n_layers=4)
-    dreqs = make_requests(dcfg.vocab_size, moe=True)
-    qheads = (qcfg.n_heads, qcfg.n_kv_heads, qcfg.head_dim_)
-    dheads = (dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim_)
-    qtrain = [(b, qheads, QTS) for b in (QTK * QTB, QTK * max(1, QTB // 2))]
-    moe_flash = ([(QK * QB, qheads, QS0), (2 * 2, dheads, 512)] + qtrain
-                 + [(QK, qheads, n) for n in {len(p) for p, _ in qreqs}]
-                 + [(2, dheads, n) for n in {len(p) for p, _ in dreqs}])
+    dreqs = make_requests(dcfg)
+    # llava-next: serving at full width and depth (K = 2, 29 GB) on prompts
+    # of 1536 behind the 2880-position image prefix, past the 4096 window;
+    # training at 4 of 32 layers (K = 3), seq 1280: P + S = 4160 > 4096
+    lcfg = get_config("llava-next-mistral-7b")
+    LK, LB, LS0 = 2, 2, 1536
+    ltcfg = lcfg.replace(n_layers=4)
+    LTK, LTB, LTS = 3, 4, 1280
+    lcheck = (1, 2, 1)                 # its round-1 parity: 1 layer, K 2, B 1
+    lreqs = make_requests(lcfg)
+    # musicgen-medium: full width and depth, serving (K = 2) and training
+    # (K = 3), behind the 64-position conditioning prefix
+    gcfg = get_config("musicgen-medium")
+    GK, GB, GS0 = 2, 2, 512
+    GTK, GTB, GTS = 3, 4, 512
+    greqs = make_requests(gcfg)
+
+    def shapes(c):
+        return (c.n_heads, c.n_kv_heads, c.head_dim_)
+
+    def serve_flash(c, k, b, s0, rq):
+        """The flash forward's shapes on a serving path: the generate and
+        route prefill, and each admitted request's."""
+        P, w = c.prefix_tokens, c.sliding_window
+        return ([(k * b, shapes(c), P + s0, w)]
+                + [(k, shapes(c), P + n, w) for n in {len(p) for p, _, _ in
+                                                      rq}])
+
+    def train_flash(c, k, b, s):
+        """The flash pair's shapes on a training path: private, public."""
+        return [(k * n, shapes(c), c.prefix_tokens + s, c.sliding_window)
+                for n in (b, max(1, b // 2))]
+
+    qtrain = train_flash(qcfg, QTK, QTB, QTS)
+    ltrain = (train_flash(lcfg, LTK, LTB, LTS)
+              + train_flash(lcfg, lcheck[1], lcheck[2], LTS))
+    gtrain = train_flash(gcfg, GTK, GTB, GTS)
+    more_fwd = (serve_flash(qcfg, QK, QB, QS0, qreqs) + qtrain
+                + serve_flash(dcfg, 2, 2, 512, dreqs)
+                + serve_flash(lcfg, LK, LB, LS0, lreqs) + ltrain
+                + serve_flash(gcfg, GK, GB, GS0, greqs) + gtrain)
+    timed_fwd = (serve_flash(lcfg, LK, LB, LS0, lreqs)[:1] + ltrain[:1]
+                 + serve_flash(gcfg, GK, GB, GS0, greqs)[:1] + gtrain[:1])
     s = mcfg.ssm
     nh, P, G, N = s.n_heads(mcfg.d_model), s.head_dim, s.n_groups, s.d_state
     # the scan sees the K clients as K * nh heads in K * G groups
@@ -2083,16 +2388,20 @@ def main() -> int:
                  for b in (MTB, max(1, MTB // 2))]
     ssd_serve = [(MB, MS0, MK * nh, P, MK * G, N)]
     ssd_serve += [(1, n, MK * nh, P, MK * G, N)
-                  for n in sorted({len(p) for p, _ in mreqs})]
+                  for n in sorted({len(p) for p, _, _ in mreqs})]
 
     kernels = [phase_flash_fwd((K * B, S0) + heads, K,
-                               sorted({len(p) for p, _ in reqs}),
-                               train_shapes, moe_flash),
+                               sorted({len(p) for p, _, _ in reqs}),
+                               train_shapes, more_fwd, timed_fwd),
                phase_flash_bwd(train_shapes[0] + heads, train_shapes,
-                               qtrain)]
+                               qtrain + ltrain + gtrain,
+                               ltrain[:1] + gtrain[:1])]
     kernels += phase_kl(TK, max(1, TB // 2) * TS, cfg.vocab_size)
     # the mamba2 round's Eq.-2 term: checked, its rows kept at qwen3-4b's
     phase_kl(MTK, max(1, MTB // 2) * MTS, mcfg.vocab_size)
+    # the prefix archs' rounds' Eq.-2 terms (token positions only)
+    phase_kl(LTK, max(1, LTB // 2) * LTS, lcfg.vocab_size)
+    phase_kl(GTK, max(1, GTB // 2) * GTS, gcfg.vocab_size)
     phase_kl_blocks(256, mcfg.vocab_size)
     kernels += phase_ssd(ssd_train, ssd_serve)
     # the SparseDML rounds' Eq.-2 term at qwen3-4b's and mamba2's shapes
@@ -2100,10 +2409,10 @@ def main() -> int:
                                 (max(1, MTB // 2) * MTS, mcfg.vocab_size)],
                                TK)
     flash = ("flash_attention_fwd", "flash_attention_bwd", fa)
+    flash_fwd = ("flash_attention_fwd", fa)
     paths = []
     for phase in (
-            lambda: phase_serve(env["card"], cfg, reqs,
-                                ("flash_attention_fwd", fa), K, B, S0),
+            lambda: phase_serve(env["card"], cfg, reqs, flash_fwd, K, B, S0),
             lambda: phase_train(env["card"], tcfg, flash, TK, TB, TS),
             lambda: phase_serve(env["card"], mcfg, mreqs,
                                 ("ssd_scan_fwd", ssd_scan), MK, MB, MS0, 32,
@@ -2117,14 +2426,22 @@ def main() -> int:
                                      sparse_kl)),
             lambda: phase_weights(env["card"], tcfg, flash, TK, TB, TS),
             lambda: phase_vision(env["card"]),
-            lambda: phase_serve(env["card"], qcfg, qreqs,
-                                ("flash_attention_fwd", fa), QK, QB, QS0, 32,
-                                None, parity_layers=4),
+            lambda: phase_serve(env["card"], qcfg, qreqs, flash_fwd, QK, QB,
+                                QS0, 32, None, parity_layers=4),
             lambda: phase_train(env["card"], qtcfg, flash, QTK, QTB, QTS, 3,
                                 None),
-            lambda: phase_serve(env["card"], dcfg, dreqs,
-                                ("flash_attention_fwd", fa), 2, 2, 512, 32,
-                                None, parity_layers=1)):
+            lambda: phase_serve(env["card"], dcfg, dreqs, flash_fwd, 2, 2,
+                                512, 32, None, parity_layers=1),
+            lambda: phase_serve(env["card"], lcfg, lreqs, flash_fwd, LK, LB,
+                                LS0, 32, 2e-2, parity_layers=4,
+                                prefix=_random_prefix(lcfg, LB, 0)),
+            lambda: phase_train(env["card"], ltcfg, flash, LTK, LTB, LTS, 3,
+                                2e-2, check=lcheck),
+            lambda: phase_serve(env["card"], gcfg, greqs, flash_fwd, GK, GB,
+                                GS0, 32, None,
+                                prefix=_random_prefix(gcfg, GB, 0)),
+            lambda: phase_train(env["card"], gcfg, flash, GTK, GTB, GTS, 3,
+                                None)):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2133,7 +2450,9 @@ def main() -> int:
           "mamba2-780m serving, mamba2-780m training, qwen3-4b SparseDML "
           "training, qwen3-4b FedAvg + AsyncWeights, VisionNet DML + FedAvg + "
           "AsyncWeights, qwen2-moe-a2.7b serving, qwen2-moe-a2.7b DML "
-          "training, dbrx-132b serving): " + json.dumps(paths))
+          "training, dbrx-132b serving, llava-next-mistral-7b serving, "
+          "llava-next-mistral-7b DML training, musicgen-medium serving, "
+          "musicgen-medium DML training): " + json.dumps(paths))
     for row in kernels:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)
     print(json.dumps({"kernels": kernels}))

@@ -65,12 +65,17 @@ def _mask(part_mask, device):
         part_mask, dtype=torch.float32, device=device)
 
 
-def _public_ce_and_logits(sparams, cfg: ModelConfig, tokens, remat: bool,
-                          impl: str):
-    """Public-batch CE (K,) and the logits (K, B, S, V) of ALL S positions
-    for Eq. 2 (``repro/core/distributed.py:182-194``)."""
-    logits = tfm.forward_clients(sparams, cfg, tokens, remat=remat, impl=impl)
-    return tfm.next_token_ce(logits, tokens), logits
+def _public_ce_and_logits(sparams, cfg: ModelConfig, tokens, prefix,
+                          remat: bool, impl: str):
+    """Public-batch CE (K,) and the logits (K, B, S, V) of ALL S token
+    positions for Eq. 2, the prefix's stripped before it
+    (``repro/core/distributed.py:182-194``)."""
+    x, _ = tfm.forward_hidden_clients(sparams, cfg, tokens, prefix,
+                                      remat=remat, impl=impl)
+    prefixed = cfg.prefix_tokens > 0
+    logits = tfm.loss_logits(sparams, cfg, x)
+    ce = tfm.next_token_ce(logits, tokens, prefixed)
+    return ce, logits[:, :, 1:] if prefixed else logits
 
 
 def _mutual_term(flat, temperature: float, sparse_k: int, part_mask,
@@ -91,24 +96,27 @@ def _mutual_term(flat, temperature: float, sparse_k: int, part_mask,
     return sparse_mutual_kl_loss(flat, *received, temperature, impl=impl)
 
 
-def local_total_loss(sparams, cfg: ModelConfig, tokens, part_mask=None, *,
-                     remat: bool = True, impl: str):
+def local_total_loss(sparams, cfg: ModelConfig, tokens, part_mask=None,
+                     prefix=None, *, remat: bool = True, impl: str):
     """Private CE summed over the participants: absentees' losses are
     zeroed BEFORE the gradient, so their data reaches nothing, not even
-    the shared global-norm clip.  Returns (total, per-client metrics)."""
-    losses, metrics = tfm.loss_fn_clients(sparams, cfg, tokens, remat=remat,
-                                          impl=impl)
+    the shared global-norm clip.  ``prefix`` (K, B, P, pd) for a
+    prefix-token arch.  Returns (total, per-client metrics)."""
+    losses, metrics = tfm.loss_fn_clients(sparams, cfg, tokens, prefix,
+                                          remat=remat, impl=impl)
     return torch.sum(losses * _mask(part_mask, losses.device)), metrics
 
 
 def mutual_total_loss(sparams, cfg: ModelConfig, public_tokens,
-                      part_mask=None, *, kl_weight: float = 1.0,
-                      temperature: float = 1.0, ce_weight: float = 1.0,
-                      remat: bool = True, sparse_k: int = 0, impl: str):
+                      part_mask=None, public_prefix=None, *,
+                      kl_weight: float = 1.0, temperature: float = 1.0,
+                      ce_weight: float = 1.0, remat: bool = True,
+                      sparse_k: int = 0, impl: str):
     """Eq. 1 on the public batch: CE(public) + kl_weight * KLD_avg, the
-    latter against top-k sets when ``sparse_k`` (``_mutual_term``)."""
-    ce_pub, fwd = _public_ce_and_logits(sparams, cfg, public_tokens, remat,
-                                        impl)
+    latter against top-k sets when ``sparse_k`` (``_mutual_term``).
+    ``public_prefix`` (B_pub, P, pd) is shared by the clients."""
+    ce_pub, fwd = _public_ce_and_logits(sparams, cfg, public_tokens,
+                                        public_prefix, remat, impl)
     K, B, S, V = fwd.shape
     kl = _mutual_term(fwd.reshape(K, B * S, V), temperature, sparse_k,
                       part_mask, None, impl)
@@ -118,19 +126,21 @@ def mutual_total_loss(sparams, cfg: ModelConfig, public_tokens,
 
 
 def dml_total_loss(sparams, cfg: ModelConfig, tokens, public_tokens,
-                   part_mask=None, *, kl_weight: float = 1.0,
-                   temperature: float = 1.0, remat: bool = True,
-                   sparse_k: int = 0, received=None, impl: str):
+                   part_mask=None, prefix=None, public_prefix=None, *,
+                   kl_weight: float = 1.0, temperature: float = 1.0,
+                   remat: bool = True, sparse_k: int = 0, received=None,
+                   impl: str):
     """One fused DML round's loss: private CE + public CE + kl_weight *
     Eq. 2, summed over the clients (``make_dml_train_step``'s
     ``total_loss``, ``repro/core/distributed.py:222-250``).  ``tokens``
-    (K, B, S) private, ``public_tokens`` (B_pub, S) shared; ``sparse_k``
-    and ``received`` as in ``_mutual_term``.  Returns (total,
-    {"private_loss", "public_ce", "kld_avg"} of (K,))."""
-    priv, _ = tfm.loss_fn_clients(sparams, cfg, tokens, remat=remat,
+    (K, B, S) private, ``public_tokens`` (B_pub, S) shared; for a
+    prefix-token arch ``prefix`` (K, B, P, pd) and ``public_prefix``
+    (B_pub, P, pd); ``sparse_k`` and ``received`` as in ``_mutual_term``.
+    Returns (total, {"private_loss", "public_ce", "kld_avg"} of (K,))."""
+    priv, _ = tfm.loss_fn_clients(sparams, cfg, tokens, prefix, remat=remat,
                                   impl=impl)
-    ce_pub, fwd = _public_ce_and_logits(sparams, cfg, public_tokens, remat,
-                                        impl)
+    ce_pub, fwd = _public_ce_and_logits(sparams, cfg, public_tokens,
+                                        public_prefix, remat, impl)
     K, B, S, V = fwd.shape
     kl = _mutual_term(fwd.reshape(K, B * S, V), temperature, sparse_k,
                       part_mask, received, impl)
@@ -204,11 +214,12 @@ def _update(params, opt, grads, opt_cfg: AdamWConfig, part_mask):
 def make_local_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                           remat: bool = True, *, impl: str):
     """Per-client private-shard CE step: ``step(params, opt, tokens
-    (K, B, S), part_mask=None)``.  Absentees' params and moments ride
-    through unchanged."""
-    def step(stacked_params, opt_state, tokens, part_mask=None):
+    (K, B, S), prefix=None, part_mask=None)``, ``prefix`` (K, B, P, pd)
+    for a prefix-token arch.  Absentees' params and moments ride through
+    unchanged."""
+    def step(stacked_params, opt_state, tokens, prefix=None, part_mask=None):
         _, metrics, grads = value_and_grad(
-            local_total_loss, stacked_params, cfg, tokens, part_mask,
+            local_total_loss, stacked_params, cfg, tokens, part_mask, prefix,
             remat=remat, impl=impl)
         params, opt, om = _update(stacked_params, opt_state, grads, opt_cfg,
                                   part_mask)
@@ -222,12 +233,14 @@ def make_mutual_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                      remat: bool = True, ce_weight: float = 1.0,
                      sparse_k: int = 0, *, impl: str):
     """Eq. 1 on the public batch: ``step(params, opt, public_tokens
-    (B_pub, S), part_mask=None)``.  Absentees are masked out of the Eq.-2
-    average and their params and moments pass through unchanged."""
-    def step(stacked_params, opt_state, public_tokens, part_mask=None):
+    (B_pub, S), public_prefix=None, part_mask=None)``.  Absentees are
+    masked out of the Eq.-2 average and their params and moments pass
+    through unchanged."""
+    def step(stacked_params, opt_state, public_tokens, public_prefix=None,
+             part_mask=None):
         _, metrics, grads = value_and_grad(
             mutual_total_loss, stacked_params, cfg, public_tokens, part_mask,
-            kl_weight=kl_weight, temperature=temperature,
+            public_prefix, kl_weight=kl_weight, temperature=temperature,
             ce_weight=ce_weight, remat=remat, sparse_k=sparse_k, impl=impl)
         params, opt, om = _update(stacked_params, opt_state, grads, opt_cfg,
                                   part_mask)
@@ -242,15 +255,17 @@ def make_dml_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     """One fused DML round-step: private CE + Eq. 1 on the public batch in
     one AdamW update with one global-norm clip over the stacked tree.
     ``step(params, opt, tokens (K, B, S), public_tokens (B_pub, S),
-    part_mask=None)``.  ``impl`` is the kernel impl the population resolved:
-    it runs the attention forward and backward and the Eq.-2 term, which
-    is SparseDML's with ``sparse_k`` > 0."""
-    def step(stacked_params, opt_state, tokens, public_tokens,
-             part_mask=None):
+    prefix=None, public_prefix=None, part_mask=None)``, the prefixes as in
+    ``dml_total_loss``.  ``impl`` is the kernel impl the population
+    resolved: it runs the attention forward and backward and the Eq.-2
+    term, which is SparseDML's with ``sparse_k`` > 0."""
+    def step(stacked_params, opt_state, tokens, public_tokens, prefix=None,
+             public_prefix=None, part_mask=None):
         _, metrics, grads = value_and_grad(
             dml_total_loss, stacked_params, cfg, tokens, public_tokens,
-            part_mask, kl_weight=kl_weight, temperature=temperature,
-            remat=remat, sparse_k=sparse_k, impl=impl)
+            part_mask, prefix, public_prefix, kl_weight=kl_weight,
+            temperature=temperature, remat=remat, sparse_k=sparse_k,
+            impl=impl)
         params, opt, om = _update(stacked_params, opt_state, grads, opt_cfg,
                                   part_mask)
         return params, opt, {**metrics, **om}

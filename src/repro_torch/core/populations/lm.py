@@ -12,7 +12,10 @@ leaf.  Per strategy, one round is:
 
 Private data is per-client synthetic bigram streams (one domain per
 client -- non-IID); the public batch is fresh every round.  The batches
-are the JAX package's, token for token.
+are the JAX package's, token for token.  A prefix-token arch also draws
+its conditioning embeddings as the JAX package does (``_prefix``): N(0, 1)
+from a generator seeded by the round alone, one private draw shared by
+every client, a public one at 10_000 + r and an eval one at 777_000.
 
 ``device=None`` means the CUDA device and raises without one; pass
 ``device="cpu"`` to run on the CPU.  The kernel impl is resolved once here
@@ -90,6 +93,24 @@ class LMClients(Population):
             seed=1000 * (10_000 + r) + self.seed,
             domain=self.n_clients)[:, :self.seq])
 
+    def _prefix(self, r: int, batch: int):
+        """(B, P, pd) fp32 conditioning embeddings for a prefix-token arch
+        (``cfg.prefix_tokens`` > 0), None otherwise: the JAX package's draw
+        (``repro/core/populations/lm.py:94-102``), seeded by ``r`` alone."""
+        if not self.cfg.prefix_tokens:
+            return None
+        rng = np.random.default_rng(r)
+        return torch.as_tensor(rng.normal(
+            0, 1, (batch, self.cfg.prefix_tokens, self.cfg.prefix_dim)
+        ).astype(np.float32), device=self.device)
+
+    def _private_prefix(self, r: int):
+        """(K, B, P, pd): round ``r``'s one draw, every client's (a view)."""
+        p = self._prefix(r, self.batch)
+        if p is None:
+            return None
+        return p.expand(self.n_clients, *p.shape)
+
     # -- cached steps -----------------------------------------------------
     def _dml_step(self, kl_weight: float, sparse_k: int):
         key = ("dml", kl_weight, sparse_k)
@@ -110,7 +131,7 @@ class LMClients(Population):
         part_mask = pm if len(part) < self.n_clients else None
         self.client_params, self.client_opts, m = self._local_step()(
             self.client_params, self.client_opts, self._private_batch(r),
-            part_mask)
+            self._private_prefix(r), part_mask)
         self._last_metrics = m
         return [float(x) * w for x, w in zip(m["ce"].tolist(), pm)]
 
@@ -132,7 +153,9 @@ class LMClients(Population):
         step = self._dml_step(kl_weight, sparse_k)
         self.client_params, self.client_opts, m = step(
             self.client_params, self.client_opts, self._private_batch(r),
-            pub, part_mask=part_mask)
+            pub, prefix=self._private_prefix(r),
+            public_prefix=self._prefix(10_000 + r, int(pub.shape[0])),
+            part_mask=part_mask)
         self._last_metrics = m
         return {"ran": True,
                 "positions": int(pub.shape[0]) * int(pub.shape[1]),
@@ -186,6 +209,7 @@ class LMClients(Population):
             self.batch, self.seq + 1, self.cfg.vocab_size,
             seed=777_000 + self.seed, domain=self.n_clients)[:, :self.seq])
         losses, _ = tfm.loss_fn_clients(self.client_params, self.cfg, toks,
+                                        self._prefix(777_000, self.batch),
                                         impl=self.impl)
         history.client_eval_loss = losses.tolist()
         return history

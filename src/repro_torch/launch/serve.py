@@ -17,6 +17,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
       --device cpu
 
+  # a prefix-token arch: each request carries a random frontend embedding
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llava-next-mistral-7b --requests 3 --device cpu
+
 It runs on the CUDA device unless ``--device cpu`` is given, and fails
 without one.  Timing separates WARMUP (the first call, which builds the
 kernels when they are not built yet) from STEADY STATE (a repeat), each
@@ -40,6 +44,16 @@ from repro_torch.serve import MODES, ServeEngine
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _random_prefix(cfg, batch: int, seed: int):
+    """(batch, P, prefix_dim) fp32 N(0, 1) frontend embeddings for a
+    prefix-token arch, None otherwise: the JAX CLI's draw."""
+    if not cfg.prefix_tokens:
+        return None
+    rng = np.random.default_rng(seed)
+    return rng.normal(0, 1, (batch, cfg.prefix_tokens, cfg.prefix_dim)
+                      ).astype(np.float32)
 
 
 def main(argv=None) -> int:
@@ -90,11 +104,14 @@ def main(argv=None) -> int:
 
     if args.requests:                      # continuous-batching mode
         rng = np.random.default_rng(args.seed)
-        for _ in range(args.requests):
+        budget = max_seq - cfg.prefix_tokens
+        for i in range(args.requests):
             s0 = int(rng.integers(2, max(3, min(args.prompt_len,
-                                                max_seq - args.gen) + 1)))
+                                                budget - args.gen) + 1)))
             prompt = rng.integers(0, cfg.vocab_size, (s0,)).astype(np.int32)
-            eng.submit(prompt, max_new=min(args.gen, max_seq - s0))
+            pfx = _random_prefix(cfg, 1, args.seed + i)
+            eng.submit(prompt, max_new=min(args.gen, budget - s0),
+                       prefix=None if pfx is None else pfx[0])
         t0 = time.perf_counter()
         done = eng.run()
         _sync(device)
@@ -109,14 +126,15 @@ def main(argv=None) -> int:
 
     prompts = make_token_stream(args.batch, args.prompt_len, cfg.vocab_size,
                                 seed=args.seed)
+    prefix = _random_prefix(cfg, args.batch, args.seed)
     n_tok = args.batch * args.gen
 
     t0 = time.perf_counter()               # warmup: builds the kernels
-    gen = eng.generate(prompts, args.gen)
+    gen = eng.generate(prompts, args.gen, prefix=prefix)
     _sync(device)
     warm = time.perf_counter() - t0
     t0 = time.perf_counter()               # steady state
-    gen = eng.generate(prompts, args.gen)
+    gen = eng.generate(prompts, args.gen, prefix=prefix)
     _sync(device)
     steady = time.perf_counter() - t0
     print(f"generated {gen.shape}: warmup {warm:.2f}s "

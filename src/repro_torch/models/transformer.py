@@ -16,8 +16,14 @@ in the backward.
 The slot program dispatches on each slot's mixer, attention
 (``models/attention.py``) or a Mamba2 SSD block (``models/ssm.py``), and
 on its FFN, a SwiGLU MLP or a mixture of experts (``models/moe.py``), whose
-aux losses the training forward sums over the layers.  Prefix-token
-frontends are not ported yet and raise ``NotImplementedError``.
+aux losses the training forward sums over the layers.
+
+Prefix-token archs (``cfg.prefix_tokens`` = P > 0: llava-next's image
+patches, musicgen's text conditioning) take a precomputed frontend
+embedding ``prefix_emb`` (B, P, prefix_dim), shared by the clients, or
+(K, B, P, prefix_dim), one per client.  The ``projector`` maps it to
+d_model and it stands before the tokens, so positions run over P + S; the
+logits at P-1 .. P+S-2 predict tokens[0:], as in the JAX package.
 """
 from __future__ import annotations
 
@@ -38,13 +44,6 @@ from repro_torch.tree import tree_leaves, tree_map
 Params = Dict[str, Any]
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.prefix_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: prefix-token frontends come with the frontend "
-            "slice of the port")
-
-
 def _stack1(tree):
     """A single model's tree as a population of one (a view)."""
     return tree_map(lambda t: t[None], tree)
@@ -53,6 +52,26 @@ def _stack1(tree):
 def _layer(tree, idx: int):
     """Views of layer ``idx`` of a client-stacked (K, n_periods, ...) tree."""
     return tree_map(lambda t: t[:, idx], tree)
+
+
+# layers whose views ``_layers`` makes at a time
+LAYER_GROUP = 8
+
+
+def _layers(tree, n: int):
+    """Yields the views of the ``n`` layers of a client-stacked (K, n, ...)
+    tree, a group of ``LAYER_GROUP`` at a time: each leaf's slice of the
+    group is unbound into its layers when the forward reaches it.  Under
+    autograd a leaf then gathers its gradient one group at a time: a view
+    a layer (``_layer``) would add a zero-filled gradient of the whole leaf
+    for every layer, and one ``unbind`` of the whole leaf would hold every
+    layer's gradient apart until the backward reaches the first layer."""
+    leaves = tree_leaves(tree)
+    for start in range(0, n, LAYER_GROUP):
+        parts = [t[:, start:start + LAYER_GROUP].unbind(1) for t in leaves]
+        for i in range(len(parts[0])):
+            views = iter([p[i] for p in parts])
+            yield tree_map(lambda _: next(views), tree)
 
 
 # ---------------------------------------------------------------------------
@@ -81,7 +100,6 @@ def init_model(seed: int, cfg: ModelConfig, *, n_clients: int = 0,
     seeded with ``seed`` on ``device`` (default: the CUDA device).  The bits
     differ from JAX's.  ``n_clients`` > 0 stacks that many independent
     clients on a leading axis."""
-    _check_ported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     lead = (n_clients,) if n_clients else ()
@@ -97,6 +115,12 @@ def init_model(seed: int, cfg: ModelConfig, *, n_clients: int = 0,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                        cfg.pdtype(), lead=lead)
+    if cfg.prefix_tokens:
+        params["projector"] = {
+            "w": dense_init(gen, (cfg.prefix_dim, cfg.d_model), cfg.pdtype(),
+                            lead=lead),
+            "b": torch.zeros(lead + (cfg.d_model,), dtype=cfg.pdtype(),
+                             device=device)}
     return params
 
 
@@ -115,7 +139,7 @@ def _ffn(sp, cfg: ModelConfig, spec, x):
     return x + y, aux
 
 
-def _embed(params, cfg: ModelConfig, tokens):
+def _embed_tokens(params, cfg: ModelConfig, tokens):
     """(K, V, d) table and tokens (B, S) shared by the clients, or
     (K, B, S) one batch per client -> (K, B, S, d) in the compute dtype.
     Gathering before the cast equals the JAX cast-then-gather bitwise and
@@ -125,6 +149,28 @@ def _embed(params, cfg: ModelConfig, tokens):
         clients = torch.arange(table.shape[0], device=tokens.device)
         return table[clients[:, None, None], tokens].to(cfg.cdtype())
     return table[:, tokens].to(cfg.cdtype())
+
+
+def _embed(params, cfg: ModelConfig, tokens, prefix_emb=None):
+    """``_embed_tokens``, behind the projected prefix for a prefix-token
+    arch: (K, B, P + S, d).  ``prefix_emb`` (B, P, pd) shared or (K, B, P,
+    pd) per client is projected in the compute dtype, one batched product
+    over the clients, and ``b`` added (``repro/models/transformer.py:
+    136-142``).  Archs without a prefix ignore it, as JAX does."""
+    x = _embed_tokens(params, cfg, tokens)
+    if not cfg.prefix_tokens:
+        return x
+    if prefix_emb is None:
+        raise ValueError(f"{cfg.name} needs a (B, {cfg.prefix_tokens}, "
+                         f"{cfg.prefix_dim}) prefix embedding")
+    w, b = params["projector"]["w"], params["projector"]["b"]
+    pe = prefix_emb.to(device=x.device, dtype=cfg.cdtype())
+    lead = pe.shape[0] if pe.dim() == 4 else 1
+    dt = torch.promote_types(pe.dtype, w.dtype)
+    proj = torch.matmul(pe.reshape(lead, -1, pe.shape[-1]).to(dt), w.to(dt))
+    proj = proj + b[:, None].to(dt)
+    proj = proj.reshape(w.shape[0], *pe.shape[-3:-1], -1).to(x.dtype)
+    return torch.cat([proj, x], dim=2)
 
 
 def _unembed(params, cfg: ModelConfig, x):
@@ -159,26 +205,24 @@ def _period(sparams_period, cfg: ModelConfig, x, positions,
     return x, lb, rz
 
 
-def forward_hidden_clients(sparams, cfg: ModelConfig, tokens, *,
-                           window: Optional[int] = None, remat: bool = True,
-                           impl: str):
-    """Backbone only: final hidden states (K, B, S, d), before the final
-    norm, and the aux losses {"load_balance", "router_z"} (K,) summed over
-    the MoE layers (zeros without any, as the JAX package returns for dense
-    layers).  ``tokens`` is (B, S)
-    shared or (K, B, S) per client.  ``remat`` checkpoints each period
-    when autograd records a gradient of the params (not in serving or
-    under ``torch.no_grad``)."""
-    _check_ported(cfg)
-    x = _embed(sparams, cfg, tokens)
+def forward_hidden_clients(sparams, cfg: ModelConfig, tokens,
+                           prefix_emb=None, *, window: Optional[int] = None,
+                           remat: bool = True, impl: str):
+    """Backbone only: final hidden states (K, B, P + S, d), before the
+    final norm, and the aux losses {"load_balance", "router_z"} (K,) summed
+    over the MoE layers (zeros without any, as the JAX package returns for
+    dense layers).  ``tokens`` is (B, S) shared or (K, B, S) per client;
+    ``prefix_emb`` as in ``_embed`` (P = 0 without a prefix).  ``remat``
+    checkpoints each period when autograd records a gradient of the params
+    (not in serving or under ``torch.no_grad``)."""
+    x = _embed(sparams, cfg, tokens, prefix_emb)
     K, B, S = x.shape[:3]
     positions = torch.arange(S, device=x.device).expand(B, S)
     remat = remat and torch.is_grad_enabled() and any(
         t.requires_grad for t in tree_leaves(sparams))
     lb = torch.zeros(K, dtype=torch.float32, device=x.device)
     rz = torch.zeros_like(lb)
-    for idx in range(cfg.n_periods):
-        period = _layer(sparams["periods"], idx)
+    for period in _layers(sparams["periods"], cfg.n_periods):
         if remat:
             x, plb, prz = checkpoint(_period, period, cfg, x, positions,
                                      window, impl, use_reentrant=False)
@@ -188,22 +232,24 @@ def forward_hidden_clients(sparams, cfg: ModelConfig, tokens, *,
     return x, {"load_balance": lb, "router_z": rz}
 
 
-def forward_clients(sparams, cfg: ModelConfig, tokens, *,
+def forward_clients(sparams, cfg: ModelConfig, tokens, prefix_emb=None, *,
                     window: Optional[int] = None, remat: bool = True,
                     impl: str):
-    """K clients on tokens (B, S) shared or (K, B, S) per client -> logits
-    (K, B, S, V).  (The JAX ``forward`` also returns the aux losses; they
-    are ``forward_hidden_clients``'s.)"""
-    x, _ = forward_hidden_clients(sparams, cfg, tokens, window=window,
-                                  remat=remat, impl=impl)
+    """K clients on tokens (B, S) shared or (K, B, S) per client (and the
+    prefix, as in ``_embed``) -> logits (K, B, P + S, V).  (The JAX
+    ``forward`` also returns the aux losses; they are
+    ``forward_hidden_clients``'s.)"""
+    x, _ = forward_hidden_clients(sparams, cfg, tokens, prefix_emb,
+                                  window=window, remat=remat, impl=impl)
     return _unembed(sparams, cfg, x)
 
 
-def forward(params, cfg: ModelConfig, tokens, *,
+def forward(params, cfg: ModelConfig, tokens, prefix_emb=None, *,
             window: Optional[int] = None, remat: bool = True, impl: str):
-    """One model: tokens (B, S) -> logits (B, S, V)."""
-    return forward_clients(_stack1(params), cfg, tokens, window=window,
-                           remat=remat, impl=impl)[0]
+    """One model: tokens (B, S) [, prefix (B, P, pd)] -> logits
+    (B, P + S, V)."""
+    return forward_clients(_stack1(params), cfg, tokens, prefix_emb,
+                           window=window, remat=remat, impl=impl)[0]
 
 
 def _head(params, cfg: ModelConfig):
@@ -254,35 +300,57 @@ def chunked_ce(x, head, labels, n_chunks: int = 16):
     return (m + torch.log(se) - lab).mean(dim=-1)
 
 
-def _labels(tokens, K: int):
-    """Next-token labels (K, B, S-1) of tokens (B, S) shared or (K, B, S)."""
-    return tokens[..., 1:].long().expand(K, *tokens.shape[-2:-1],
-                                         tokens.shape[-1] - 1)
+def _labels(tokens, K: int, prefixed: bool = False):
+    """Next-token labels of tokens (B, S) shared or (K, B, S): (K, B, S-1)
+    without a prefix, and all S tokens behind one."""
+    lab = (tokens if prefixed else tokens[..., 1:]).long()
+    return lab.expand(K, *lab.shape[-2:])
 
 
-def next_token_ce(logits, tokens):
-    """(K,) mean next-token cross-entropy of logits (K, B, S, V), softmax
-    in fp32, on tokens (B, S) shared or (K, B, S) per client."""
+def loss_rows(x, P: int):
+    """The rows of x (K, B, P + S, ...) whose logits the loss and Eq. 2
+    read: all S without a prefix, and P-1 .. P+S-1 behind a prefix of P,
+    where the logits at P-1 .. P+S-2 predict tokens[0:]
+    (``repro/models/transformer.py:282-287``).  The head runs on these
+    rows only: the prefix's other rows predict nothing, and rows are
+    independent, so the numbers do not change."""
+    return x[:, :, P - 1:] if P else x
+
+
+def loss_logits(sparams, cfg: ModelConfig, x):
+    """Logits (K, B, S or S + 1, V) of ``loss_rows`` of the final hidden
+    states x (K, B, P + S, d)."""
+    return _unembed(sparams, cfg, loss_rows(x, cfg.prefix_tokens))
+
+
+def next_token_ce(logits, tokens, prefixed: bool = False):
+    """(K,) mean next-token cross-entropy of ``loss_logits`` (K, B, S', V),
+    softmax in fp32, on tokens (B, S) shared or (K, B, S) per client: every
+    row but the last predicts a token, tokens[1:] (S' = S), or behind a
+    prefix tokens[0:] (S' = S + 1)."""
     logp = torch.log_softmax(logits[:, :, :-1].float(), dim=-1)
-    labels = _labels(tokens, logits.shape[0])
+    labels = _labels(tokens, logits.shape[0], prefixed)
     return -torch.gather(logp, -1, labels[..., None])[..., 0].mean(dim=(1, 2))
 
 
-def loss_fn_clients(sparams, cfg: ModelConfig, tokens, *,
+def loss_fn_clients(sparams, cfg: ModelConfig, tokens, prefix_emb=None, *,
                     window: Optional[int] = None, remat: bool = True,
                     ce_impl: str = "dense", impl: str):
     """Next-token cross-entropy of K clients on tokens (B, S) shared or
-    (K, B, S) per client.  Returns (loss (K,), metrics {"ce",
-    "load_balance", "router_z"} of (K,)): the JAX ``loss_fn`` per client.
-    ce_impl="chunked" streams the vocabulary (``chunked_ce``)."""
-    x, aux = forward_hidden_clients(sparams, cfg, tokens, window=window,
-                                    remat=remat, impl=impl)
+    (K, B, S) per client, behind ``prefix_emb`` for a prefix-token arch.
+    Returns (loss (K,), metrics {"ce", "load_balance", "router_z"} of
+    (K,)): the JAX ``loss_fn`` per client.  ce_impl="chunked" streams the
+    vocabulary (``chunked_ce``)."""
+    x, aux = forward_hidden_clients(sparams, cfg, tokens, prefix_emb,
+                                    window=window, remat=remat, impl=impl)
+    prefixed = cfg.prefix_tokens > 0
     if ce_impl == "chunked":
+        x = loss_rows(x, cfg.prefix_tokens)
         x = rms_norm(x, per_client(sparams["final_norm"], x), cfg.rms_eps)
         ce = chunked_ce(x[:, :, :-1], _head(sparams, cfg),
-                        _labels(tokens, x.shape[0]))
+                        _labels(tokens, x.shape[0], prefixed))
     elif ce_impl == "dense":
-        ce = next_token_ce(_unembed(sparams, cfg, x), tokens)
+        ce = next_token_ce(loss_logits(sparams, cfg, x), tokens, prefixed)
     else:
         raise ValueError(f"unknown ce_impl {ce_impl!r}; expected 'dense' or "
                          "'chunked'")
@@ -290,11 +358,12 @@ def loss_fn_clients(sparams, cfg: ModelConfig, tokens, *,
     return total, {"ce": ce, **aux}
 
 
-def loss_fn(params, cfg: ModelConfig, tokens, *,
+def loss_fn(params, cfg: ModelConfig, tokens, prefix_emb=None, *,
             window: Optional[int] = None, remat: bool = True,
             ce_impl: str = "dense", impl: str):
-    """One model: tokens (B, S) -> (loss, metrics) of 0-d tensors."""
-    loss, metrics = loss_fn_clients(_stack1(params), cfg, tokens,
+    """One model: tokens (B, S) [, prefix (B, P, pd)] -> (loss, metrics)
+    of 0-d tensors."""
+    loss, metrics = loss_fn_clients(_stack1(params), cfg, tokens, prefix_emb,
                                     window=window, remat=remat,
                                     ce_impl=ce_impl, impl=impl)
     return loss[0], {k: v[0] for k, v in metrics.items()}
@@ -308,7 +377,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device) -> Params:
     """Cache tree with leaves (n_periods, B, ...), behind a leading client
     axis when ``n_models`` > 0."""
-    _check_ported(cfg)
     if window is None:
         window = cfg.sliding_window
     lead = ((n_models,) if n_models else ()) + (cfg.n_periods,)
@@ -319,19 +387,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
         for i, spec in enumerate(cfg.period)}
 
 
-def prefill_clients(sparams, cfg: ModelConfig, tokens, *, max_seq: int,
-                    window: Optional[int] = None, impl: str
+def prefill_clients(sparams, cfg: ModelConfig, tokens, prefix_emb=None, *,
+                    max_seq: int, window: Optional[int] = None, impl: str
                     ) -> Tuple[torch.Tensor, Params]:
-    """Prompt ingestion for K clients on shared tokens (B, S): attention
-    and SSD scans through ``impl``.  (The JAX prefill passes no impl to
+    """Prompt ingestion for K clients on shared tokens (B, S), behind the
+    prefix (B, P, pd) for a prefix-token arch, which fills the cache's
+    first P positions: attention and SSD scans through ``impl``.  (The JAX prefill passes no impl to
     either, so it runs the ambient one.)  MoE FFNs route the prompt in
     groups of min(256, S) tokens, so S must be at most 256 or a multiple of
     it, and their aux losses are dropped, as in the JAX prefill.  Returns
     (last-token logits (K, B, V), cache (K, n_periods, B, ...))."""
-    _check_ported(cfg)
     if window is None:
         window = cfg.sliding_window
-    x = _embed(sparams, cfg, tokens)
+    x = _embed(sparams, cfg, tokens, prefix_emb)
     K, B = x.shape[:2]
     cache = init_cache(cfg, B, max_seq, window, n_models=K, device=x.device)
     for idx in range(cfg.n_periods):
@@ -353,11 +421,11 @@ def prefill_clients(sparams, cfg: ModelConfig, tokens, *, max_seq: int,
     return _unembed(sparams, cfg, x[:, :, -1:])[:, :, 0], cache
 
 
-def prefill(params, cfg: ModelConfig, tokens, *, max_seq: int,
-            window: Optional[int] = None, impl: str):
+def prefill(params, cfg: ModelConfig, tokens, prefix_emb=None, *,
+            max_seq: int, window: Optional[int] = None, impl: str):
     """One model.  Returns (last-token logits (B, V), cache (n_periods, B,
     ...))."""
-    logits, cache = prefill_clients(_stack1(params), cfg, tokens,
+    logits, cache = prefill_clients(_stack1(params), cfg, tokens, prefix_emb,
                                     max_seq=max_seq, window=window, impl=impl)
     return logits[0], tree_map(lambda t: t[0], cache)
 
@@ -369,10 +437,9 @@ def decode_step_clients(sparams, cfg: ModelConfig, token, cache, pos, *,
     tensor of per-sequence positions.  An MoE FFN routes each token alone
     (a group of one: no token is dropped, every expert runs) and its aux
     losses are dropped.  Returns (logits (K, B, V), cache)."""
-    _check_ported(cfg)
     if window is None:
         window = cfg.sliding_window
-    x = _embed(sparams, cfg, token)                         # (K, B, 1, d)
+    x = _embed_tokens(sparams, cfg, token)                  # (K, B, 1, d)
     for idx in range(cfg.n_periods):
         period = _layer(sparams["periods"], idx)
         layer_cache = _layer(cache, idx)

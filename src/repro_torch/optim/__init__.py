@@ -4,9 +4,10 @@ for the LM path, and SGD with momentum for the VisionNet path: the port of
 
 State is a plain dict of trees ({"mu", "nu", "step"}) so it checkpoints in
 the JAX package's schema.  Unlike the JAX version, ``adamw_update`` updates
-the params and the fp32 moments IN PLACE, one leaf at a time, so its fp32
-temporaries are the size of one leaf (the embedding's are 4.7 GB each at
-K = 3 full-width qwen3-4b clients) instead of the whole tree.
+the params and the fp32 moments IN PLACE, one leaf at a time and a large
+leaf in runs of ``CHUNK`` elements, so its fp32 temporaries are at most
+256 MB each (a whole leaf's would be 5.4 GB for each MLP matrix of K = 3
+full-depth musicgen-medium clients) instead of the whole tree's.
 ``sgd_update`` takes a client-stacked tree and clips each client by its
 own global norm, as the JAX package's ``sgd_update`` does under ``vmap``.
 """
@@ -42,9 +43,25 @@ def constant_schedule(base_lr: float) -> Callable[[int], float]:
 # ---------------------------------------------------------------------------
 # gradient transforms
 
+# elements of a leaf that one elementwise pass of the optimizer takes at a
+# time (its fp32 temporaries are this size)
+CHUNK = 1 << 26
+
+
+def _runs(*ts):
+    """Tuples of matching views of equally shaped tensors, in runs of at
+    most ``CHUNK`` elements; one tuple of the tensors themselves when they
+    are small or one of them is not contiguous.  Elementwise work on the
+    runs equals the work on the whole."""
+    if ts[0].numel() <= CHUNK or not all(t.is_contiguous() for t in ts):
+        return [ts]
+    return list(zip(*(t.view(-1).split(CHUNK) for t in ts)))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32 (a 0-d tensor)."""
-    sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    sq = [torch.sum(torch.square(r.float())) for x in tree_leaves(tree)
+          for (r,) in _runs(x)]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
@@ -127,20 +144,23 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** step
     bc2 = 1 - b2 ** step
-    for path, p in _leaves_with_path(params):
-        g = _at(grads, path).float()
-        if scale is not None:
-            g = g * scale                    # never scales the caller's grads
-        mu, nu = _at(state["mu"], path), _at(state["nu"], path)
-        mu.mul_(b1).add_(g, alpha=1 - b1)
-        nu.mul_(b2).addcmul_(g, g, value=1 - b2)
-        del g
-        u = torch.sqrt(nu / bc2).add_(cfg.eps)
-        u = torch.div(mu, bc1).div_(u)
-        if cfg.weight_decay and _wd_mask(path):
-            u.add_(p.float(), alpha=cfg.weight_decay)
-        p.copy_(u.mul_(-lr).add_(p.float()))      # p - lr * u
-        del u
+    for path, leaf in _leaves_with_path(params):
+        decay = cfg.weight_decay and _wd_mask(path)
+        for p, g, mu, nu in _runs(leaf, _at(grads, path),
+                                  _at(state["mu"], path),
+                                  _at(state["nu"], path)):
+            g = g.float()
+            if scale is not None:
+                g = g * scale                # never scales the caller's grads
+            mu.mul_(b1).add_(g, alpha=1 - b1)
+            nu.mul_(b2).addcmul_(g, g, value=1 - b2)
+            del g
+            u = torch.sqrt(nu / bc2).add_(cfg.eps)
+            u = torch.div(mu, bc1).div_(u)
+            if decay:
+                u.add_(p.float(), alpha=cfg.weight_decay)
+            p.copy_(u.mul_(-lr).add_(p.float()))      # p - lr * u
+            del u
     return params, state, {"grad_norm": gnorm,
                            "lr": torch.tensor(lr, dtype=torch.float32)}
 

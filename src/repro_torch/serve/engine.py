@@ -59,7 +59,10 @@ class ServeEngine:
     ``params``: a plain model tree (``mode='single'``) or the stacked
     (K, ...) client tree of a trained LM population (ensemble modes), on
     the engine's device.  ``slots`` x ``max_seq`` fixes the arena shape --
-    every admitted request must satisfy ``len(prompt) + max_new <= max_seq``.
+    every admitted request must satisfy ``P + len(prompt) + max_new <=
+    max_seq``, P the arch's prefix tokens (0 without a prefix frontend).
+    A prefix-token arch takes each request's frontend embedding: (B, P,
+    prefix_dim) for ``generate``, (P, prefix_dim) for ``submit``.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, mode: str = "single",
@@ -69,10 +72,6 @@ class ServeEngine:
                  impl: Optional[str] = None, device=None):
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES}")
-        if cfg.prefix_tokens:
-            raise NotImplementedError(
-                f"{cfg.name}: prefix-token frontends come with the frontend "
-                "slice of the port")
         self.device = resolve_device(device)
         self.impl = resolve_impl(impl, self.device)
         leaves = tree_leaves(params)
@@ -134,13 +133,18 @@ class ServeEngine:
             logits, "average" if self.mode == "average" else "route",
             client_idx)
 
-    def _prefill(self, prompts):
-        return tfm.prefill_clients(self._sparams, self.cfg, prompts,
+    @property
+    def _prefix_P(self) -> int:
+        return self.cfg.prefix_tokens
+
+    def _prefill(self, prompts, prefix=None):
+        return tfm.prefill_clients(self._sparams, self.cfg, prompts, prefix,
                                    max_seq=self.max_seq, window=self.window,
                                    impl=self.impl)
 
-    def _router(self, prompts):
-        return make_router(self.cfg, self.impl)(self._sparams, prompts)
+    def _router(self, prompts, prefix=None):
+        return make_router(self.cfg, self.impl)(self._sparams, prompts,
+                                                prefix)
 
     def _first_token(self, logits, client_idx, gen):
         comb = self._combine(logits, client_idx)
@@ -186,6 +190,14 @@ class ServeEngine:
         return torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                device=self.device)
 
+    def _prefix(self, prefix):
+        """A request's frontend embedding as an fp32 tensor on the device
+        (None stays None)."""
+        if prefix is None:
+            return None
+        return torch.as_tensor(np.asarray(prefix, np.float32),
+                               device=self.device)
+
     # -- one-shot batch API (O(1) program calls in gen_len) ---------------
     def generate(self, prompts, gen_len: int, prefix=None,
                  seed: Optional[int] = None, return_logits: bool = False):
@@ -197,26 +209,26 @@ class ServeEngine:
         ``return_logits``, whose last row is the next token's logits.
         Returns int32 tokens (B, gen_len) and, with ``return_logits``, the
         fp32 logits (B, gen_len, V) each emission after the first was
-        sampled from.
+        sampled from.  ``prefix`` (B, P, prefix_dim) for a prefix-token
+        arch; decoding starts at position P + S0.
         """
-        if prefix is not None:
-            raise NotImplementedError("prefix-token frontends come with the "
-                                      "frontend slice of the port")
         prompts = self._tokens(prompts)
+        prefix = self._prefix(prefix)
         B, S0 = prompts.shape
-        if S0 + gen_len > self.max_seq:
-            raise ValueError(f"prompt {S0} + gen {gen_len} exceeds max_seq "
-                             f"{self.max_seq}")
+        P = self._prefix_P
+        if P + S0 + gen_len > self.max_seq:
+            raise ValueError(f"prefix {P} + prompt {S0} + gen {gen_len} "
+                             f"exceeds max_seq {self.max_seq}")
         gen = torch.Generator(device=self.device).manual_seed(
             self.seed if seed is None else seed)
         cidx = torch.zeros((B,), dtype=torch.long, device=self.device)
         if self.mode == "route":
-            cidx, _ = self._call("router", self._router, prompts)
-        logits, cache = self._call("prefill", self._prefill, prompts)
+            cidx, _ = self._call("router", self._router, prompts, prefix)
+        logits, cache = self._call("prefill", self._prefill, prompts, prefix)
         tok0, _ = self._call("first_token", self._first_token, logits, cidx,
                              gen)
         toks, lg, *_ = self._call("decode", self._decode, gen_len,
-                                  tok0[:, None], cache, S0, gen, cidx,
+                                  tok0[:, None], cache, P + S0, gen, cidx,
                                   keep_logits=return_logits, carry=False)
         toks = _host(toks.to(torch.int32))
         if return_logits:
@@ -225,17 +237,19 @@ class ServeEngine:
 
     # -- continuous batching ----------------------------------------------
     def submit(self, tokens, max_new: int, prefix=None) -> int:
-        """Queue one request; returns its request id."""
-        if prefix is not None:
-            raise NotImplementedError("prefix-token frontends come with the "
-                                      "frontend slice of the port")
+        """Queue one request (``prefix`` (P, prefix_dim) for a prefix-token
+        arch); returns its request id."""
         tokens = np.asarray(tokens, np.int32)
         if tokens.ndim != 1 or not len(tokens):
             raise ValueError("submit takes a single 1-D prompt")
-        if len(tokens) + max_new > self.max_seq:
-            raise ValueError(f"prompt {len(tokens)} + max_new {max_new} "
-                             f"exceeds max_seq {self.max_seq}")
-        return self.scheduler.submit(tokens, max_new)
+        P = self._prefix_P
+        if P + len(tokens) + max_new > self.max_seq:
+            raise ValueError(f"prefix {P} + prompt {len(tokens)} + max_new "
+                             f"{max_new} exceeds max_seq {self.max_seq}")
+        if P and prefix is None:
+            raise ValueError(f"{self.cfg.name} needs a (P, prefix_dim) "
+                             "prefix embedding per request")
+        return self.scheduler.submit(tokens, max_new, prefix)
 
     def _ensure_arena(self):
         if self._arena is None:
@@ -252,16 +266,17 @@ class ServeEngine:
     def _admit(self, slot: int) -> None:
         req = self.scheduler.admit(slot)
         prompts = self._tokens(req.tokens)[None]
+        prefix = None if req.prefix is None else self._prefix(req.prefix)[None]
         ci = torch.zeros((1,), dtype=torch.long, device=self.device)
         if self.mode == "route":
-            ci, _ = self._call("router", self._router, prompts)
-        logits, one = self._call("prefill", self._prefill, prompts)
+            ci, _ = self._call("router", self._router, prompts, prefix)
+        logits, one = self._call("prefill", self._prefill, prompts, prefix)
         tok0, _ = self._call("first_token", self._first_token, logits, ci,
                              self._gen)
         cache_mod.write_slot(self._arena, one, slot,
                              axis=cache_mod.batch_axis(self.n_models))
         self._tok[slot, 0] = tok0[0]
-        self._pos[slot] = len(req.tokens)
+        self._pos[slot] = self._prefix_P + len(req.tokens)
         self._cidx[slot] = ci[0]
 
     def run(self) -> Dict[int, np.ndarray]:

@@ -29,29 +29,36 @@ from repro_torch.models import transformer as tfm
 from repro_torch.tree import tree_leaves, tree_map
 
 
-def prompt_ce_clients(sparams, cfg: ModelConfig, tokens, *,
+def prompt_ce_clients(sparams, cfg: ModelConfig, tokens, prefix=None, *,
                       impl: str) -> torch.Tensor:
-    """Per-SEQUENCE next-token CE of prompts (B, S) under each of K
-    clients -> (K, B): same label alignment as the JAX ``tfm.loss_fn``,
-    kept per row so each request routes independently."""
-    logits = tfm.forward_clients(sparams, cfg, tokens, impl=impl)
-    pred, labels = logits[:, :, :-1], tokens[:, 1:]
+    """Per-SEQUENCE next-token CE of prompts (B, S), behind ``prefix``
+    (B, P, pd) for a prefix-token arch, under each of K clients -> (K, B):
+    same label alignment as the JAX ``tfm.loss_fn`` (with a prefix the
+    logits at P-1 .. P+S-2 predict tokens[0:]), kept per row so each
+    request routes independently."""
+    x, _ = tfm.forward_hidden_clients(sparams, cfg, tokens, prefix,
+                                      remat=False, impl=impl)
+    logits = tfm.loss_logits(sparams, cfg, x)
+    pred = logits[:, :, :-1]
+    labels = tokens if cfg.prefix_tokens else tokens[:, 1:]
     logp = torch.log_softmax(pred.float(), dim=-1)
-    idx = labels.expand(logp.shape[0], *labels.shape)[..., None]
+    idx = labels.long().expand(logp.shape[0], *labels.shape)[..., None]
     return -logp.gather(-1, idx)[..., 0].mean(dim=-1)
 
 
-def prompt_ce(params, cfg: ModelConfig, tokens, *, impl: str):
+def prompt_ce(params, cfg: ModelConfig, tokens, prefix=None, *, impl: str):
     """One model: per-sequence prompt CE (B, S) -> (B,)."""
     return prompt_ce_clients(tree_map(lambda t: t[None], params), cfg,
-                             tokens, impl=impl)[0]
+                             tokens, prefix, impl=impl)[0]
 
 
 def make_router(cfg: ModelConfig, impl: str):
-    """Routing program: (stacked params, prompts (B, S)) ->
-    (client_idx (B,), ce (K, B)).  One call per admission batch."""
-    def route(stacked_params, prompts):
-        ce = prompt_ce_clients(stacked_params, cfg, prompts, impl=impl)
+    """Routing program: (stacked params, prompts (B, S)[, prefix (B, P,
+    pd)]) -> (client_idx (B,), ce (K, B)).  One call per admission
+    batch."""
+    def route(stacked_params, prompts, prefix=None):
+        ce = prompt_ce_clients(stacked_params, cfg, prompts, prefix,
+                               impl=impl)
         return torch.argmin(ce, dim=0), ce
     return route
 

@@ -21,6 +21,7 @@ from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import transformer as jtfm
 from repro_torch import checkpoint, interop
+from repro_torch.checkpoint import flatten
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
@@ -251,10 +252,56 @@ def test_checkpoint_schema_both_ways(tmp_path):
         assert a.dtype == torch.bfloat16 and torch.equal(a, b)
 
 
+def test_layer_groups_give_the_per_layer_gradient():
+    """The forward takes a 10-layer stack's views in groups
+    (``_layers``: 8 layers, then 2); the loss and every gradient equal
+    those of one indexing view a layer (``_layer``), bit for bit."""
+    tcfg = get_reduced("qwen3-4b").replace(n_layers=10)
+    tp = ttfm.init_model(0, tcfg, n_clients=2, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, tcfg.vocab_size, (2, 12)))
+
+    def grads():
+        for t in tree_leaves(tp):
+            t.requires_grad_(True)
+        loss = ttfm.loss_fn_clients(tp, tcfg, toks, impl="ref")[0].sum()
+        g = torch.autograd.grad(loss, tree_leaves(tp))
+        for t in tree_leaves(tp):
+            t.requires_grad_(False)
+        return loss.detach(), g
+
+    loss, got = grads()
+    grouped = ttfm._layers
+    try:
+        ttfm._layers = lambda tree, n: (ttfm._layer(tree, i)
+                                        for i in range(n))
+        want_loss, want = grads()
+    finally:
+        ttfm._layers = grouped
+    assert torch.equal(loss, want_loss)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("change", [
     dict(prefix_tokens=4, prefix_dim=8),
 ])
 def test_unported_layers_raise(change):
-    tcfg = get_reduced("qwen3-4b").replace(**change)
-    with pytest.raises(NotImplementedError, match="slice"):
-        ttfm.init_model(0, tcfg, device="cpu")
+    """Named for the refusal it pinned before the prefix frontend was
+    ported: a prefix config now initialises, with the JAX package's
+    ``projector`` leaves (w (prefix_dim, d) and a zero b (d,), in the param
+    dtype), behind the client axis when stacked."""
+    for dtype in ("float32", "bfloat16"):
+        cfg = jget_reduced("qwen3-4b").replace(param_dtype=dtype, **change)
+        tcfg = get_reduced("qwen3-4b").replace(param_dtype=dtype, **change)
+        want = jax.eval_shape(lambda k: jtfm.init_model(k, cfg),
+                              jax.random.PRNGKey(0))
+        got = ttfm.init_model(0, tcfg, device="cpu")
+        assert sorted(flatten(got)) == sorted(jckpt._flatten(want))
+        stacked = ttfm.init_model(0, tcfg, n_clients=2, device="cpu")
+        for key in ("w", "b"):
+            leaf, ref = got["projector"][key], want["projector"][key]
+            assert tuple(leaf.shape) == ref.shape
+            assert str(leaf.dtype)[6:] == str(ref.dtype)
+            assert tuple(stacked["projector"][key].shape) == (2, *ref.shape)
+        assert not got["projector"]["b"].any()
+        assert got["projector"]["w"].float().std() > 0

@@ -490,12 +490,11 @@ def test_full_width_config_matches_jax(arch):
 
 
 def test_registry_lists_every_arch_but_the_prefix_ones():
-    """Eight archs: the JAX registry less the two prefix-token archs, which
-    still raise; every MoE arch initialises."""
+    """Named for the eight archs it pinned before the prefix frontend was
+    ported: the registry now lists all ten archs of the JAX package's, in
+    its order; every MoE arch initialises."""
     from repro.configs import ARCH_IDS as JARCH_IDS
-    prefix = {a for a in JARCH_IDS if jget_config(a).prefix_tokens}
-    assert prefix == {"llava-next-mistral-7b", "musicgen-medium"}
-    assert sorted(ARCH_IDS) == sorted(set(JARCH_IDS) - prefix)
+    assert ARCH_IDS == JARCH_IDS and len(ARCH_IDS) == 10
     for arch in MOE_ARCHS:
         p = tfm.init_model(0, get_reduced(arch), device="cpu")
         assert sum(k == "router" for k in flatten(p)

@@ -286,8 +286,8 @@ def test_load_serving_params_rejects_unservable(tmp_path):
                                          "arch": "qwen3-4b"})
     with pytest.raises(ValueError, match="not servable"):
         load_serving_params(bad, device="cpu")
-    other = str(tmp_path / "llava.npz")      # a prefix-token arch
-    jckpt.save(other, {"x": np.zeros(2)}, {"arch": "llava-next-mistral-7b"})
+    other = str(tmp_path / "other.npz")      # an arch of neither registry
+    jckpt.save(other, {"x": np.zeros(2)}, {"arch": "llama-2-7b"})
     with pytest.raises(ValueError, match="not in"):
         load_serving_params(other, device="cpu")
 
@@ -315,8 +315,8 @@ def test_serve_cli_on_cpu(capsys):
     assert "arch=mamba2-780m random-init" in out
 
 
-# the training, SSM, vision and MoE slices' modules, named so that the walk
-# below cannot miss one
+# the training, SSM, vision, MoE and prefix-frontend slices' modules, named
+# so that the walk below cannot miss one
 TRAINING_MODULES = (
     "repro_torch.api", "repro_torch.core.api", "repro_torch.core.distributed",
     "repro_torch.core.mutual", "repro_torch.core.stacking",
@@ -334,7 +334,9 @@ TRAINING_MODULES = (
     "repro_torch.configs.dbrx_132b",
     "repro_torch.configs.jamba_1_5_large_398b",
     "repro_torch.configs.qwen3_8b", "repro_torch.configs.minitron_4b",
-    "repro_torch.configs.qwen1_5_110b")
+    "repro_torch.configs.qwen1_5_110b",
+    "repro_torch.configs.llava_next_mistral_7b",
+    "repro_torch.configs.musicgen_medium")
 
 
 def test_port_imports_no_jax_and_no_repro():
