@@ -27,7 +27,10 @@ Phases, each fatal on failure:
      backward, and the
      sparse (top-k) KL's
      forward and backward (at both vocabularies, and past one launch's
-     entries: k = 2048 in sender blocks, k = 5000 read in place);
+     entries: k = 2048 in sender blocks, k = 5000 read in place); and the
+     Eq.-2 pair and sparse kernels at phase 17's call, one live row
+     (1, 1024, 151,936) against J = 2 received, where the pair kernels'
+     rows are timed;
   3. the serving path at the full width of qwen3-4b: a K=2 client ensemble
      from seeded random weights serves ``generate``, continuous batching
      and route mode, and the flash kernel's launch count shows that it ran
@@ -114,12 +117,34 @@ Phases, each fatal on failure:
   16. phase 4 for K=3 musicgen-medium clients at full width and depth
      (5.46 B params, ~65 GB of params, gradients and AdamW moments), batch
      4, public 2, seq 512, round 1 and the gradients held on the whole
-     population.
+     population;
+  17. a mixed-architecture federation at full width,
+     ``Federation(HeteroClients(...), strategy)`` of qwen3-4b (4 of 36
+     layers), qwen2-moe-a2.7b (1 of 24) and qwen3-8b (2 of 36), one
+     vocabulary (151,936), ~40 GB of params and AdamW moments: folds of 8
+     sequences of 512 (2 local steps of batch 4 a client), public 2; 3
+     rounds of ``DML()`` (each client's Eq. 2 against the 2 received
+     logits through the pair kernels: M launches each way a round, no
+     square kernel), one at participation 2 (the absent client's params
+     and moments bitwise untouched) and 2 of ``SparseDML(k=64)`` (the
+     sparse kernels at Kl = 1, no pair-KL kernel); comm bytes analytic;
+     round 1 of DML and of SparseDML from fresh fleets against impl
+     "ref", and each client's gradient by the parity rule;
+  18. the training CLI's default fleet (qwen3-4b, mamba2-780m, dbrx-132b)
+     at its reduced configs in fp32, 2 DML rounds through the flash, SSD
+     and pair kernels against impl "ref", FedAvg refused on it; then 2
+     FedAvg and 3 AsyncWeights(delta=2, min_round=1) rounds of a
+     one-arch fleet of three 4-layer full-width qwen3-4b clients;
+  19. single-model training of full-width, full-depth qwen3-4b (4.41 B
+     params) through ``launch.steps.make_train_step``, 3 steps of 4 x
+     512, step 1's loss and gradient first against impl "ref" by the
+     parity rule; then ``make_multistep_decode``'s greedy tokens against
+     ``greedy_generate``'s over 32 new tokens.
 jamba-1.5-large-398b does not run on the card: one full-width period (8
 layers, 4 MoE FFNs of 16 experts of width 24,576) holds ~44 B params, 88
 GB a client in bf16, and no depth cut goes below a period; the CPU tests
 hold it against the JAX package at its reduced config.
-Phases 3-7 and 10-16 hold the prefill logits and the per-client
+Phases 3-7, 10-17 and 19 hold the prefill logits and the per-client
 gradients to the plain path by one parity rule (``_parity``): in fp32 on
 the same weights, and in bf16 against the bf16 plain path's own distance
 from fp32.
@@ -901,6 +926,157 @@ def phase_kl(K: int, B: int, V: int) -> list:
          "replaces": "src/repro/kernels/kl_mutual.py:32",
          "max_abs_err": mk_err, "ms": mk_ms, "plain_ms": plain_mk,
          "bound_ms": sq_bound[0], "bound_by": sq_bound[1]},
+    ]
+
+
+def phase_kl_received(B: int, V: int, J: int, k: int) -> list:
+    """The Eq.-2 kernels as the hetero population's mutual step calls them
+    (``core.mutual.kl_to_received`` and ``sparse_kl_to_received``): ONE
+    client's live public logits (1, B, V) against the J received stacks,
+    weights 1/J.  fp32 and bf16, each through the entry point at impl
+    "cuda" against impl "ref", the value and the live side's gradient
+    (tolerances as ``phase_kl``'s and ``phase_sparse_kl``'s); the dense
+    call must launch the pair forward and backward once each and no square
+    kernel, the sparse call (the received top-k sets) the sparse forward
+    and backward once each and no pair-KL kernel.  Then the bf16 times
+    beside their bounds: the pair forward reads three (B, V) planes, the
+    pair backward four (dlive written); the pair kernel runs its
+    Kl = Kg = 2 instance here with the live row read again in the padded
+    row, so beside it the same call with two distinct live rows (four
+    planes): a re-read that reached HBM would put the Kl = 1 call at that
+    time.  Returns the two pair kernels' rows at this shape."""
+    from repro_torch.core import mutual
+    from repro_torch.core.mutual import topk_predictions
+    from repro_torch.kernels import kl_mutual, ref, sparse_kl
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    errs = {}
+    for dtype in (torch.float32, BF16):
+        live = (2 * torch.randn(B, V, device="cuda", generator=gen)) \
+            .to(dtype)
+        rec = (2 * torch.randn(J, B, V, device="cuda", generator=gen)) \
+            .to(dtype)
+        gbar = torch.randn(B, device="cuda", generator=gen)
+        sets = topk_predictions(rec, k)
+        for name, fn in (("dense", lambda a, impl: mutual.kl_to_received(
+                              a, rec, impl=impl)),
+                         ("sparse", lambda a, impl: mutual
+                          .sparse_kl_to_received(a, *sets, impl=impl))):
+            res = []
+            for impl in ("cuda", "ref"):
+                a = live.detach().requires_grad_(True)
+                before = _kernel_counts()
+                out = fn(a, impl)
+                (g,) = torch.autograd.grad(out, a, gbar)
+                after = _kernel_counts()
+                ran = {n: after[n] - before[n] for n in after
+                       if after[n] != before[n]}
+                res.append((out.detach(), g.float(), ran))
+                del a, out, g
+            (out, dl, ran), (want, want_dl, ran_ref) = res
+            f_err = (out - want).abs().max().item()
+            f_rel = ((out - want).norm() / want.norm()).item()
+            b_rel = ((dl - want_dl).norm() / want_dl.norm()).item()
+            lim = 1e-4 if dtype == torch.float32 else 2e-2
+            need = ({"kl_mutual_pair_fwd": 1, "kl_mutual_pair_bwd": 1}
+                    if name == "dense" else
+                    {"sparse_kl_fwd": 1, "sparse_kl_bwd": 1})
+            ok_f = (torch.allclose(out, want, atol=1e-3, rtol=1e-4)
+                    if name == "dense" else f_rel <= lim)
+            if not (ok_f and b_rel <= lim and ran == need and not ran_ref):
+                raise AssertionError(
+                    f"{name} Eq. 2 to {J} received at {dtype}: forward max "
+                    f"|err| {f_err:.3g}, relative {f_rel:.3g}; dlive "
+                    f"relative {b_rel:.3g}; launched {ran} (ref {ran_ref})")
+            print(f"{name} Eq. 2 of one live row to J={J} received "
+                  f"(B={B}, V={V}{f', k={k}' if name == 'sparse' else ''})"
+                  f" {str(dtype)[6:]}, impl=cuda vs impl=ref: forward max "
+                  f"|err| {f_err:.3g} (relative {f_rel:.3g}), dlive "
+                  f"relative {b_rel:.3g} (limit {lim}); launched {ran}")
+            errs[dtype, name] = (f_err, (dl - want_dl).abs().max().item())
+            del res, out, dl, want, want_dl
+        del live, rec, gbar, sets
+        torch.cuda.empty_cache()
+
+    x = (2 * torch.randn(2, B, V, device="cuda", generator=gen)).to(BF16)
+    y = (2 * torch.randn(J, B, V, device="cuda", generator=gen)).to(BF16)
+    live = x[:1]
+    w = torch.full((1, J), 1.0 / J, device="cuda")
+    w2 = torch.full((2, J), 1.0 / J, device="cuda")
+    gbar = torch.randn(1, B, device="cuda", generator=gen)
+    gbar2 = torch.randn(2, B, device="cuda", generator=gen)
+    sets = topk_predictions(y, k)
+    out, zl, zf, name = kl_mutual._forward(live, y, w, 1.0)
+    out2, zl2, zf2, _ = kl_mutual._forward(x, y, w2, 1.0)
+    _, stats = sparse_kl._forward(live, *sets, w, 1.0)
+    if name != kl_mutual.PAIR:
+        raise AssertionError(f"the received call left the pair kernel: "
+                             f"{name}")
+    timed = {
+        "fwd": lambda: kl_mutual._forward(live, y, w, 1.0),
+        "fwd2": lambda: kl_mutual._forward(x, y, w2, 1.0),
+        "bwd": lambda: kl_mutual._backward(live, y, w, out, zl, zf, gbar,
+                                           1.0, False),
+        "bwd2": lambda: kl_mutual._backward(x, y, w2, out2, zl2, zf2, gbar2,
+                                            1.0, False),
+        "sfwd": lambda: sparse_kl._forward(live, *sets, w, 1.0),
+        "sbwd": lambda: sparse_kl._backward(live, *sets, w, stats, gbar,
+                                            1.0)}
+    ms = {key: time_ms(fn) for key, fn in timed.items()}
+    a = live.detach().requires_grad_(True)
+
+    def plain_f():
+        with torch.no_grad():
+            ref.mutual_kl_pair(a, y, w)
+
+    def plain_fb():
+        torch.autograd.grad(ref.mutual_kl_pair(a, y, w), a, gbar)
+
+    def splain_f():
+        with torch.no_grad():
+            ref.sparse_kl_pair(a, *sets, w)
+
+    def splain_fb():
+        torch.autograd.grad(ref.sparse_kl_pair(a, *sets, w), a, gbar)
+    plain_fwd = time_ms(plain_f, iters=5)
+    plain_bwd = time_ms(plain_fb, iters=5) - plain_fwd
+    splain_fwd = time_ms(splain_f, iters=5)
+    splain_bwd = time_ms(splain_fb, iters=5) - splain_fwd
+    plane = B * V * 2
+    fb = _bound(_kl_ops(1, J, B, V), (1 + J) * plane, torch.float32)
+    bb = _bound(_kl_bwd_ops(1, J, B, V), (2 + J) * plane, torch.float32)
+    fb2 = _bound(_kl_ops(2, J, B, V), (2 + J) * plane, torch.float32)
+    bb2 = _bound(_kl_bwd_ops(2, J, B, V), (4 + J) * plane, torch.float32)
+    sfb = _sparse_bound(1, J, B, V, k, BF16, False)
+    sbb = _sparse_bound(1, J, B, V, k, BF16, True)
+    for what, key, plain, (bound, by) in (
+            ("pair forward, Kl=1", "fwd", plain_fwd, fb),
+            ("pair forward, Kl=2 (two distinct live rows)", "fwd2", None,
+             fb2),
+            ("pair backward, Kl=1", "bwd", plain_bwd, bb),
+            ("pair backward, Kl=2", "bwd2", None, bb2),
+            ("sparse forward, Kl=1", "sfwd", splain_fwd, sfb),
+            ("sparse backward, Kl=1", "sbwd", splain_bwd, sbb)):
+        print(f"KL {what} against J={J} received at (B={B}, V={V}) bf16: "
+              f"{ms[key]:.4f} ms"
+              + (f", plain {plain:.4f} ms" if plain is not None else "")
+              + f"; bound {bound:.4f} ms by {by} ({bound / ms[key]:.0%} of "
+              f"it)")
+    print(f"  the Kl=1 pair forward takes {ms['fwd'] / ms['fwd2']:.2f} of "
+          f"the Kl=2 call's time (3 of 4 planes read: 0.75; the padded "
+          f"row's re-read of the live row reaching HBM: 1.00)")
+    del x, y, live, a, out, out2, stats, sets
+    torch.cuda.empty_cache()
+    src = "src/repro_torch/kernels/csrc/kl_mutual_pair.cu"
+    row = dict(route="cuda", source=src, launches=None, library_ms=None,
+               replaces="src/repro/kernels/kl_mutual.py:68")
+    return [
+        {"name": "kl_mutual_pair_fwd", **row,
+         "max_abs_err": errs[BF16, "dense"][0], "ms": ms["fwd"],
+         "plain_ms": plain_fwd, "bound_ms": fb[0], "bound_by": fb[1]},
+        {"name": "kl_mutual_pair_bwd", **row,
+         "replaces": "src/repro/kernels/kl_mutual.py:178",
+         "max_abs_err": errs[BF16, "dense"][1], "ms": ms["bwd"],
+         "plain_ms": plain_bwd, "bound_ms": bb[0], "bound_by": bb[1]},
     ]
 
 
@@ -2312,6 +2488,567 @@ def phase_vision(card: str, cfg=None, K: int = 5, rounds: int = 12,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 17-18: HeteroClients
+
+def _expand(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t[None], tree)
+
+
+def _host(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.cpu(), tree)
+
+
+def _expand_dev(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.cuda(), tree)
+
+
+def _tree_rel(a, b) -> list:
+    """[||a - b|| / ||b||] over every leaf of two one-model trees: ``b``
+    on the card (moved there whole), ``a`` anywhere (one leaf at a
+    time)."""
+    return _client_grad_errors(_expand(a), _expand(_expand_dev(b)), 1)
+
+
+def _mutual_grad(cm, params, inputs, received, impl: str):
+    """Client ``cm``'s gradient of its Eq.-1 mutual-step loss at
+    ``params``: public CE on ``inputs`` + Eq. 2 against ``received`` (the
+    (J, N_pub, V) logits, or SparseDML's (idx, logp) sets), the loss of
+    ``HeteroClients._mutual_step``; returns (loss, gradient)."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.mutual import kl_to_received, sparse_kl_to_received
+
+    def loss(p):
+        ce, live = cm.public_ce_and_logits(p, inputs, None, None, impl=impl)
+        terms = (sparse_kl_to_received(live, *received, impl=impl)
+                 if isinstance(received, tuple) else
+                 kl_to_received(live, received.to(live.dtype), impl=impl))
+        return ce + torch.mean(terms), None
+    total, _, g = D.value_and_grad(loss, params)
+    return float(total), g
+
+
+def _hetero_grad_parity(cms, seeds, inputs, stack, sparse_k: int,
+                        limits) -> None:
+    """The parity rule on each client's gradient of its mutual-step loss
+    at its initial weights (drawn again from the population's seeds, one
+    client at a time): bf16 at impl "cuda" and "ref", and an fp32 copy of
+    the same weights at both, every one against the same received
+    predictions: the other clients' rows of ``stack``, the kernel path's
+    shared logits, or their top-``sparse_k`` sets.  ``limits`` holds each
+    client's bf16-vs-bf16 limit (None for MoE clients: a route flip moves
+    a token by O(1))."""
+    from repro_torch.core.mutual import topk_predictions
+    from repro_torch.models import get_client_model
+    from repro_torch.tree import tree_map
+    for c, (cm, seed, lim) in enumerate(zip(cms, seeds, limits)):
+        others = torch.cat([stack[:c], stack[c + 1:]])
+        received = topk_predictions(others, sparse_k) if sparse_k else others
+        p16 = cm.init(seed, "cuda")
+        l16k, g = _mutual_grad(cm, p16, inputs, received, "cuda")
+        g16k = _host(g)
+        l16p, g = _mutual_grad(cm, p16, inputs, received, "ref")
+        g16p = _host(g)
+        del g
+        p32 = tree_map(lambda t: t.float(), p16)
+        del p16
+        cm32 = get_client_model(cm.cfg.replace(param_dtype="float32",
+                                               compute_dtype="float32"))
+        if not sparse_k:
+            received = others.float()
+        l32k, g = _mutual_grad(cm32, p32, inputs, received, "cuda")
+        g32k = _host(g)
+        del g
+        l32p, g32p = _mutual_grad(cm32, p32, inputs, received, "ref")
+        del p32
+        print(f"  client {c} ({cm.arch}): mutual-step loss impl=cuda / ref "
+              f"bf16 {l16k:.5f} / {l16p:.5f}, fp32 {l32k:.5f} / {l32p:.5f}")
+        _parity(f"client {c}'s gradient ({cm.arch})", _tree_rel(g32k, g32p),
+                _tree_rel(g16k, g32p), _tree_rel(g16p, g32p),
+                _tree_rel(g16k, g16p), lim)
+        if abs(l16k - l16p) > 2e-2 * abs(l16p):
+            raise AssertionError(f"client {c}'s mutual-step loss disagrees")
+        del g16k, g16p, g32k, g32p
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _hetero_round_parity(first, ref_first, what: str) -> None:
+    """Round 1 through the kernels against the same round at impl "ref":
+    each client's local loss, public CE and KL within relative error 2e-2
+    (KL within 2e-2 |ref| + 1e-3), as ``_round1_parity``."""
+    rel = lambda a, b: abs(a - b) / abs(b)                  # noqa: E731
+    worst = {
+        "local_loss": max(map(rel, first.client_loss, ref_first.client_loss)),
+        "public_ce": max(map(rel, first.public_ce, ref_first.public_ce)),
+        "kl": max(abs(a - b) / (abs(b) + 0.05) for a, b in
+                  zip(first.kl_loss, ref_first.kl_loss))}
+    print(f"{what} round 1, impl=cuda vs impl=ref: local loss "
+          f"{_fmt(first.client_loss)} / {_fmt(ref_first.client_loss)}, "
+          f"public_ce {_fmt(first.public_ce)} / {_fmt(ref_first.public_ce)},"
+          f" kl {_fmt(first.kl_loss)} / {_fmt(ref_first.kl_loss)}; worst "
+          f"relative error {worst} (limit 2e-2; kl within 2e-2 |ref| + 1e-3)")
+    if not all(v <= 2e-2 for v in worst.values()):
+        raise AssertionError(f"the {what} round disagrees with the plain "
+                             f"path")
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def phase_hetero(card: str, cfgs, B: int = 4, S: int = 512, pub: int = 2,
+                 fold: int = 8, dml_rounds: int = 3, sparse_rounds: int = 2,
+                 k: int = 64) -> dict:
+    """A mixed-architecture federation at full width:
+    ``Federation(HeteroClients(cfgs, pool, labels), strategy)`` with one
+    client per config (one vocabulary), folds of ``fold`` sequences of
+    ``S`` tokens (T = fold / B local AdamW steps a client) and ``pub``
+    public sequences.  ``dml_rounds`` rounds of ``DML()`` (the last one
+    profiled), one at participation K - 1 (the absent client's params and
+    moments bitwise untouched, checked on a host copy) and
+    ``sparse_rounds`` of ``SparseDML(k)``.  Each DML round's Eq. 2 runs
+    the pair kernels, M x E launches each way (one live row against the
+    J = M - 1 received) and no square or sparse kernel; each SparseDML
+    round the sparse kernels M x E times each way and no pair-KL kernel;
+    comm bytes equal ``comm_bytes_per_round`` / ``sparse_share_bytes``.
+    Then round 1 of DML and of SparseDML from fresh populations against
+    the same round at impl "ref" (``_hetero_round_parity``), and each
+    client's gradient by the parity rule (``_hetero_grad_parity``).
+    Returns the kernels' launch counts over the main run."""
+    from repro_torch.api import (DML, Federation, HeteroClients, SparseDML,
+                                 comm_bytes_per_round, make_lm_pool)
+    from repro_torch.configs import get_config
+    from repro_torch.core.mutual import sparse_share_bytes
+    from repro_torch.tree import tree_leaves
+
+    K, V = len(cfgs), cfgs[0].vocab_size
+    rounds = dml_rounds + 1 + sparse_rounds
+    pool, labels = make_lm_pool(((1 + K) * rounds + 1) * fold, S, V, seed=0)
+
+    def population(impl):
+        return HeteroClients(cfgs, pool, labels, rounds=rounds,
+                             batch_size=B, public_batch=pub, seed=0,
+                             kernel_impl=impl)
+
+    torch.cuda.reset_peak_memory_stats()
+    pop, secs = _timed(lambda: population(None))
+    T, n_pub = pop._local_T, pop._pub_n * S
+    tokens = K * (T * B + pop._pub_n) * S
+    state_gb = sum(t.numel() * t.element_size() for t in
+                   tree_leaves(pop.state_dict())) / 1e9
+    print(f"hetero fleet of {K} at full width (seeded random weights), "
+          f"V = {V}: " + ", ".join(
+              f"{c.name} ({pop._models[c.name].family}, {c.n_layers} of "
+              f"{get_config(c.name).n_layers} layers, {n / 1e9:.3f} B)"
+              for c, n in zip(cfgs, pop.n_params))
+          + f"; {state_gb:.1f} GB of params and AdamW moments, {secs:.1f} s;"
+          f" T = {T} local steps of ({B}, {S}) a client, public "
+          f"({pop._pub_n}, {S}) = {n_pub} positions; {tokens} trained "
+          f"tokens a round; kernels impl={pop.impl}")
+    mixers = ("flash_attention_fwd", "flash_attention_bwd")
+    _kernel_counts(zero=True)                       # the main path starts here
+    walls = []
+
+    def run_round(fed, r, profile=False):
+        before = _kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        if profile:
+            t0 = time.perf_counter()
+            by_name, busy = device_spans(lambda: fed.run(until=r + 1))
+            wall = time.perf_counter() - t0
+        else:
+            _, wall = _timed(lambda: fed.run(until=r + 1))
+            by_name = busy = None
+        return fed.history.rounds[-1], wall, _delta(before,
+                                                    _kernel_counts()), \
+            by_name, busy
+
+    fed = Federation(pop, DML())
+    first = None
+    for r in range(dml_rounds):
+        prof = r == dml_rounds - 1
+        rl, wall, ran, by_name, busy = run_round(fed, r, prof)
+        if r == 0:
+            first = rl
+        if not prof:
+            walls.append(wall)
+        M = len(rl.participants)
+        want = comm_bytes_per_round(M, n_pub, V, 1)["round"]
+        print(f"DML round {r}: {wall:.3f} s wall{' (profiled)' if prof else ''}"
+              f", {tokens / wall:.0f} trained tok/s; local loss "
+              f"{_fmt(rl.client_loss)} public_ce {_fmt(rl.public_ce)} kl "
+              f"{_fmt(rl.kl_loss)}; comm_bytes {rl.comm_bytes} (analytic "
+              f"{want}); launches {ran}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        if rl.comm_bytes != want or ran.get("kl_mutual_pair_fwd") != M or \
+                ran.get("kl_mutual_pair_bwd") != M or any(
+                    ran.get(n) for n in ("kl_mutual_square_fwd",
+                                         "kl_mutual_square_bwd",
+                                         "sparse_kl_fwd", "sparse_kl_bwd")) \
+                or not all(ran.get(n) for n in mixers):
+            raise AssertionError(f"DML round {r} of the hetero fleet left "
+                                 f"its kernels or its bytes")
+        if not all(np.isfinite(x).all() for x in (rl.client_loss,
+                                                  rl.public_ce, rl.kl_loss)):
+            raise AssertionError("non-finite hetero losses")
+    steady = walls[-1]
+    busy_us = sum(us for us, _ in by_name.values())
+    print(f"hetero DML round on {card}: {steady:.3f} s wall (round "
+          f"{dml_rounds - 2}, unprofiled) = {tokens / steady:.0f} trained "
+          f"tok/s; round {dml_rounds - 1}: {busy / 1e3:.1f} ms device busy "
+          f"(union of activities; {busy_us / 1e3:.1f} ms summed) in "
+          f"{sum(c for _, c in by_name.values())} kernels (profiled) -> "
+          f"device idle {1 - busy / 1e6 / steady:.1%}")
+    _print_top(by_name, 1, "round", n=8)
+
+    # one round at participation K - 1: the absent client untouched
+    r = dml_rounds
+    fedp = Federation(pop, DML(), participation=K - 1)
+    fedp.round = r
+    absent, = set(range(K)) - set(fedp.participants(r))
+    snap = _host(pop.state_dict()["clients"][absent])
+    rl, wall, ran, _, _ = run_round(fedp, r)
+    now = pop.state_dict()["clients"][absent]
+    untouched = all(torch.equal(a, b.cpu()) for a, b in
+                    zip(tree_leaves(snap["params"]) + tree_leaves(
+                        snap["opt"]["mu"]) + tree_leaves(snap["opt"]["nu"]),
+                        tree_leaves(now["params"]) + tree_leaves(
+                            now["opt"]["mu"]) + tree_leaves(now["opt"]["nu"])))
+    want = comm_bytes_per_round(K - 1, n_pub, V, 1)["round"]
+    print(f"DML round {r} at participation {K - 1} (participants "
+          f"{rl.participants}): {wall:.3f} s wall; local loss "
+          f"{_fmt(rl.client_loss)}; comm_bytes {rl.comm_bytes} (analytic "
+          f"{want}); launches {ran}; client {absent}'s params and moments "
+          f"bitwise untouched: {untouched}")
+    del snap, now
+    if not untouched or rl.comm_bytes != want or \
+            ran.get("kl_mutual_pair_fwd") != K - 1 or \
+            ran.get("kl_mutual_pair_bwd") != K - 1:
+        raise AssertionError("the partial-participation hetero round failed "
+                             "its checks")
+
+    feds = Federation(pop, SparseDML(k=k))
+    for r in range(dml_rounds + 1, rounds):
+        feds.round = r
+        rl, wall, ran, _, _ = run_round(feds, r)
+        want = sparse_share_bytes(K, n_pub, k)
+        print(f"SparseDML(k={k}) round {r}: {wall:.3f} s wall, "
+              f"{tokens / wall:.0f} trained tok/s; local loss "
+              f"{_fmt(rl.client_loss)} public_ce {_fmt(rl.public_ce)} kl "
+              f"{_fmt(rl.kl_loss)}; comm_bytes {rl.comm_bytes} (analytic "
+              f"{want}); launches {ran}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        if rl.comm_bytes != want or ran.get("sparse_kl_fwd") != K or \
+                ran.get("sparse_kl_bwd") != K or any(
+                    ran.get(n) for n in ("kl_mutual_pair_fwd",
+                                         "kl_mutual_pair_bwd",
+                                         "kl_mutual_square_fwd",
+                                         "kl_mutual_square_bwd")) or \
+                not np.isfinite(rl.kl_loss).all():
+            raise AssertionError(f"SparseDML round {r} of the hetero fleet "
+                                 f"left its kernels or its bytes")
+    counts = _kernel_counts()                        # ... and ends here
+    counts = {n: c for n, c in counts.items() if c}
+    print(f"hetero launches over {rounds} rounds: {counts}")
+
+    # the parity: round 1 of each strategy from fresh populations, and
+    # each client's gradient at the initial weights
+    inputs = pop._gather(pop.eval_fold)[0]
+    cms = [pop._models[c.name] for c in cfgs]
+    seeds = [pop._init_seed(c) for c in range(K)]
+    del fed, fedp, feds, pop
+    gc.collect()
+    torch.cuda.empty_cache()
+    for strat, main_first in ((DML(), first), (SparseDML(k=k), None)):
+        if main_first is None:
+            p = population(None)
+            main_first = Federation(p, strat).run(until=1).rounds[0]
+            del p
+            gc.collect()
+            torch.cuda.empty_cache()
+        p = population("ref")
+        ref_first = Federation(p, strat).run(until=1).rounds[0]
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+        _hetero_round_parity(main_first, ref_first, strat.name)
+    with torch.no_grad():
+        stack = []
+        for cm, seed in zip(cms, seeds):
+            p = cm.init(seed, "cuda")
+            stack.append(cm.share_logits(p, inputs, impl="cuda"))
+            del p
+        stack = torch.stack(stack)
+    limits = [2e-2 if cm.cfg.moe is None else None for cm in cms]
+    for sparse_k in (0, k):
+        print(f"per-client gradients of the mutual-step loss at the initial "
+              f"weights, {'SparseDML' if sparse_k else 'DML'} (received: the "
+              f"kernel path's shared logits"
+              f"{f', their top-{k} sets' if sparse_k else ''}):")
+        _hetero_grad_parity(cms, seeds, inputs, stack, sparse_k, limits)
+    del stack, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_hetero_small(card: str, tcfg, B: int = 4, S: int = 64,
+                       rounds: int = 2, TB: int = 4, TS: int = 512) -> dict:
+    """(a) The CLI's default fleet, ("qwen3-4b", "mamba2-780m",
+    "dbrx-132b") at their reduced configs (fp32, vocab 512: dense, SSM at
+    P 32 N 16 chunk 32, MoE), ``rounds`` DML rounds through the flash, SSD
+    and pair-KL kernels (each round's launches checked), against the same
+    rounds at impl "ref": every round's losses within relative error 1e-3
+    and the final params within relative norm error 2e-2 a client (the
+    parity rule's fp32 limit); ``FedAvg()`` refused on it.  (b) Three
+    clients of ``tcfg`` (one arch, full width): 2 FedAvg rounds (every leaf
+    identical across clients after each) and 3 AsyncWeights(delta=2,
+    min_round=1) rounds (the scheduled group identical, the other not),
+    comm bytes analytic.  Returns the kernels' launch counts."""
+    from repro_torch.api import (DML, AsyncWeights, FedAvg, Federation,
+                                 HeteroClients, make_lm_pool)
+    from repro_torch.core import distributed as D
+    from repro_torch.core import stacking
+    from repro_torch.core.async_fl import layer_schedule
+    from repro_torch.tree import tree_leaves
+
+    archs = ("qwen3-4b", "mamba2-780m", "dbrx-132b")
+    K = len(archs)
+    pool, labels = make_lm_pool(((1 + K) * rounds + 1) * 8, S, 512, seed=0)
+    runs = {}
+    _kernel_counts(zero=True)                        # the main path starts
+    for impl in (None, "ref"):
+        pop = HeteroClients(archs, pool, labels, rounds=rounds,
+                            batch_size=B, public_batch=2, seed=0,
+                            kernel_impl=impl)
+        fed = Federation(pop, DML())
+        logs = []
+        for r in range(rounds):
+            before = _kernel_counts()
+            rl = fed.run(until=r + 1).rounds[-1]
+            ran = _delta(before, _kernel_counts())
+            logs.append(rl)
+            if pop.impl == "cuda" and not (
+                    ran.get("kl_mutual_pair_fwd") == K
+                    and ran.get("kl_mutual_pair_bwd") == K
+                    and all(ran.get(n) for n in (
+                        "flash_attention_fwd", "flash_attention_bwd",
+                        "ssd_scan_fwd", "ssd_scan_bwd"))):
+                raise AssertionError(f"reduced hetero round {r} left its "
+                                     f"kernels: {ran}")
+            if pop.impl == "cuda":
+                print(f"reduced fleet {archs} (fp32) DML round {r}: local "
+                      f"loss {_fmt(rl.client_loss)} kl {_fmt(rl.kl_loss)}; "
+                      f"launches {ran}")
+        runs[pop.impl] = (logs, [_host(p) for p in pop.client_params])
+        if pop.impl == "cuda":
+            try:
+                Federation(pop, FedAvg())
+                refusal = None
+            except ValueError as e:
+                refusal = str(e)
+            if not refusal or "undefined across heterogeneous" not in \
+                    refusal:
+                raise AssertionError(f"FedAvg on the mixed fleet: {refusal}")
+            print(f"FedAvg on the mixed fleet refused: {refusal[:90]}...")
+            counts = {n: c for n, c in _kernel_counts().items() if c}
+        del fed, pop
+    (logs, params), (ref_logs, ref_params) = runs["cuda"], runs["ref"]
+    worst = max(abs(a - b) / abs(b) for g, w in zip(logs, ref_logs)
+                for f in ("client_loss", "public_ce", "kl_loss")
+                for a, b in zip(getattr(g, f), getattr(w, f)))
+    errs = [_tree_rel(p, q)[0] for p, q in zip(params, ref_params)]
+    print(f"reduced fleet, {rounds} DML rounds, impl=cuda vs impl=ref: "
+          f"worst relative error of the round logs {worst:.3g} (limit "
+          f"1e-3); final params' relative norm error per client "
+          f"{_fmt(errs, '.3g')} (limit 2e-2)")
+    if worst > 1e-3 or max(errs) > 2e-2:
+        raise AssertionError("the reduced hetero fleet disagrees with the "
+                             "plain path")
+    del runs, params, ref_params
+
+    # (b) one arch at full width: the weight strategies
+    n_rounds = 5
+    pool, labels = make_lm_pool(((1 + K) * n_rounds + 1) * 8, TS,
+                                tcfg.vocab_size, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    pop = HeteroClients((tcfg,) * K, pool, labels, rounds=n_rounds,
+                        batch_size=TB, public_batch=2, seed=0)
+    stacked = stacking.stack_params(pop.client_params)
+    shallow, deep = _group_sizes(tcfg, stacked, K)
+    mask = D.transformer_shallow_mask(tcfg, stacked)
+    del stacked
+    n = pop.params_per_client
+    print(f"weight baselines on a one-arch hetero fleet: {K} x {tcfg.name}, "
+          f"{tcfg.n_layers} layers at full width, {n / 1e9:.3f} B params "
+          f"each ({shallow / 1e9:.3f} B shallow, {deep / 1e9:.3f} B deep)")
+    before = _kernel_counts()
+    r = 0
+    for strategy, n_r in ((FedAvg(), 2), (AsyncWeights(delta=2,
+                                                       min_round=1), 3)):
+        fed = Federation(pop, strategy)
+        for _ in range(n_r):
+            fed.round = r
+            _, secs = _timed(lambda: fed.run(until=r + 1))
+            rl = fed.history.rounds[-1]
+            stacked = stacking.stack_params(pop.client_params)
+            if strategy.name == "fedavg":
+                want = 2 * K * n * 4
+                ok = _synced(stacked, mask, K, "all")
+                what = "every leaf identical across clients"
+            else:
+                layer = layer_schedule(r, 2, 1)
+                other = "deep" if layer == "shallow" else "shallow"
+                want = 2 * K * (shallow if layer == "shallow" else deep) * 4
+                ok = rl.layer == layer and \
+                    _synced(stacked, mask, K, layer) and \
+                    not _synced(stacked, mask, K, other)
+                what = (f"{layer} group identical across clients, {other} "
+                        f"group not")
+            del stacked
+            print(f"{strategy.name} round {r}"
+                  f"{' (' + rl.layer + ')' if rl.layer else ''}: {secs:.3f} "
+                  f"s wall; local loss {_fmt(rl.client_loss)}; comm_bytes "
+                  f"{rl.comm_bytes} (analytic {want}); {what}: {ok}; peak "
+                  f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+            if not ok or rl.comm_bytes != want or \
+                    not np.isfinite(rl.client_loss).all():
+                raise AssertionError(f"{strategy.name} round {r} of the "
+                                     f"one-arch hetero fleet failed")
+            r += 1
+    ran = _delta(before, _kernel_counts())
+    if not all(ran.get(n, 0) >= 2 * tcfg.n_layers * 5 for n in
+               ("flash_attention_fwd",)):
+        raise AssertionError(f"the weight rounds left the flash kernels: "
+                             f"{ran}")
+    for name, c in ran.items():
+        counts[name] = counts.get(name, 0) + c
+    del fed, pop, mask
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 19: single-model training and the step factories
+
+def phase_single(card: str, cfg, B: int = 4, S: int = 512, steps: int = 3,
+                 prompt: int = 64, gen_len: int = 32) -> dict:
+    """``launch.steps.make_train_step`` on one model of ``cfg`` (full width
+    and depth) for ``steps`` steps of (B, S), the CLI's batches
+    (``make_token_stream`` of domain 0 seeded by the step): ce and
+    grad_norm finite, the flash kernels' launches.  Step 1's loss and
+    gradient first, against impl "ref" and an fp32 copy, one after another
+    on the same weights, by the parity rule (no bf16-vs-bf16 limit: 36
+    bf16 layers).  Then ``make_multistep_decode``'s greedy tokens against
+    ``greedy_generate``'s over ``gen_len`` new tokens of 2 prompts of
+    ``prompt``.  Returns the kernels' launch counts."""
+    from repro_torch.core import distributed as D
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.launch.steps import (make_multistep_decode,
+                                          make_prefill_step,
+                                          make_train_step)
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def batch(i):
+        return torch.as_tensor(make_token_stream(
+            B, S + 1, cfg.vocab_size, seed=1000 * i, domain=0)[:, :S],
+            dtype=torch.long, device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    params, secs = _timed(lambda: tfm.init_model(0, cfg))
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"single model: {cfg.name} at full width and depth "
+          f"({cfg.n_layers} layers, {n / 1e9:.3f} B params, seeded random "
+          f"weights), {secs:.1f} s")
+    toks = batch(0)
+
+    def grad(p, c, impl):
+        loss, m, g = D.value_and_grad(tfm.loss_fn, p, c, toks, impl=impl)
+        return float(loss), g
+    l16k, g = grad(params, cfg, "cuda")
+    g16k = _host(g)
+    l16p, g = grad(params, cfg, "ref")
+    g16p = _host(g)
+    del g
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    l32k, g = grad(p32, cfg32, "cuda")
+    g32k = _host(g)
+    del g
+    l32p, g32p = grad(p32, cfg32, "ref")
+    del p32
+    print(f"step 1's loss impl=cuda / ref: bf16 {l16k:.5f} / {l16p:.5f}, "
+          f"fp32 {l32k:.5f} / {l32p:.5f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    _parity("step 1's gradient", _tree_rel(g32k, g32p),
+            _tree_rel(g16k, g32p), _tree_rel(g16p, g32p),
+            _tree_rel(g16k, g16p), None)
+    if abs(l16k - l16p) > 2e-2 * abs(l16p):
+        raise AssertionError("step 1's loss disagrees with the plain path")
+    del g16k, g16p, g32k, g32p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt_cfg = AdamWConfig(lr=1e-3, warmup=5, total_steps=steps)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, opt_cfg, impl="cuda")
+    _kernel_counts(zero=True)                        # the main path starts
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        toks = batch(i)
+        (params, opt, m), secs = _timed(lambda: step(params, opt, toks))
+        ce, gn = float(m["ce"]), float(m["grad_norm"])
+        print(f"step {i}: {secs:.3f} s wall, {B * S / secs:.0f} trained "
+              f"tok/s; ce {ce:.4f} grad_norm {gn:.3f}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        if not (np.isfinite(ce) and np.isfinite(gn)):
+            raise AssertionError("non-finite single-model metrics")
+    del opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prompts = torch.as_tensor(make_token_stream(2, prompt, cfg.vocab_size,
+                                                seed=9), dtype=torch.long,
+                              device="cuda")
+    want, g_secs = _timed(lambda: greedy_generate(cfg, params, prompts,
+                                                  gen_len, impl="cuda"))
+
+    def multistep():
+        logits, cache = make_prefill_step(cfg, max_seq=prompt + gen_len,
+                                          impl="cuda")(params, prompts)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        return make_multistep_decode(cfg, gen_len)(
+            params, tok, cache, prompt, torch.Generator(device="cuda"))
+    (got, logits, *_), m_secs = _timed(multistep)
+    same = torch.equal(got, want)
+    print(f"make_multistep_decode vs greedy_generate, {gen_len} new tokens "
+          f"of 2 prompts of {prompt}: tokens equal {same}; {m_secs:.2f} s / "
+          f"{g_secs:.2f} s wall ({m_secs / gen_len * 1e3:.1f} / "
+          f"{g_secs / gen_len * 1e3:.1f} ms a token, prefill included)")
+    if not same or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("the multi-step decode disagrees with greedy "
+                             "generation")
+    counts = {n: c for n, c in _kernel_counts().items() if c}
+    need = 2 * cfg.n_layers * steps + 2 * cfg.n_layers
+    print(f"single-model launches {counts} (need flash forward >= {need}: "
+          f"{steps} steps under remat and the two prefills)")
+    if counts.get("flash_attention_fwd", 0) < need or \
+            counts.get("flash_attention_bwd", 0) < cfg.n_layers * steps:
+        raise AssertionError("the single-model path left the flash kernels")
+    del params, prompts, got, want, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     check_cuda()
     env = phase_env()
@@ -2354,6 +3091,10 @@ def main() -> int:
     GK, GB, GS0 = 2, 2, 512
     GTK, GTB, GTS = 3, 4, 512
     greqs = make_requests(gcfg)
+    # the mixed fleet of phase 17 (one vocabulary, 151,936): full width,
+    # depth cut so that three clients' params and moments fit (~40 GB)
+    hcfgs = (tcfg, qtcfg, get_config("qwen3-8b").replace(n_layers=2))
+    HB, HS, HPUB = 4, 512, 2
 
     def shapes(c):
         return (c.n_heads, c.n_kv_heads, c.head_dim_)
@@ -2397,6 +3138,12 @@ def main() -> int:
                                qtrain + ltrain + gtrain,
                                ltrain[:1] + gtrain[:1])]
     kernels += phase_kl(TK, max(1, TB // 2) * TS, cfg.vocab_size)
+    # the pair kernels' rows at the hetero fleet's call (phase 17): one
+    # live row against J = 2 received; phase_kl's (K = 3, x rolled) printed
+    received = phase_kl_received(HPUB * HS, cfg.vocab_size, len(hcfgs) - 1,
+                                 64)
+    kernels = [r for r in kernels if r["name"] not in
+               {x["name"] for x in received}] + received
     # the mamba2 round's Eq.-2 term: checked, its rows kept at qwen3-4b's
     phase_kl(MTK, max(1, MTB // 2) * MTS, mcfg.vocab_size)
     # the prefix archs' rounds' Eq.-2 terms (token positions only)
@@ -2441,7 +3188,10 @@ def main() -> int:
                                 GS0, 32, None,
                                 prefix=_random_prefix(gcfg, GB, 0)),
             lambda: phase_train(env["card"], gcfg, flash, GTK, GTB, GTS, 3,
-                                None)):
+                                None),
+            lambda: phase_hetero(env["card"], hcfgs, HB, HS, HPUB),
+            lambda: phase_hetero_small(env["card"], tcfg),
+            lambda: phase_single(env["card"], cfg)):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2452,7 +3202,9 @@ def main() -> int:
           "AsyncWeights, qwen2-moe-a2.7b serving, qwen2-moe-a2.7b DML "
           "training, dbrx-132b serving, llava-next-mistral-7b serving, "
           "llava-next-mistral-7b DML training, musicgen-medium serving, "
-          "musicgen-medium DML training): " + json.dumps(paths))
+          "musicgen-medium DML training, the full-width hetero fleet, the "
+          "reduced hetero fleet + one-arch weight rounds, qwen3-4b "
+          "single-model training + decode): " + json.dumps(paths))
     for row in kernels:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,7 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig  # noqa: F401
 
 _MODULES: Dict[str, str] = {
     "dbrx-132b": "dbrx_132b",
@@ -38,3 +38,7 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced(arch: str) -> ModelConfig:
     return _module(arch).reduced()
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]

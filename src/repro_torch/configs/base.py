@@ -179,3 +179,23 @@ class ModelConfig:
         per_expert = 3 * self.d_model * m.d_expert
         inactive = n_moe_layers * (m.n_experts - m.top_k) * per_expert
         return self.param_count() - inactive
+
+
+# ---------------------------------------------------------------------------
+# input shapes
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

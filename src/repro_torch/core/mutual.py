@@ -88,20 +88,30 @@ def mutual_kl_loss(all_logits, temperature: float = 1.0,
     return torch.mean(terms, dim=-1)
 
 
-def kl_to_received(live_logits, received_logits, temperature: float = 1.0):
+def kl_to_received(live_logits, received_logits, temperature: float = 1.0,
+                   *, impl: str):
     """Eq. 2 for ONE client against the predictions it received.
 
     live_logits: (B, V), differentiable.  received_logits: (J, B, V), the
     J other participants' shared logits (detached here).  Returns
-    (B,) = 1/J * sum_j KL(softmax(live) || softmax(received_j)).
+    (B,) = 1/J * sum_j KL(softmax(live) || softmax(received_j)).  ``impl``
+    "cuda" runs the rectangular pair-KL kernel and its backward (Kl = 1
+    live row against the J received, weights 1/J; the JAX package runs
+    this plain function on every impl); "ref" the plain graph.
     """
+    J = received_logits.shape[0]
+    if impl != "ref":
+        pair_w = torch.full((1, J), 1.0 / max(J, 1), dtype=torch.float32,
+                            device=live_logits.device)
+        fixed = received_logits.detach().to(live_logits.dtype).contiguous()
+        return ops.mutual_kl_pair(live_logits[None], fixed, pair_w,
+                                  temperature=temperature, impl=impl)[0]
     rec = received_logits.detach().float()
     lp_live = torch.log_softmax(live_logits.float() / temperature, dim=-1)
     p_live = torch.exp(lp_live)
     lp_rec = torch.log_softmax(rec / temperature, dim=-1)       # (J,B,V)
     self_term = torch.sum(p_live * lp_live, dim=-1)             # (B,)
     cross = torch.einsum("bv,jbv->jb", p_live, lp_rec)          # (J,B)
-    J = received_logits.shape[0]
     return self_term - torch.sum(cross, dim=0) / max(J, 1)
 
 

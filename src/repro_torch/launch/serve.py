@@ -37,6 +37,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_reduced
 from repro_torch.data.synthetic import make_token_stream
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import transformer as tfm
 from repro_torch.serve import MODES, ServeEngine
 
@@ -44,6 +45,27 @@ from repro_torch.serve import MODES, ServeEngine
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def greedy_generate(cfg, params, prompts, gen_len: int, prefix=None, *,
+                    impl: str):
+    """The per-token Python decode loop (``repro/launch/serve.py:35-52``):
+    the token-parity reference the engine and ``make_multistep_decode``
+    are held against.  prompts: (B, S0) int tensor on the params' device.
+    Returns (B, gen_len) generated ids."""
+    B, S0 = prompts.shape
+    max_seq = S0 + gen_len + (cfg.prefix_tokens or 0)
+    prefill = make_prefill_step(cfg, max_seq=max_seq, impl=impl)
+    decode = make_decode_step(cfg)
+    logits, cache = prefill(params, prompts, prefix)
+    out = []
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    pos = S0 + (cfg.prefix_tokens or 0)
+    for t in range(gen_len):
+        out.append(tok[:, 0])
+        logits, cache = decode(params, tok, cache, pos + t)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+    return torch.stack(out, dim=1)
 
 
 def _random_prefix(cfg, batch: int, seed: int):

@@ -1,24 +1,31 @@
-"""Training driver for the port: a federated session of stacked same-arch
-LM clients through ``repro_torch.api.Federation`` (the JAX package's
-``python -m repro.launch.train --method dml``), on the reduced config of
-``--arch``.
+"""Training driver for the port (the JAX package's ``python -m
+repro.launch.train``) on reduced configs: single-model pretraining
+(``--method single``, the default), a federated session of stacked
+same-arch LM clients (``--method dml``) or of one arch PER client
+(``--method hetero``) through ``repro_torch.api.Federation``.
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
+      --steps 20                                 # on the CUDA device
+  PYTHONPATH=src python -m repro_torch.launch.train --steps 2 \
+      --device cpu --save runs/single            # plain PyTorch on the CPU
   PYTHONPATH=src python -m repro_torch.launch.train --method dml \
-      --clients 3 --steps 8                      # on the CUDA device
-  PYTHONPATH=src python -m repro_torch.launch.train --method dml \
-      --clients 3 --steps 2 --device cpu         # plain PyTorch on the CPU
+      --clients 3 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
       --method dml --device cpu                  # reduced mamba2 (SSD) clients
   PYTHONPATH=src python -m repro_torch.launch.train --method dml \
       --clients 3 --strategy sparse-dml --sparse-k 64 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.train --method dml \
       --clients 3 --strategy fedavg --steps 4 --device cpu   # or async
+  PYTHONPATH=src python -m repro_torch.launch.train --method hetero \
+      --archs qwen3-4b,mamba2-780m,dbrx-132b --rounds 3 --participation 2
+  PYTHONPATH=src python -m repro_torch.launch.train --method hetero \
+      --archs qwen3-4b,qwen3-4b --strategy fedavg --rounds 3 --device cpu
 
 ``--strategy`` picks what crosses the wire: dml, sparse-dml, fedavg or
-async.  The JAX CLI's privacy and robust strategies, the single-model and
-heterogeneous methods and ``--mesh`` are not ported; those strategies
-raise, naming the slice of the port they come with.  The full-width run is
-``chip_smoke.py``'s.
+async.  The JAX CLI's privacy and robust strategies, ``--byzantine`` and
+``--mesh`` are not ported; those strategies and a non-empty
+``--byzantine`` raise, naming the item of the port they come with.  The
+full-width runs are ``chip_smoke.py``'s.
 """
 from __future__ import annotations
 
@@ -26,9 +33,11 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import ARCH_IDS, get_reduced
 from repro_torch.core.strategies import NOT_PORTED, get_strategy
+from repro_torch.kernels import ops
 
 
 def _make_strategy(args):
@@ -37,6 +46,111 @@ def _make_strategy(args):
     take."""
     return get_strategy(args.strategy, kl_weight=args.kl_weight,
                         k=args.sparse_k)
+
+
+def _parse_byzantine(spec: str) -> dict:
+    """``"2=collude,0=sign-flip"`` -> {2: "collude", 0: "sign-flip"}."""
+    out = {}
+    for item in (spec or "").split(","):
+        item = item.strip()
+        if not item:
+            continue
+        idx, _, mode = item.partition("=")
+        if not mode:
+            raise SystemExit(
+                f"--byzantine entries are IDX=MODE, got {item!r}")
+        out[int(idx)] = mode
+    return out
+
+
+def _print_history(h) -> None:
+    for rl in h.rounds:
+        print(f"round {rl.round:3d} participants={rl.participants} "
+              f"loss={['%.3f' % x for x in rl.client_loss]} "
+              f"kld={['%.4f' % x for x in rl.kl_loss]} "
+              f"comm_bytes={rl.comm_bytes}", flush=True)
+    print(f"total_comm_bytes={h.total_comm_bytes}")
+
+
+def _run_hetero(args) -> int:
+    """Heterogeneous-client federation (one arch per client)."""
+    from repro_torch.api import Federation, HeteroClients, make_lm_pool
+
+    archs = tuple(a.strip() for a in args.archs.split(",") if a.strip())
+    vocab = get_reduced(archs[0]).vocab_size
+    n_folds = (1 + len(archs)) * args.rounds + 1
+    pool, labels = make_lm_pool(n_folds * max(2 * args.batch, 8),
+                                args.seq, vocab, seed=args.seed)
+    t0 = time.time()
+    strategy = _make_strategy(args)
+    population = HeteroClients(
+        archs, pool, labels, rounds=args.rounds, batch_size=args.batch,
+        public_batch=max(1, args.batch // 2), lr=args.lr, seed=args.seed,
+        kernel_impl=args.kernel_impl,
+        byzantine=_parse_byzantine(args.byzantine), device=args.device)
+    fed = Federation(population, strategy, participation=args.participation)
+    print(f"federating [{args.strategy}]:", ", ".join(
+        f"{a} ({population._models[a].family})" for a in archs))
+    print(f"on {population.device}, kernels {population.impl}")
+    if args.resume:
+        fed.restore_state(args.resume)
+        print(f"resumed from {args.resume} at round {fed.round}")
+    h = fed.run(until=args.until)
+    _print_history(h)
+    fed.evaluate()
+    print(f"held-out eval loss per client: "
+          f"{['%.3f' % x for x in h.client_eval_loss]}")
+    print(f"done in {time.time() - t0:.1f}s")
+    if args.save:
+        fed.save_state(args.save)
+        print(f"saved federated state to {args.save}")
+    return 0
+
+
+def _run_single(args, cfg) -> int:
+    """Single-model pretraining (``repro/launch/train.py:232-283``): the
+    batches are ``make_token_stream`` of domain 0 seeded by the step, and
+    a prefix-token arch's embeddings N(0, 1) seeded by the step."""
+    from repro_torch import checkpoint
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    device = ops.resolve_device(args.device)
+    impl = ops.resolve_impl(args.kernel_impl, device)
+    opt_cfg = AdamWConfig(lr=args.lr, warmup=5, total_steps=args.steps)
+
+    def batch_for(domain: int, step: int, batch: int):
+        toks = make_token_stream(batch, args.seq + 1, cfg.vocab_size,
+                                 seed=1000 * step + args.seed, domain=domain)
+        out = [torch.as_tensor(toks[:, :args.seq], dtype=torch.long,
+                               device=device)]
+        if cfg.prefix_tokens:
+            rng = np.random.default_rng(step)
+            out.append(torch.as_tensor(rng.normal(
+                0, 1, (batch, cfg.prefix_tokens, cfg.prefix_dim))
+                .astype(np.float32), device=device))
+        return out
+
+    t0 = time.time()
+    params = tfm.init_model(args.seed, cfg, device=device)
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, opt_cfg, impl=impl)
+    print(f"model: {cfg.name} on {device}, kernels {impl}")
+    for i in range(args.steps):
+        params, opt, m = step_fn(params, opt, *batch_for(0, i, args.batch))
+        if i % 5 == 0 or i == args.steps - 1:
+            print(f"step {i:4d} ce={float(m['ce']):.4f} "
+                  f"gnorm={float(m['grad_norm']):.2f}", flush=True)
+
+    print(f"done in {time.time() - t0:.1f}s")
+    if args.save:
+        checkpoint.save(args.save, params,
+                        {"arch": args.arch, "method": args.method,
+                         "steps": args.steps})
+        print(f"saved checkpoint to {args.save}")
+    return 0
 
 
 def _run_federated_lm(args, cfg) -> int:
@@ -74,9 +188,10 @@ def _run_federated_lm(args, cfg) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-4b")
-    ap.add_argument("--method", choices=["dml"], default="dml",
-                    help="stacked same-arch clients (the single-model and "
-                         "heterogeneous methods are not ported yet)")
+    ap.add_argument("--method", choices=["single", "dml", "hetero"],
+                    default="single",
+                    help="single model, stacked same-arch clients (dml), "
+                         "or one arch per client (hetero)")
     ap.add_argument("--strategy", default="dml",
                     choices=["dml", "sparse-dml", "fedavg", "async",
                              *NOT_PORTED],
@@ -84,6 +199,9 @@ def main(argv=None) -> int:
                          "sparse-dml, fedavg and async are ported)")
     ap.add_argument("--sparse-k", type=int, default=64,
                     help="top-k kept per position for --strategy sparse-dml")
+    ap.add_argument("--byzantine", default="", metavar="IDX=MODE,...",
+                    help="poisoned clients for --method hetero (not ported "
+                         "yet: only the empty map runs)")
     ap.add_argument("--clients", type=int, default=2)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=4)
@@ -99,15 +217,28 @@ def main(argv=None) -> int:
                          "device, ref on the CPU)")
     ap.add_argument("--save", default=None, help="checkpoint path")
     ap.add_argument("--until", type=int, default=0,
-                    help="stop after this step (0 = run the full schedule); "
-                         "with --save this checkpoints mid-schedule so a "
-                         "later --resume run continues it")
+                    help="stop after this round/step (0 = run the full "
+                         "schedule); with --save this checkpoints "
+                         "mid-schedule so a later --resume run (SAME "
+                         "schedule) continues it")
     ap.add_argument("--participation", type=int, default=0,
                     help="clients sampled per round, 0 = all")
     ap.add_argument("--resume", default=None,
-                    help="restore a --save checkpoint and continue")
+                    help="restore a --save checkpoint and continue "
+                         "(federated methods)")
+    # hetero-only knobs: one arch PER client; round-based schedule
+    ap.add_argument("--archs", default="qwen3-4b,mamba2-780m,dbrx-132b",
+                    help="comma-separated arch id per client (hetero)")
+    ap.add_argument("--rounds", type=int, default=3,
+                    help="federated rounds (hetero)")
     args = ap.parse_args(argv)
-    return _run_federated_lm(args, get_reduced(args.arch))
+
+    if args.method == "hetero":
+        return _run_hetero(args)
+    cfg = get_reduced(args.arch)
+    if args.method == "dml":
+        return _run_federated_lm(args, cfg)
+    return _run_single(args, cfg)
 
 
 if __name__ == "__main__":

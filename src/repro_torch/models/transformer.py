@@ -182,44 +182,65 @@ def _unembed(params, cfg: ModelConfig, x):
     return logits.reshape(*x.shape[:-1], head.shape[-1])
 
 
+def _slot(sp, cfg: ModelConfig, i: int, x, positions,
+          window: Optional[int], impl: str):
+    """Slot ``i`` of the period on x (K, B, S, d) -> (x, load_balance,
+    router_z), the aux losses (K,) zero without an MoE FFN."""
+    spec = cfg.period[i]
+    h = rms_norm(x, per_client(sp["norm1"], x), cfg.rms_eps)
+    if spec.mixer == "attn":
+        h = attn_mod.attention_forward(sp["mixer"], cfg, h, positions,
+                                       window=window, impl=impl)
+    else:
+        h = ssm_mod.mamba_forward(sp["mixer"], cfg, h, impl=impl)
+    x, aux = _ffn(sp, cfg, spec, x + h)
+    if aux is None:
+        zero = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+        return x, zero, zero
+    return x, aux["load_balance"], aux["router_z"]
+
+
 def _period(sparams_period, cfg: ModelConfig, x, positions,
-            window: Optional[int], impl: str):
+            window: Optional[int], impl: str, slot_remat: bool = False):
     """One period of layers on x (K, B, S, d) -> (x, load_balance,
     router_z): the aux losses (K,) summed over the period's slots, returned
-    so that a checkpointed period keeps their gradient."""
+    so that a checkpointed period keeps their gradient.  ``slot_remat``
+    checkpoints each slot on its own."""
     K = x.shape[0]
     lb = torch.zeros(K, dtype=torch.float32, device=x.device)
     rz = torch.zeros_like(lb)
-    for i, spec in enumerate(cfg.period):
+    for i in range(len(cfg.period)):
         sp = sparams_period[f"slot{i}"]
-        h = rms_norm(x, per_client(sp["norm1"], x), cfg.rms_eps)
-        if spec.mixer == "attn":
-            h = attn_mod.attention_forward(sp["mixer"], cfg, h, positions,
-                                           window=window, impl=impl)
+        if slot_remat:
+            x, slb, srz = checkpoint(_slot, sp, cfg, i, x, positions, window,
+                                     impl, use_reentrant=False)
         else:
-            h = ssm_mod.mamba_forward(sp["mixer"], cfg, h, impl=impl)
-        x, aux = _ffn(sp, cfg, spec, x + h)
-        if aux is not None:
-            lb = lb + aux["load_balance"]
-            rz = rz + aux["router_z"]
+            x, slb, srz = _slot(sp, cfg, i, x, positions, window, impl)
+        lb, rz = lb + slb, rz + srz
     return x, lb, rz
 
 
 def forward_hidden_clients(sparams, cfg: ModelConfig, tokens,
                            prefix_emb=None, *, window: Optional[int] = None,
-                           remat: bool = True, impl: str):
+                           remat: bool = True, slot_remat: bool = False,
+                           impl: str):
     """Backbone only: final hidden states (K, B, P + S, d), before the
     final norm, and the aux losses {"load_balance", "router_z"} (K,) summed
     over the MoE layers (zeros without any, as the JAX package returns for
     dense layers).  ``tokens`` is (B, S) shared or (K, B, S) per client;
     ``prefix_emb`` as in ``_embed`` (P = 0 without a prefix).  ``remat``
-    checkpoints each period when autograd records a gradient of the params
-    (not in serving or under ``torch.no_grad``)."""
+    checkpoints each period, and ``slot_remat`` each slot of a period on
+    its own instead (a multi-slot period such as jamba's 8 layers then
+    keeps one slot's activations at a time in the backward), when autograd
+    records a gradient of the params (not in serving or under
+    ``torch.no_grad``).  Neither changes the numbers."""
     x = _embed(sparams, cfg, tokens, prefix_emb)
     K, B, S = x.shape[:3]
     positions = torch.arange(S, device=x.device).expand(B, S)
-    remat = remat and torch.is_grad_enabled() and any(
+    grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in tree_leaves(sparams))
+    slot_remat = slot_remat and grad
+    remat = remat and grad and not slot_remat
     lb = torch.zeros(K, dtype=torch.float32, device=x.device)
     rz = torch.zeros_like(lb)
     for period in _layers(sparams["periods"], cfg.n_periods):
@@ -227,29 +248,33 @@ def forward_hidden_clients(sparams, cfg: ModelConfig, tokens,
             x, plb, prz = checkpoint(_period, period, cfg, x, positions,
                                      window, impl, use_reentrant=False)
         else:
-            x, plb, prz = _period(period, cfg, x, positions, window, impl)
+            x, plb, prz = _period(period, cfg, x, positions, window, impl,
+                                  slot_remat)
         lb, rz = lb + plb, rz + prz
     return x, {"load_balance": lb, "router_z": rz}
 
 
 def forward_clients(sparams, cfg: ModelConfig, tokens, prefix_emb=None, *,
                     window: Optional[int] = None, remat: bool = True,
-                    impl: str):
+                    slot_remat: bool = False, impl: str):
     """K clients on tokens (B, S) shared or (K, B, S) per client (and the
     prefix, as in ``_embed``) -> logits (K, B, P + S, V).  (The JAX
     ``forward`` also returns the aux losses; they are
     ``forward_hidden_clients``'s.)"""
     x, _ = forward_hidden_clients(sparams, cfg, tokens, prefix_emb,
-                                  window=window, remat=remat, impl=impl)
+                                  window=window, remat=remat,
+                                  slot_remat=slot_remat, impl=impl)
     return _unembed(sparams, cfg, x)
 
 
 def forward(params, cfg: ModelConfig, tokens, prefix_emb=None, *,
-            window: Optional[int] = None, remat: bool = True, impl: str):
+            window: Optional[int] = None, remat: bool = True,
+            slot_remat: bool = False, impl: str):
     """One model: tokens (B, S) [, prefix (B, P, pd)] -> logits
     (B, P + S, V)."""
     return forward_clients(_stack1(params), cfg, tokens, prefix_emb,
-                           window=window, remat=remat, impl=impl)[0]
+                           window=window, remat=remat, slot_remat=slot_remat,
+                           impl=impl)[0]
 
 
 def _head(params, cfg: ModelConfig):
@@ -335,14 +360,16 @@ def next_token_ce(logits, tokens, prefixed: bool = False):
 
 def loss_fn_clients(sparams, cfg: ModelConfig, tokens, prefix_emb=None, *,
                     window: Optional[int] = None, remat: bool = True,
-                    ce_impl: str = "dense", impl: str):
+                    ce_impl: str = "dense", slot_remat: bool = False,
+                    impl: str):
     """Next-token cross-entropy of K clients on tokens (B, S) shared or
     (K, B, S) per client, behind ``prefix_emb`` for a prefix-token arch.
     Returns (loss (K,), metrics {"ce", "load_balance", "router_z"} of
     (K,)): the JAX ``loss_fn`` per client.  ce_impl="chunked" streams the
     vocabulary (``chunked_ce``)."""
     x, aux = forward_hidden_clients(sparams, cfg, tokens, prefix_emb,
-                                    window=window, remat=remat, impl=impl)
+                                    window=window, remat=remat,
+                                    slot_remat=slot_remat, impl=impl)
     prefixed = cfg.prefix_tokens > 0
     if ce_impl == "chunked":
         x = loss_rows(x, cfg.prefix_tokens)
@@ -360,12 +387,13 @@ def loss_fn_clients(sparams, cfg: ModelConfig, tokens, prefix_emb=None, *,
 
 def loss_fn(params, cfg: ModelConfig, tokens, prefix_emb=None, *,
             window: Optional[int] = None, remat: bool = True,
-            ce_impl: str = "dense", impl: str):
+            ce_impl: str = "dense", slot_remat: bool = False, impl: str):
     """One model: tokens (B, S) [, prefix (B, P, pd)] -> (loss, metrics)
     of 0-d tensors."""
     loss, metrics = loss_fn_clients(_stack1(params), cfg, tokens, prefix_emb,
                                     window=window, remat=remat,
-                                    ce_impl=ce_impl, impl=impl)
+                                    ce_impl=ce_impl, slot_remat=slot_remat,
+                                    impl=impl)
     return loss[0], {k: v[0] for k, v in metrics.items()}
 
 

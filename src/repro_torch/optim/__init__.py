@@ -111,11 +111,18 @@ def _wd_mask(path: tuple) -> bool:
 
 
 def _leaves_with_path(tree, path=()):
+    """(path, leaf) of a tree of dicts, lists and tuples (list positions
+    are ints in the path; ``_wd_mask`` reads none of them as a skip
+    name, as the JAX package's ``SequenceKey`` is none)."""
     if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves_with_path(v, path + (k,))
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
     else:
         yield path, tree
+        return
+    for k, v in items:
+        yield from _leaves_with_path(v, path + (k,))
 
 
 def _at(tree, path):

@@ -253,18 +253,21 @@ def test_flash_bf16_refuses_misaligned_view(cuda, which):
     (9, 9, 5, 3_001, 1.0, True),       # past it: client blocks of <= 8
     (16, 16, 4, 2_048, 1.2, True),
     (9, 16, 3, 1_500, 0.8, True),
-    (16, 5, 6, 2_000, 1.0, False)])
+    (16, 5, 6, 2_000, 1.0, False),
+    (1, 2, 64, 151_936, 1.0, False)])  # kl_to_received: 1 live, J = 2
 def test_kl_pair_kernels_match_plain(cuda, dtype, Kl, Kg, B, V, T,
                                      fixed_grad):
     """The pair-KL forward (atol 1e-4 + rtol 1e-4: fp32 streaming against
     a two-pass softmax) and backward (relative norm 1e-5 fp32, 2e-2 bf16)
-    against ``ref.mutual_kl_pair`` and its autograd, with masked weights."""
+    against ``ref.mutual_kl_pair`` and its autograd, with masked weights
+    (one live row: the uniform 1/Kg of ``core.mutual.kl_to_received``)."""
     from repro_torch.core.mutual import _pair_mask
     from repro_torch.kernels import kl_mutual
     gen = torch.Generator(device=cuda).manual_seed(2)
     live = (2 * torch.randn(Kl, B, V, generator=gen, device=cuda)).to(dtype)
     fixed = (2 * torch.randn(Kg, B, V, generator=gen, device=cuda)).to(dtype)
-    w = _pair_mask(max(Kl, Kg), [1.0] * (max(Kl, Kg) - 1) + [0.0],
+    w = torch.full((1, Kg), 1.0 / Kg, device=cuda) if Kl == 1 else \
+        _pair_mask(max(Kl, Kg), [1.0] * (max(Kl, Kg) - 1) + [0.0],
                    cuda)[:Kl, :Kg]
     gbar = torch.randn(Kl, B, generator=gen, device=cuda)
     outs, grads, rises = [], [], []

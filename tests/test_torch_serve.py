@@ -315,8 +315,8 @@ def test_serve_cli_on_cpu(capsys):
     assert "arch=mamba2-780m random-init" in out
 
 
-# the training, SSM, vision, MoE and prefix-frontend slices' modules, named
-# so that the walk below cannot miss one
+# the training, SSM, vision, MoE, prefix-frontend and hetero slices' modules,
+# named so that the walk below cannot miss one
 TRAINING_MODULES = (
     "repro_torch.api", "repro_torch.core.api", "repro_torch.core.distributed",
     "repro_torch.core.mutual", "repro_torch.core.stacking",
@@ -336,7 +336,10 @@ TRAINING_MODULES = (
     "repro_torch.configs.qwen3_8b", "repro_torch.configs.minitron_4b",
     "repro_torch.configs.qwen1_5_110b",
     "repro_torch.configs.llava_next_mistral_7b",
-    "repro_torch.configs.musicgen_medium")
+    "repro_torch.configs.musicgen_medium", "repro_torch.models",
+    "repro_torch.core.populations.hetero", "repro_torch.launch.steps",
+    "repro_torch.launch.serve", "repro_torch.launch.hetero",
+    "repro_torch.configs.base")
 
 
 def test_port_imports_no_jax_and_no_repro():

@@ -305,7 +305,7 @@ def test_mutual_kl_loss_and_received_match_jax(part):
     _close(got, want)
     _close(lt.grad, grad)
     rec = mutual.kl_to_received(torch.from_numpy(live[0]),
-                                torch.from_numpy(live[1:]), 1.5)
+                                torch.from_numpy(live[1:]), 1.5, impl="ref")
     _close(rec, jmutual.kl_to_received(jnp.asarray(live[0]),
                                        jnp.asarray(live[1:]), 1.5))
 
