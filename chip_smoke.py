@@ -29,8 +29,8 @@ Phases, each fatal on failure:
      forward and backward (at both vocabularies, and past one launch's
      entries: k = 2048 in sender blocks, k = 5000 read in place); and the
      Eq.-2 pair and sparse kernels at phase 17's call, one live row
-     (1, 1024, 151,936) against J = 2 received, where the pair kernels'
-     rows are timed;
+     (1, 1024, 151,936) against J = 2 received, and the pair kernels at
+     phase 21's, against J = 3, where the pair kernels' rows are timed;
   3. the serving path at the full width of qwen3-4b: a K=2 client ensemble
      from seeded random weights serves ``generate``, continuous batching
      and route mode, and the flash kernel's launch count shows that it ran
@@ -139,12 +139,31 @@ Phases, each fatal on failure:
      params) through ``launch.steps.make_train_step``, 3 steps of 4 x
      512, step 1's loss and gradient first against impl "ref" by the
      parity rule; then ``make_multistep_decode``'s greedy tokens against
-     ``greedy_generate``'s over 32 new tokens.
+     ``greedy_generate``'s over 32 new tokens;
+  20. privacy and robustness on phase 9's VisionNet protocol: round 1 of
+     ``DPDML(1)`` card against CPU (the same noise on both sides) within
+     1e-3; 12 rounds of DP-DML with the payload tap (epsilon after each
+     round against the accountant's closed form); 12 rounds each of DML,
+     DML with client 4 colluding, ``TrimmedDML(trim=1)`` and
+     ``MedianDML()`` with the colluder (round wall, the honest clients'
+     unseen-set accuracy); the JAX suite's robust and leakage experiments
+     at its sizes through the port (directions asserted, its margins
+     printed); no kernel launch;
+  21. a mixed fleet of four at full width (phase 17's three and a second
+     4-layer qwen3-4b, ~52 GB), client 3 sign-flipping: 3 rounds of
+     ``DPDML(1)`` (the pair kernels against the noised stack, J = 3: 4
+     launches each way a round; the third profiled), 2 of
+     ``TrimmedDML(trim=1)`` and 1 of ``MedianDML()`` (no Eq.-2 kernel);
+     comm bytes DML's, epsilon the closed form; round 1 of DP-DML and of
+     TrimmedDML and each client's gradient against impl "ref";
+  21b. the reduced fleet of four (qwen3-4b, mamba2-780m, qwen3-4b,
+     dbrx-132b), fp32, 2 rounds each of DP-DML and MedianDML through the
+     flash, SSD and pair kernels against impl "ref".
 jamba-1.5-large-398b does not run on the card: one full-width period (8
 layers, 4 MoE FFNs of 16 experts of width 24,576) holds ~44 B params, 88
 GB a client in bf16, and no depth cut goes below a period; the CPU tests
 hold it against the JAX package at its reduced config.
-Phases 3-7, 10-17 and 19 hold the prefill logits and the per-client
+Phases 3-7, 10-17, 19 and 21 hold the prefill logits and the per-client
 gradients to the plain path by one parity rule (``_parity``): in fp32 on
 the same weights, and in bf16 against the bf16 plain path's own distance
 from fp32.
@@ -156,6 +175,7 @@ it exits non-zero and prints no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import gc
 import json
 import re
@@ -929,11 +949,13 @@ def phase_kl(K: int, B: int, V: int) -> list:
     ]
 
 
-def phase_kl_received(B: int, V: int, J: int, k: int) -> list:
+def phase_kl_received(B: int, V: int, J: int, k: int,
+                      sparse: bool = True) -> list:
     """The Eq.-2 kernels as the hetero population's mutual step calls them
     (``core.mutual.kl_to_received`` and ``sparse_kl_to_received``): ONE
     client's live public logits (1, B, V) against the J received stacks,
-    weights 1/J.  fp32 and bf16, each through the entry point at impl
+    weights 1/J (``sparse`` False: the dense call only, the DP-DML fleet's,
+    which no sparse payload reaches).  fp32 and bf16, each through the entry point at impl
     "cuda" against impl "ref", the value and the live side's gradient
     (tolerances as ``phase_kl``'s and ``phase_sparse_kl``'s); the dense
     call must launch the pair forward and backward once each and no square
@@ -956,11 +978,12 @@ def phase_kl_received(B: int, V: int, J: int, k: int) -> list:
         rec = (2 * torch.randn(J, B, V, device="cuda", generator=gen)) \
             .to(dtype)
         gbar = torch.randn(B, device="cuda", generator=gen)
-        sets = topk_predictions(rec, k)
-        for name, fn in (("dense", lambda a, impl: mutual.kl_to_received(
-                              a, rec, impl=impl)),
-                         ("sparse", lambda a, impl: mutual
-                          .sparse_kl_to_received(a, *sets, impl=impl))):
+        sets = topk_predictions(rec, k) if sparse else None
+        calls = [("dense", lambda a, impl: mutual.kl_to_received(
+                      a, rec, impl=impl)),
+                 ("sparse", lambda a, impl: mutual.sparse_kl_to_received(
+                     a, *sets, impl=impl))]
+        for name, fn in calls[:2 if sparse else 1]:
             res = []
             for impl in ("cuda", "ref"):
                 a = live.detach().requires_grad_(True)
@@ -1004,10 +1027,8 @@ def phase_kl_received(B: int, V: int, J: int, k: int) -> list:
     w2 = torch.full((2, J), 1.0 / J, device="cuda")
     gbar = torch.randn(1, B, device="cuda", generator=gen)
     gbar2 = torch.randn(2, B, device="cuda", generator=gen)
-    sets = topk_predictions(y, k)
     out, zl, zf, name = kl_mutual._forward(live, y, w, 1.0)
     out2, zl2, zf2, _ = kl_mutual._forward(x, y, w2, 1.0)
-    _, stats = sparse_kl._forward(live, *sets, w, 1.0)
     if name != kl_mutual.PAIR:
         raise AssertionError(f"the received call left the pair kernel: "
                              f"{name}")
@@ -1017,10 +1038,13 @@ def phase_kl_received(B: int, V: int, J: int, k: int) -> list:
         "bwd": lambda: kl_mutual._backward(live, y, w, out, zl, zf, gbar,
                                            1.0, False),
         "bwd2": lambda: kl_mutual._backward(x, y, w2, out2, zl2, zf2, gbar2,
-                                            1.0, False),
-        "sfwd": lambda: sparse_kl._forward(live, *sets, w, 1.0),
-        "sbwd": lambda: sparse_kl._backward(live, *sets, w, stats, gbar,
-                                            1.0)}
+                                            1.0, False)}
+    if sparse:
+        sets = topk_predictions(y, k)
+        _, stats = sparse_kl._forward(live, *sets, w, 1.0)
+        timed["sfwd"] = lambda: sparse_kl._forward(live, *sets, w, 1.0)
+        timed["sbwd"] = lambda: sparse_kl._backward(live, *sets, w, stats,
+                                                    gbar, 1.0)
     ms = {key: time_ms(fn) for key, fn in timed.items()}
     a = live.detach().requires_grad_(True)
 
@@ -1039,32 +1063,35 @@ def phase_kl_received(B: int, V: int, J: int, k: int) -> list:
         torch.autograd.grad(ref.sparse_kl_pair(a, *sets, w), a, gbar)
     plain_fwd = time_ms(plain_f, iters=5)
     plain_bwd = time_ms(plain_fb, iters=5) - plain_fwd
-    splain_fwd = time_ms(splain_f, iters=5)
-    splain_bwd = time_ms(splain_fb, iters=5) - splain_fwd
+    if sparse:
+        splain_fwd = time_ms(splain_f, iters=5)
+        splain_bwd = time_ms(splain_fb, iters=5) - splain_fwd
     plane = B * V * 2
     fb = _bound(_kl_ops(1, J, B, V), (1 + J) * plane, torch.float32)
     bb = _bound(_kl_bwd_ops(1, J, B, V), (2 + J) * plane, torch.float32)
     fb2 = _bound(_kl_ops(2, J, B, V), (2 + J) * plane, torch.float32)
     bb2 = _bound(_kl_bwd_ops(2, J, B, V), (4 + J) * plane, torch.float32)
-    sfb = _sparse_bound(1, J, B, V, k, BF16, False)
-    sbb = _sparse_bound(1, J, B, V, k, BF16, True)
-    for what, key, plain, (bound, by) in (
-            ("pair forward, Kl=1", "fwd", plain_fwd, fb),
+    rows = [("pair forward, Kl=1", "fwd", plain_fwd, fb),
             ("pair forward, Kl=2 (two distinct live rows)", "fwd2", None,
              fb2),
             ("pair backward, Kl=1", "bwd", plain_bwd, bb),
-            ("pair backward, Kl=2", "bwd2", None, bb2),
-            ("sparse forward, Kl=1", "sfwd", splain_fwd, sfb),
-            ("sparse backward, Kl=1", "sbwd", splain_bwd, sbb)):
+            ("pair backward, Kl=2", "bwd2", None, bb2)]
+    if sparse:
+        rows += [("sparse forward, Kl=1", "sfwd", splain_fwd,
+                  _sparse_bound(1, J, B, V, k, BF16, False)),
+                 ("sparse backward, Kl=1", "sbwd", splain_bwd,
+                  _sparse_bound(1, J, B, V, k, BF16, True))]
+    for what, key, plain, (bound, by) in rows:
         print(f"KL {what} against J={J} received at (B={B}, V={V}) bf16: "
               f"{ms[key]:.4f} ms"
               + (f", plain {plain:.4f} ms" if plain is not None else "")
               + f"; bound {bound:.4f} ms by {by} ({bound / ms[key]:.0%} of "
               f"it)")
-    print(f"  the Kl=1 pair forward takes {ms['fwd'] / ms['fwd2']:.2f} of "
-          f"the Kl=2 call's time (3 of 4 planes read: 0.75; the padded "
-          f"row's re-read of the live row reaching HBM: 1.00)")
-    del x, y, live, a, out, out2, stats, sets
+    print(f"  the Kl=1 pair forward at J={J} takes "
+          f"{ms['fwd'] / ms['fwd2']:.2f} of the Kl=2 call's time ({1 + J} "
+          f"of {2 + J} planes read: {(1 + J) / (2 + J):.2f}; the padded "
+          f"rows' re-read of the live row reaching HBM: 1.00)")
+    del x, y, live, a, out, out2
     torch.cuda.empty_cache()
     src = "src/repro_torch/kernels/csrc/kl_mutual_pair.cu"
     row = dict(route="cuda", source=src, launches=None, library_ms=None,
@@ -2298,6 +2325,15 @@ def _kernel_counts(zero: bool = False) -> dict:
     return counts
 
 
+@functools.lru_cache(maxsize=1)
+def _paper_datasets(image_size: int, n_train: int, n_test: int):
+    """``make_paper_datasets`` at these sizes, made once for phases 9 and
+    20."""
+    from repro_torch.data.synthetic import make_paper_datasets
+    return make_paper_datasets(image_size=image_size, n_train=n_train,
+                               n_test=n_test)
+
+
 def phase_vision(card: str, cfg=None, K: int = 5, rounds: int = 12,
                  epochs: int = 3, B: int = 16, lr: float = 0.05,
                  n_train: int = 3833, n_test: int = 5988) -> dict:
@@ -2325,7 +2361,6 @@ def phase_vision(card: str, cfg=None, K: int = 5, rounds: int = 12,
                                  VisionClients)
     from repro_torch.configs.visionnet import CONFIG
     from repro_torch.core.async_fl import layer_schedule
-    from repro_torch.data.synthetic import make_paper_datasets
     from repro_torch.tree import tree_leaves, tree_map
 
     cfg = cfg or CONFIG
@@ -2333,8 +2368,7 @@ def phase_vision(card: str, cfg=None, K: int = 5, rounds: int = 12,
     conv_mask = lambda pop: tree_map(              # noqa: E731
         lambda sh: torch.tensor([float(sh)]), pop.shallow_mask)
     t0 = time.perf_counter()
-    (tx, ty), (ex, ey) = make_paper_datasets(
-        image_size=cfg.image_size, n_train=n_train, n_test=n_test)
+    (tx, ty), (ex, ey) = _paper_datasets(cfg.image_size, n_train, n_test)
     # the parameter counts, from the config alone
     k2 = cfg.kernel_size ** 2
     chans = (cfg.channels,) + tuple(cfg.conv_features)
@@ -2513,32 +2547,39 @@ def _tree_rel(a, b) -> list:
     return _client_grad_errors(_expand(a), _expand(_expand_dev(b)), 1)
 
 
-def _mutual_grad(cm, params, inputs, received, impl: str):
+def _mutual_grad(cm, params, inputs, received, impl: str, robust=None):
     """Client ``cm``'s gradient of its Eq.-1 mutual-step loss at
     ``params``: public CE on ``inputs`` + Eq. 2 against ``received`` (the
-    (J, N_pub, V) logits, or SparseDML's (idx, logp) sets), the loss of
+    (J, N_pub, V) logits, or SparseDML's (idx, logp) sets; with
+    ``robust`` (mode, trim) the KL to their robust consensus), the loss of
     ``HeteroClients._mutual_step``; returns (loss, gradient)."""
     from repro_torch.core import distributed as D
-    from repro_torch.core.mutual import kl_to_received, sparse_kl_to_received
+    from repro_torch.core.mutual import (kl_to_received,
+                                         kl_to_robust_received,
+                                         sparse_kl_to_received)
 
     def loss(p):
         ce, live = cm.public_ce_and_logits(p, inputs, None, None, impl=impl)
-        terms = (sparse_kl_to_received(live, *received, impl=impl)
-                 if isinstance(received, tuple) else
-                 kl_to_received(live, received.to(live.dtype), impl=impl))
+        if isinstance(received, tuple):
+            terms = sparse_kl_to_received(live, *received, impl=impl)
+        elif robust is not None:
+            terms = kl_to_robust_received(live, received, *robust)
+        else:
+            terms = kl_to_received(live, received.to(live.dtype), impl=impl)
         return ce + torch.mean(terms), None
     total, _, g = D.value_and_grad(loss, params)
     return float(total), g
 
 
 def _hetero_grad_parity(cms, seeds, inputs, stack, sparse_k: int,
-                        limits) -> None:
+                        limits, robust=None) -> None:
     """The parity rule on each client's gradient of its mutual-step loss
     at its initial weights (drawn again from the population's seeds, one
     client at a time): bf16 at impl "cuda" and "ref", and an fp32 copy of
     the same weights at both, every one against the same received
     predictions: the other clients' rows of ``stack``, the kernel path's
-    shared logits, or their top-``sparse_k`` sets.  ``limits`` holds each
+    shared logits (or a DP release of them), or their top-``sparse_k``
+    sets; ``robust`` (mode, trim) descends the KL to their consensus.  ``limits`` holds each
     client's bf16-vs-bf16 limit (None for MoE clients: a route flip moves
     a token by O(1))."""
     from repro_torch.core.mutual import topk_predictions
@@ -2548,9 +2589,9 @@ def _hetero_grad_parity(cms, seeds, inputs, stack, sparse_k: int,
         others = torch.cat([stack[:c], stack[c + 1:]])
         received = topk_predictions(others, sparse_k) if sparse_k else others
         p16 = cm.init(seed, "cuda")
-        l16k, g = _mutual_grad(cm, p16, inputs, received, "cuda")
+        l16k, g = _mutual_grad(cm, p16, inputs, received, "cuda", robust)
         g16k = _host(g)
-        l16p, g = _mutual_grad(cm, p16, inputs, received, "ref")
+        l16p, g = _mutual_grad(cm, p16, inputs, received, "ref", robust)
         g16p = _host(g)
         del g
         p32 = tree_map(lambda t: t.float(), p16)
@@ -2559,10 +2600,11 @@ def _hetero_grad_parity(cms, seeds, inputs, stack, sparse_k: int,
                                                compute_dtype="float32"))
         if not sparse_k:
             received = others.float()
-        l32k, g = _mutual_grad(cm32, p32, inputs, received, "cuda")
+        l32k, g = _mutual_grad(cm32, p32, inputs, received, "cuda", robust)
         g32k = _host(g)
         del g
-        l32p, g32p = _mutual_grad(cm32, p32, inputs, received, "ref")
+        l32p, g32p = _mutual_grad(cm32, p32, inputs, received, "ref",
+                                  robust)
         del p32
         print(f"  client {c} ({cm.arch}): mutual-step loss impl=cuda / ref "
               f"bf16 {l16k:.5f} / {l16p:.5f}, fp32 {l32k:.5f} / {l32p:.5f}")
@@ -3049,6 +3091,549 @@ def phase_single(card: str, cfg, B: int = 4, S: int = 512, steps: int = 3,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 20-21b: privacy and robustness
+
+def _closed_epsilon(sigma: float, delta: float, releases: int) -> float:
+    """The Renyi accountant's (epsilon, delta) after ``releases`` Gaussian
+    releases at noise multiplier ``sigma``, in closed form: S = n / (2
+    sigma^2), epsilon = S + 2 sqrt(S log(1 / delta))."""
+    S = releases / (2.0 * sigma * sigma)
+    return S + 2.0 * float(np.sqrt(S * np.log(1.0 / delta)))
+
+
+def _byz_experiment(seed: int = 0) -> dict:
+    """The JAX suite's calibrated attack (``tests/test_privacy_robust.py``
+    ``_byz_experiment``) through the port on the card: K = 4 VisionNet
+    clients (the reduced config at 16 px) on a +-0.3 class-offset Gaussian
+    task, client 3 colluding; the honest clients' mean accuracy on 300
+    unseen examples under DML without and with the colluder, TrimmedDML
+    and MedianDML."""
+    from repro_torch.api import Federation, VisionClients, get_strategy
+    from repro_torch.configs.visionnet import reduced
+    cfg = reduced().replace(image_size=16)
+    K, R, kl, me, le, off, lr = 4, 4, 5.0, 3, 2, 0.3, 0.03
+    rng = np.random.default_rng(seed)
+
+    def make_xy(n):
+        y = (rng.random(n) > 0.5).astype(np.float32)
+        x = rng.normal(size=(n, 16, 16, 3)).astype(np.float32)
+        x += (y * 2 - 1)[:, None, None, None] * off
+        return x, y
+
+    imgs, labs = make_xy(420)
+    test, tlab = make_xy(300)
+    byz = {K - 1: "collude"}
+
+    def run(name, attacked, **kw):
+        pop = VisionClients(cfg, imgs, labs, n_clients=K, rounds=R,
+                            local_epochs=le, batch_size=16, seed=seed, lr=lr,
+                            byzantine=byz if attacked else None)
+        fed = Federation(pop, get_strategy(name, kl_weight=kl,
+                                           mutual_epochs=me, **kw))
+        fed.run()
+        h = fed.evaluate(split=(test, tlab))
+        by_client[f"{name}{', attacked' if attacked else ''}"] = \
+            [round(a, 4) for a in h.client_test_acc]
+        return float(np.mean([a for c, a in enumerate(h.client_test_acc)
+                              if c != K - 1]))
+
+    by_client = {}
+    acc = {"clean": run("dml", False), "poisoned": run("dml", True),
+           "trimmed": run("trimmed-dml", True, trim=1),
+           "median": run("median-dml", True)}
+    print(f"robust experiment, every client's accuracy: "
+          f"{json.dumps(by_client)}")
+    return acc
+
+
+def _mia_experiment(seed: int = 0) -> tuple:
+    """The JAX suite's leakage-ordering experiment
+    (``tests/test_privacy_attacks.py`` ``_mia_experiment``) through the
+    port on the card: K = 4 clients, 3 rounds of 20 local epochs on 220
+    examples (60% learnable labels); the MIA advantage, averaged over the
+    4 victims, of a FedAvg weight upload, of DML's payload stream and of
+    DP-DML's (sigma 1).  Returns (FedAvg, DML, DP-DML)."""
+    from repro_torch.api import Federation, VisionClients, get_strategy
+    from repro_torch.configs.visionnet import reduced
+    from repro_torch.core import stacking
+    from repro_torch.privacy.attacks import (collect_client_payloads,
+                                             payload_mia, weight_upload_mia)
+    cfg = reduced().replace(image_size=16)
+    K, R, LE, BS, N = 4, 3, 20, 8, 220
+    rng = np.random.default_rng(seed)
+    imgs = rng.normal(size=(N, 16, 16, 3)).astype(np.float32)
+    labs = (imgs.mean(axis=(1, 2, 3)) > 0).astype(np.float32)
+    rand_mask = rng.random(N) < 0.4
+    labs[rand_mask] = (rng.random(int(rand_mask.sum())) > 0.5
+                       ).astype(np.float32)
+
+    def make_pop(rounds=R):
+        return VisionClients(cfg, imgs, labs, n_clients=K, rounds=rounds,
+                             local_epochs=LE, batch_size=BS, lr=0.05,
+                             seed=seed, record_payloads=True)
+
+    def mem_non(pop, client):
+        other = (client + 1) % K
+        mem = np.unique(np.concatenate([f[client] for f in pop.fold_log]))
+        non = np.setdiff1d(
+            np.unique(np.concatenate([f[other] for f in pop.fold_log])), mem)
+        return mem, non
+
+    # the FedAvg upload tap: R full rounds, then the (R+1)-th local phase
+    # is the upload an eavesdropper observes
+    pop_fa = make_pop(rounds=R + 1)
+    Federation(pop_fa, get_strategy("fedavg")).run(until=R)
+    pop_fa.begin_round(R)
+    part = list(range(K))
+    pop_fa.local_phase(R, part, pop_fa.part_mask(part))
+    adv_fa = float(np.mean([weight_upload_mia(
+        stacking.client_slice(pop_fa.client_params, c), cfg, imgs, labs,
+        *mem_non(pop_fa, c)) for c in range(K)]))
+
+    def payload_probe(pop):
+        advs = []
+        for c in range(K):
+            pi, pp = collect_client_payloads(pop.payload_log, imgs, c)
+            advs.append(payload_mia(cfg, pi, pp, imgs, labs,
+                                    *mem_non(pop, c), 1000 + c, steps=300,
+                                    device="cuda"))
+        return float(np.mean(advs))
+
+    pop_dml = make_pop()
+    Federation(pop_dml, get_strategy("dml")).run()
+    pop_dp = make_pop()
+    Federation(pop_dp, get_strategy("dp-dml", dp_noise_multiplier=1.0)).run()
+    return adv_fa, payload_probe(pop_dml), payload_probe(pop_dp)
+
+
+def phase_vision_privacy(card: str, cfg=None, K: int = 5, rounds: int = 12,
+                         epochs: int = 3, B: int = 16, lr: float = 0.05,
+                         n_train: int = 3833, n_test: int = 5988,
+                         sigma: float = 1.0, delta: float = 1e-5) -> dict:
+    """Privacy and robustness on the paper's VisionNet protocol (phase 9's
+    sizes: K = 5 at 100 px, Table I's datasets, 3 local epochs of batch
+    16, 12 rounds).  (1) Round 1 of ``DPDML(sigma)`` with dropout off on
+    the card and on the CPU from the same state, both sides drawing the
+    same noise (the card's draw made on the CPU for this round only),
+    cuDNN deterministic: params within relative norm error 1e-3 a client,
+    the losses within 1e-3.  (2) 12 rounds of DP-DML (clip 1) with the
+    paper's dropout and ``record_payloads``: epsilon after each round equal
+    to the accountant's closed form, one (1, K, B_pub) payload a round
+    inside [1e-4, 1 - 1e-4], comm bytes DML's.  (3) 12 rounds each of DML,
+    DML with client 4 colluding, TrimmedDML(trim=1) and MedianDML with the
+    colluder: round wall and the honest clients' unseen-set accuracy.  (4)
+    The JAX suite's two experiments through the port: the directions
+    poisoned DML < clean DML, trimmed and median > poisoned DML, and
+    FedAvg's MIA advantage > DML's payload advantage are asserted; the
+    JAX suite's margins are printed beside them, not asserted (the port's
+    dropout draws are its own).  No kernel of this repo lies on the path:
+    returns every launch count over the phase, all 0."""
+    from repro_torch.api import (DML, DPDML, Federation, MedianDML,
+                                 TrimmedDML, VisionClients)
+    from repro_torch.configs.visionnet import CONFIG
+    from repro_torch.privacy import dp as dp_mod
+    from repro_torch.privacy.accountant import gaussian_epsilon
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = cfg or CONFIG
+    (tx, ty), (ex, ey) = _paper_datasets(cfg.image_size, n_train, n_test)
+    kw = dict(n_clients=K, rounds=rounds, local_epochs=epochs,
+              batch_size=B, lr=lr)
+    torch.cuda.reset_peak_memory_stats()
+    _kernel_counts(zero=True)                     # the main path starts here
+
+    # (1) round 1 of DP-DML, card against CPU, the same noise on both
+    cfg0 = cfg.replace(dropout_rate=0.0)
+    draw = dp_mod.gaussian
+    deterministic = torch.backends.cudnn.deterministic
+    dp_mod.gaussian = lambda w, shape, device: draw(w, shape, "cpu").to(
+        device)
+    torch.backends.cudnn.deterministic = True
+    try:
+        pop = VisionClients(cfg0, tx, ty, **kw)
+        host = VisionClients(cfg0, tx, ty, device="cpu", **kw)
+        host.load_state_dict(tree_map(lambda t: t.cpu(), pop.state_dict()),
+                             pop.meta_dict())
+        h_card, secs = _timed(lambda: Federation(
+            pop, DPDML(dp_noise_multiplier=sigma)).run(until=1))
+        h_host = Federation(host, DPDML(dp_noise_multiplier=sigma)).run(
+            until=1)
+    finally:
+        dp_mod.gaussian = draw
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = h_card.rounds[0], h_host.rounds[0]
+    e_loss = _rel(torch.tensor(a.client_loss), torch.tensor(b.client_loss))
+    e_kl = _rel(torch.tensor(a.kl_loss), torch.tensor(b.kl_loss))
+    e_par = [_rel(*(torch.cat([t[c].flatten().cpu() for t in tree_leaves(p)])
+                    for p in (pop.client_params, host.client_params)))
+             for c in range(K)]
+    print(f"DP-DML (sigma {sigma}) round 1 without dropout, card "
+          f"({secs:.3f} s) vs CPU from the same state and noise: "
+          f"client_loss {_fmt(a.client_loss, '.7f')} vs "
+          f"{_fmt(b.client_loss, '.7f')}; relative norm error client_loss "
+          f"{e_loss:.3g}, kl_loss {e_kl:.3g}, params by client "
+          f"{_fmt(e_par, '.3g')} (limit 1e-3)")
+    if not (e_loss <= 1e-3 and e_kl <= 1e-3 and max(e_par) <= 1e-3):
+        raise AssertionError("the DP-DML vision round on the card disagrees "
+                             "with the CPU")
+    del pop, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def run(pop, strategy):
+        fed = Federation(pop, strategy)
+        walls = []
+        for r in range(rounds):
+            _, sec = _timed(lambda: fed.run(until=r + 1))
+            walls.append(sec)
+            rl = fed.history.rounds[-1]
+            payload = len(pop.folds._folds[pop.folds._cursor - 1])
+            if rl.comm_bytes != 2 * K * payload * 4 or \
+                    not np.isfinite(rl.client_loss + rl.kl_loss).all():
+                raise AssertionError(
+                    f"{strategy.name} round {r}: comm_bytes {rl.comm_bytes} "
+                    f"(DML's {2 * K * payload * 4}), losses "
+                    f"{rl.client_loss} {rl.kl_loss}")
+            if strategy.name == "dp-dml":
+                e, want = strategy.epsilon(), _closed_epsilon(sigma, delta,
+                                                              r + 1)
+                eps.append(e)
+                if abs(e - want) > 1e-9 * want:
+                    raise AssertionError(f"epsilon {e} after round {r}, "
+                                         f"closed form {want}")
+        return fed.evaluate(split=(ex, ey)), walls
+
+    # (2) DP-DML with the paper's dropout and the payload tap
+    eps = []
+    pop = VisionClients(cfg, tx, ty, record_payloads=True, **kw)
+    h, walls = run(pop, DPDML(dp_noise_multiplier=sigma, dp_delta=delta))
+    log = pop.payload_log
+    ok = len(log) == rounds == len(pop.fold_log) and all(
+        e["payloads"].shape == (1, K, len(e["public"])) and
+        np.all((e["payloads"] >= 1e-4) & (e["payloads"] <= 1 - 1e-4))
+        for e in log)
+    single = gaussian_epsilon(sigma, delta)
+    print(f"DP-DML (sigma {sigma}, clip 1, delta {delta}): epsilon after "
+          f"each round {_fmt(eps, '.4f')} = the closed form S + 2 sqrt(S "
+          f"log(1/delta)), S = n / (2 sigma^2) (one release: "
+          f"{_closed_epsilon(sigma, delta, 1):.6f}, gaussian_epsilon "
+          f"{single:.6f}); {len(log)} tapped payloads of (1, {K}, B_pub) "
+          f"inside [1e-4, 1 - 1e-4]: {ok}; round wall mean after round 0 "
+          f"{np.mean(walls[1:]):.4f} s; unseen accuracy "
+          f"{_fmt(h.client_test_acc, '.4f')}")
+    if not ok or abs(_closed_epsilon(sigma, delta, 1) - single) > 1e-9:
+        raise AssertionError("the DP-DML payload tap or epsilon failed")
+    walls_by = {"DP-DML": np.mean(walls[1:])}
+    del pop, h, log
+    gc.collect()
+
+    # (3) one colluder in five against DML and the robust combiners
+    byz = {K - 1: "collude"}
+    honest = {}
+    for label, strategy, b in (
+            ("DML", DML(), None),
+            ("DML, client 4 colluding", DML(), byz),
+            ("TrimmedDML(trim=1), client 4 colluding", TrimmedDML(trim=1),
+             byz),
+            ("MedianDML, client 4 colluding", MedianDML(), byz)):
+        pop = VisionClients(cfg, tx, ty, byzantine=b, **kw)
+        h, walls = run(pop, strategy)
+        honest[label] = float(np.mean(h.client_test_acc[:K - 1]))
+        walls_by[label] = np.mean(walls[1:])
+        print(f"{label}: {rounds} rounds, round wall mean after round 0 "
+              f"{walls_by[label]:.4f} s; unseen accuracy "
+              f"{_fmt(h.client_test_acc, '.4f')}, honest clients 0-3 "
+              f"{honest[label]:.4f}")
+        del pop, h
+        gc.collect()
+    dml = walls_by["DML"]
+    print("round wall against DML's: " + ", ".join(
+        f"{k} {v / dml:.3f}" for k, v in walls_by.items()))
+
+    # (4) the JAX suite's two experiments, at its sizes
+    acc = _byz_experiment(0)
+    print(f"robust experiment (K = 4, 16 px, client 3 colluding), honest "
+          f"clients' accuracy: {json.dumps(acc)}; the JAX suite asserts "
+          f"poisoned <= clean - 0.25 ({acc['poisoned'] <= acc['clean'] - 0.25}"
+          f") and trimmed, median >= clean - 0.02 "
+          f"({min(acc['trimmed'], acc['median']) >= acc['clean'] - 0.02})"
+          f"; asserted here: poisoned < clean, trimmed and median > "
+          f"poisoned")
+    if not (acc["poisoned"] < acc["clean"] and
+            min(acc["trimmed"], acc["median"]) > acc["poisoned"]):
+        raise AssertionError(f"the robust experiment's directions: {acc}")
+    adv_fa, adv_dml, adv_dp = _mia_experiment(0)
+    print(f"leakage experiment (K = 4, 16 px, 3 rounds of 20 local "
+          f"epochs), MIA advantage: FedAvg weight upload {adv_fa:.4f}, DML "
+          f"payloads {adv_dml:.4f}, DP-DML payloads {adv_dp:.4f}; the JAX "
+          f"suite asserts FedAvg > DML + 0.1 ({adv_fa > adv_dml + 0.1}), "
+          f"DP-DML <= DML + 0.08 ({adv_dp <= adv_dml + 0.08}), FedAvg > 0.2 "
+          f"({adv_fa > 0.2}); asserted here: FedAvg > DML")
+    if not adv_fa > adv_dml:
+        raise AssertionError("the weight upload leaks no more than the "
+                             "payloads")
+    print(f"privacy vision peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {card}")
+    counts = _kernel_counts()                     # ... and ends here
+    if any(counts.values()):
+        raise AssertionError(f"the vision path launched a kernel: {counts}")
+    return counts
+
+
+def phase_hetero_privacy(card: str, cfgs, B: int = 4, S: int = 512,
+                         pub: int = 2, fold: int = 8, byz=None,
+                         sigma: float = 1.0, delta: float = 1e-5) -> dict:
+    """DP-DML and the robust combiners on a mixed fleet of four at full
+    width (``cfgs``, one vocabulary), a sign-flipping client 3: 3 rounds of
+    ``DPDML(sigma)`` (clip 1; the first warms the fleet's first calls up,
+    the second gives the round wall, the third is profiled), 2 of
+    ``TrimmedDML(trim=1)`` and 1 of ``MedianDML()``.  Each DP-DML round's
+    Eq. 2 runs the pair kernels against the noised (1 of 4 rows poisoned)
+    stack, M x E = 4 launches each way (one live row against J = 3); the
+    robust rounds launch no Eq.-2 kernel (the consensus is plain PyTorch,
+    as in the JAX package); every round the flash kernels.  Comm bytes are
+    DML's (``comm_bytes_per_round``); epsilon is the accountant's closed
+    form.  Then round 1 of DP-DML and of TrimmedDML from fresh fleets
+    against the same round at impl "ref" (``_hetero_round_parity``; the
+    same seeds, so the same noise), and each client's gradient by the
+    parity rule (``_hetero_grad_parity``) against a DP release, and the
+    trimmed consensus, of the kernel path's poisoned shared logits.
+    Returns the kernels' launch counts over the main run."""
+    from repro_torch.api import (DPDML, Federation, HeteroClients,
+                                 MedianDML, TrimmedDML, comm_bytes_per_round,
+                                 make_lm_pool)
+    from repro_torch.configs import get_config
+    from repro_torch.core.mutual import robust_categorical_target
+    from repro_torch.privacy import dp as dp_mod
+    from repro_torch.tree import tree_leaves
+
+    K, V = len(cfgs), cfgs[0].vocab_size
+    byz = byz or {K - 1: "sign-flip"}
+    dp = DPDML(dp_noise_multiplier=sigma, dp_delta=delta)
+    plan = [dp] * 3 + [TrimmedDML(trim=1)] * 2 + [MedianDML()]
+    rounds = len(plan)
+    pool, labels = make_lm_pool(((1 + K) * rounds + 1) * fold, S, V, seed=0)
+
+    def population(impl):
+        return HeteroClients(cfgs, pool, labels, rounds=rounds,
+                             batch_size=B, public_batch=pub, seed=0,
+                             kernel_impl=impl, byzantine=byz)
+
+    torch.cuda.reset_peak_memory_stats()
+    pop, secs = _timed(lambda: population(None))
+    T, n_pub = pop._local_T, pop._pub_n * S
+    tokens = K * (T * B + pop._pub_n) * S
+    state_gb = sum(t.numel() * t.element_size() for t in
+                   tree_leaves(pop.state_dict())) / 1e9
+    print(f"privacy fleet of {K} at full width (seeded random weights), "
+          f"V = {V}, byzantine {byz}: " + ", ".join(
+              f"{c.name} ({pop._models[c.name].family}, {c.n_layers} of "
+              f"{get_config(c.name).n_layers} layers, {n / 1e9:.3f} B)"
+              for c, n in zip(cfgs, pop.n_params))
+          + f"; {state_gb:.1f} GB of params and AdamW moments, {secs:.1f} s;"
+          f" T = {T} local steps of ({B}, {S}) a client, public "
+          f"({pop._pub_n}, {S}) = {n_pub} positions; {tokens} trained "
+          f"tokens a round; kernels impl={pop.impl}")
+    eq2 = ("kl_mutual_pair_fwd", "kl_mutual_pair_bwd", "kl_mutual_square_fwd",
+           "kl_mutual_square_bwd", "sparse_kl_fwd", "sparse_kl_bwd")
+    _kernel_counts(zero=True)                       # the main path starts here
+    first_dp, walls, prof = None, {}, None
+    for r, strategy in enumerate(plan):
+        fed = Federation(pop, strategy)
+        fed.round = r
+        before = _kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        if r == 2:                                  # profile the 3rd DP round
+            t0 = time.perf_counter()
+            prof = device_spans(lambda: fed.run(until=r + 1))
+            wall = time.perf_counter() - t0
+        else:
+            _, wall = _timed(lambda: fed.run(until=r + 1))
+            walls.setdefault(strategy.name, []).append(wall)
+        rl = fed.history.rounds[-1]
+        ran = _delta(before, _kernel_counts())
+        M = len(rl.participants)
+        want = comm_bytes_per_round(M, n_pub, V, 1)["round"]
+        is_dp = strategy.name == "dp-dml"
+        need = ({"kl_mutual_pair_fwd": M, "kl_mutual_pair_bwd": M}
+                if is_dp else {})
+        eps = ""
+        if is_dp:
+            if first_dp is None:
+                first_dp = rl
+            e, e_want = dp.epsilon(), _closed_epsilon(sigma, delta, r + 1)
+            eps = f"; epsilon {e:.4f} (closed form {e_want:.4f})"
+            if abs(e - e_want) > 1e-9 * e_want:
+                raise AssertionError(f"epsilon {e} after round {r}")
+        print(f"{strategy.name} round {r}: {wall:.3f} s wall"
+              f"{' (profiled)' if r == 2 else ''}, {tokens / wall:.0f} "
+              f"trained tok/s; local loss {_fmt(rl.client_loss)} public_ce "
+              f"{_fmt(rl.public_ce)} kl {_fmt(rl.kl_loss)}; comm_bytes "
+              f"{rl.comm_bytes} (DML's {want}); launches {ran}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated, "
+              f"{torch.cuda.max_memory_reserved() / 1e9:.1f} GB reserved, "
+              f"{torch.cuda.memory_stats().get('num_alloc_retries', 0) - retries}"
+              f" allocator retries{eps}")
+        if rl.comm_bytes != want or \
+                {n: ran.get(n, 0) for n in eq2 if ran.get(n)} != need or \
+                not all(ran.get(n) for n in ("flash_attention_fwd",
+                                             "flash_attention_bwd")):
+            raise AssertionError(f"{strategy.name} round {r} of the privacy "
+                                 f"fleet left its kernels or its bytes")
+        if not all(np.isfinite(x).all() for x in (rl.client_loss,
+                                                  rl.public_ce, rl.kl_loss)):
+            raise AssertionError("non-finite privacy-fleet losses")
+    by_name, busy = prof
+    steady = walls["dp-dml"][1]
+    busy_us = sum(us for us, _ in by_name.values())
+    print(f"privacy fleet on {card}: DP-DML round {steady:.3f} s wall (round "
+          f"1, unprofiled) = {tokens / steady:.0f} trained tok/s; round 2: "
+          f"{busy / 1e3:.1f} ms device busy (union of activities; "
+          f"{busy_us / 1e3:.1f} ms summed) in "
+          f"{sum(c for _, c in by_name.values())} kernels (profiled) -> "
+          f"device idle {1 - busy / 1e6 / steady:.1%}; TrimmedDML "
+          f"{_fmt(walls['trimmed-dml'], '.3f')} s, MedianDML "
+          f"{_fmt(walls['median-dml'], '.3f')} s")
+    _print_top(by_name, 1, "round", n=8)
+    counts = _kernel_counts()                        # ... and ends here
+    counts = {n: c for n, c in counts.items() if c}
+    print(f"privacy fleet launches over {rounds} rounds: {counts}")
+
+    # the parity: round 1 of each strategy from fresh fleets, and each
+    # client's gradient at the initial weights
+    inputs = pop._gather(pop.eval_fold)[0]
+    cms = [pop._models[c.name] for c in cfgs]
+    seeds = [pop._init_seed(c) for c in range(K)]
+    del fed, pop
+    gc.collect()
+    torch.cuda.empty_cache()
+    for make, main_first in ((lambda: DPDML(dp_noise_multiplier=sigma),
+                              first_dp),
+                             (lambda: TrimmedDML(trim=1), None)):
+        if main_first is None:
+            p = population(None)
+            main_first = Federation(p, make()).run(until=1).rounds[0]
+            del p
+            gc.collect()
+            torch.cuda.empty_cache()
+        p = population("ref")
+        ref_first = Federation(p, make()).run(until=1).rounds[0]
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+        _hetero_round_parity(main_first, ref_first, make().name)
+    with torch.no_grad():
+        stack = []
+        for cm, seed in zip(cms, seeds):
+            p = cm.init(seed, "cuda")
+            stack.append(cm.share_logits(p, inputs, impl="cuda"))
+            del p
+        stack = torch.stack(stack)
+        for c, mode in byz.items():               # what a sign-flipper sends
+            if mode == "sign-flip":
+                stack[c] = -stack[c]
+        key = np.array([0, 1], np.uint32)
+        noise = dp_mod.gaussian(key, stack.shape, stack.device)
+        noised = dp_mod.dp_noise_payload(stack, 1.0, sigma, noise)
+        ms = {"the draw": time_ms(lambda: dp_mod.gaussian(
+                  key, stack.shape, stack.device), iters=3),
+              "the clip and noise": time_ms(lambda: dp_mod.dp_noise_payload(
+                  stack, 1.0, sigma, noise), iters=3),
+              "the trimmed consensus of J = 3": time_ms(
+                  lambda: robust_categorical_target(stack[1:], "trimmed", 1),
+                  iters=3),
+              "the median consensus of J = 3": time_ms(
+                  lambda: robust_categorical_target(stack[1:], "median", 1),
+                  iters=3)}
+        del noise
+    print(f"the DP release and the robust consensus at the fleet's shapes "
+          f"({tuple(stack.shape)} bf16): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in ms.items()))
+    limits = [2e-2 if cm.cfg.moe is None else None for cm in cms]
+    print("per-client gradients of the mutual-step loss at the initial "
+          "weights, DP-DML (received: a DP release of the kernel path's "
+          "poisoned shared logits):")
+    _hetero_grad_parity(cms, seeds, inputs, noised, 0, limits)
+    del noised
+    print("per-client gradients of the mutual-step loss at the initial "
+          "weights, TrimmedDML(trim=1) (received: the kernel path's "
+          "poisoned shared logits):")
+    _hetero_grad_parity(cms, seeds, inputs, stack, 0, limits,
+                        robust=("trimmed", 1))
+    del stack, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_hetero_small_privacy(card: str, B: int = 4, S: int = 64,
+                               rounds_each: int = 2) -> dict:
+    """The reduced fleet of four (qwen3-4b, mamba2-780m, qwen3-4b,
+    dbrx-132b at their reduced configs, fp32, vocab 512), client 3
+    sign-flipping: ``rounds_each`` rounds of DPDML(1) (the pair kernels,
+    M = 4 launches each way, and the flash and SSD kernels) then of
+    MedianDML (the flash and SSD kernels, no Eq.-2 kernel), against the
+    same rounds at impl "ref" (the same seeds, so the same noise): every
+    round's losses within relative error 1e-3 and the final params within
+    relative norm error 2e-2 a client.  Returns the kernels' launch
+    counts."""
+    from repro_torch.api import (DPDML, Federation, HeteroClients, MedianDML,
+                                 make_lm_pool)
+
+    archs = ("qwen3-4b", "mamba2-780m", "qwen3-4b", "dbrx-132b")
+    K = len(archs)
+    rounds = 2 * rounds_each
+    pool, labels = make_lm_pool(((1 + K) * rounds + 1) * 8, S, 512, seed=0)
+    mixers = ("flash_attention_fwd", "flash_attention_bwd", "ssd_scan_fwd",
+              "ssd_scan_bwd")
+    runs = {}
+    _kernel_counts(zero=True)                        # the main path starts
+    for impl in (None, "ref"):
+        pop = HeteroClients(archs, pool, labels, rounds=rounds,
+                            batch_size=B, public_batch=2, seed=0,
+                            kernel_impl=impl, byzantine={K - 1: "sign-flip"})
+        plan = [DPDML()] * rounds_each + [MedianDML()] * rounds_each
+        logs = []
+        for r, strategy in enumerate(plan):
+            fed = Federation(pop, strategy)
+            fed.round = r
+            before = _kernel_counts()
+            rl = fed.run(until=r + 1).rounds[-1]
+            ran = _delta(before, _kernel_counts())
+            logs.append(rl)
+            if pop.impl != "cuda":
+                continue
+            pair = 0 if strategy.name == "median-dml" else K
+            if ran.get("kl_mutual_pair_fwd", 0) != pair or \
+                    ran.get("kl_mutual_pair_bwd", 0) != pair or \
+                    not all(ran.get(n) for n in mixers):
+                raise AssertionError(f"reduced privacy round {r} left its "
+                                     f"kernels: {ran}")
+            print(f"reduced fleet {archs} (fp32, client 3 sign-flipping) "
+                  f"{strategy.name} round {r}: local loss "
+                  f"{_fmt(rl.client_loss)} kl {_fmt(rl.kl_loss)}; launches "
+                  f"{ran}")
+        runs[pop.impl] = (logs, [_host(p) for p in pop.client_params])
+        if pop.impl == "cuda":
+            counts = {n: c for n, c in _kernel_counts().items() if c}
+        del fed, pop
+    (logs, params), (ref_logs, ref_params) = runs["cuda"], runs["ref"]
+    worst = max(abs(a - b) / abs(b) for g, w in zip(logs, ref_logs)
+                for f in ("client_loss", "public_ce", "kl_loss")
+                for a, b in zip(getattr(g, f), getattr(w, f)))
+    errs = [_tree_rel(p, q)[0] for p, q in zip(params, ref_params)]
+    print(f"reduced privacy fleet, {rounds_each} DP-DML + {rounds_each} "
+          f"MedianDML rounds, impl=cuda vs impl=ref: worst relative error "
+          f"of the round logs {worst:.3g} (limit 1e-3); final params' "
+          f"relative norm error per client {_fmt(errs, '.3g')} (limit 2e-2)")
+    if worst > 1e-3 or max(errs) > 2e-2:
+        raise AssertionError("the reduced privacy fleet disagrees with the "
+                             "plain path")
+    return counts
+
+
 def main() -> int:
     check_cuda()
     env = phase_env()
@@ -3092,8 +3677,10 @@ def main() -> int:
     GTK, GTB, GTS = 3, 4, 512
     greqs = make_requests(gcfg)
     # the mixed fleet of phase 17 (one vocabulary, 151,936): full width,
-    # depth cut so that three clients' params and moments fit (~40 GB)
+    # depth cut so that three clients' params and moments fit (~40 GB);
+    # phase 21's fleet of four adds a second qwen3-4b client (~52 GB)
     hcfgs = (tcfg, qtcfg, get_config("qwen3-8b").replace(n_layers=2))
+    pcfgs = hcfgs + (tcfg,)
     HB, HS, HPUB = 4, 512, 2
 
     def shapes(c):
@@ -3142,8 +3729,12 @@ def main() -> int:
     # live row against J = 2 received; phase_kl's (K = 3, x rolled) printed
     received = phase_kl_received(HPUB * HS, cfg.vocab_size, len(hcfgs) - 1,
                                  64)
+    # ... and against J = 3, phase 21's DP-DML call, where the pair rows of
+    # the kernels line are timed
+    received += phase_kl_received(HPUB * HS, cfg.vocab_size,
+                                  len(pcfgs) - 1, 64, sparse=False)
     kernels = [r for r in kernels if r["name"] not in
-               {x["name"] for x in received}] + received
+               {x["name"] for x in received}] + received[2:]
     # the mamba2 round's Eq.-2 term: checked, its rows kept at qwen3-4b's
     phase_kl(MTK, max(1, MTB // 2) * MTS, mcfg.vocab_size)
     # the prefix archs' rounds' Eq.-2 terms (token positions only)
@@ -3191,7 +3782,10 @@ def main() -> int:
                                 None),
             lambda: phase_hetero(env["card"], hcfgs, HB, HS, HPUB),
             lambda: phase_hetero_small(env["card"], tcfg),
-            lambda: phase_single(env["card"], cfg)):
+            lambda: phase_single(env["card"], cfg),
+            lambda: phase_vision_privacy(env["card"]),
+            lambda: phase_hetero_privacy(env["card"], pcfgs, HB, HS, HPUB),
+            lambda: phase_hetero_small_privacy(env["card"])):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3204,7 +3798,9 @@ def main() -> int:
           "llava-next-mistral-7b DML training, musicgen-medium serving, "
           "musicgen-medium DML training, the full-width hetero fleet, the "
           "reduced hetero fleet + one-arch weight rounds, qwen3-4b "
-          "single-model training + decode): " + json.dumps(paths))
+          "single-model training + decode, VisionNet DP-DML + robust + "
+          "attack experiments, the full-width privacy fleet, the reduced "
+          "privacy fleet): " + json.dumps(paths))
     for row in kernels:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)
     print(json.dumps({"kernels": kernels}))

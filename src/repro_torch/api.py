@@ -14,11 +14,13 @@ from repro_torch.core.populations import (HeteroClients, LMClients,
                                            Population, VisionClients,
                                            comm_bytes_per_round,
                                            make_lm_pool)
-from repro_torch.core.strategies import (DML, STRATEGIES, AsyncWeights,
-                                         FedAvg, Payload, SparseDML,
-                                         Strategy, get_strategy)
+from repro_torch.core.strategies import (DML, DPDML, STRATEGIES,
+                                         AsyncWeights, FedAvg, MedianDML,
+                                         Payload, SparseDML, Strategy,
+                                         TrimmedDML, get_strategy)
 
 __all__ = ["Federation", "History", "RoundLog", "Strategy", "Payload",
-           "STRATEGIES", "get_strategy", "DML", "SparseDML", "FedAvg",
-           "AsyncWeights", "Population", "LMClients", "VisionClients",
-           "HeteroClients", "make_lm_pool", "comm_bytes_per_round"]
+           "STRATEGIES", "get_strategy", "DML", "SparseDML", "DPDML",
+           "TrimmedDML", "MedianDML", "FedAvg", "AsyncWeights",
+           "Population", "LMClients", "VisionClients", "HeteroClients",
+           "make_lm_pool", "comm_bytes_per_round"]

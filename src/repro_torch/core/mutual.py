@@ -19,8 +19,12 @@ the sparse-KL kernel and its backward.
 
 The Bernoulli half is VisionNet's (the paper's case study): each client
 shares one sigmoid probability per example, and Eq. 2 is the Bernoulli KL,
-in plain PyTorch as in the JAX package.  The robust half comes with its
-slice.
+in plain PyTorch as in the JAX package.
+
+The robust half (the Byzantine-robust strategies): a coordinate-wise
+trimmed-mean or median consensus of the received predictions replaces the
+Eq.-2 mean, and each client descends KL(P_i || consensus).  It has no
+kernel in either package: plain PyTorch at every impl.
 """
 from __future__ import annotations
 
@@ -242,6 +246,127 @@ def sparse_share_bytes(n_clients: int, n_examples: int, k: int) -> int:
     """Per-round traffic of top-k sharing (int32 idx + fp32 logp, up and
     down)."""
     return 2 * n_clients * n_examples * k * 8
+
+
+# ---------------------------------------------------------------------------
+# Byzantine-robust Eq.-2 combiners.  Plain DML averages the KL to every
+# received prediction, so one confident-wrong payload pulls every honest
+# client; the robust variants replace the mean with a coordinate-wise
+# trimmed mean or median CONSENSUS TARGET over the received predictions and
+# descend KL(P_i || target_i) instead.
+
+_ABSENT = 1e9          # sort-key shift that pushes masked-out senders last
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in ("trimmed", "median"):
+        raise ValueError(f"robust mode must be 'trimmed' or 'median', "
+                         f"got {mode!r}")
+
+
+def robust_weighted_target(shared, recv_mask, mode: str, trim: int = 1):
+    """Per-receiver robust consensus over received predictions.
+
+    shared     (K, B) values shared by every client (Bernoulli probs, or
+               any per-position scalar payload)
+    recv_mask  (K_recv, K) 0/1 -- row i selects the senders receiver i
+               aggregates over (participants minus self)
+    mode       'trimmed' (drop the ``trim`` largest and smallest values
+               per position) or 'median' (the mean of the two middle
+               values when the count is even, as ``jnp.median``)
+    Returns (K_recv, B) targets.  When a row's live sender count n
+    satisfies n - 2 trim < 1 the trimmed mean falls back to the untrimmed
+    masked mean (trim 0).
+    """
+    _check_mode(mode)
+    shared = shared.float()
+    m = torch.as_tensor(recv_mask, dtype=torch.float32, device=shared.device)
+    vals = shared[None, :, :] + (1.0 - m)[:, :, None] * _ABSENT
+    s = torch.sort(vals, dim=1).values                 # (Kr, K, B) ascending
+    K = shared.shape[0]
+    n = torch.sum(m, dim=1)[:, None, None]             # (Kr, 1, 1) live count
+    ranks = torch.arange(K, dtype=torch.float32,
+                         device=shared.device)[None, :, None]
+    if mode == "median":
+        lo = torch.floor((n - 1.0) / 2.0)
+        hi = torch.floor(n / 2.0)
+        w = 0.5 * ((ranks == lo).float() + (ranks == hi).float())
+        return torch.sum(s * w, dim=1)
+    t = torch.where(n - 2.0 * float(trim) >= 1.0,
+                    torch.full_like(n, float(trim)), torch.zeros_like(n))
+    w = ((ranks >= t) & (ranks < n - t)).float()
+    return torch.sum(s * w, dim=1) / torch.clamp(torch.sum(w, dim=1),
+                                                 min=1.0)
+
+
+def robust_bernoulli_target(shared, part_mask, mode: str, trim: int = 1):
+    """(K, B) shared Bernoulli probs -> (K, B) per-client robust targets
+    (each client aggregates over the OTHER participants, as in Eq. 2),
+    clipped to [1e-6, 1 - 1e-6]."""
+    K = shared.shape[0]
+    eye = torch.eye(K, dtype=torch.float32, device=shared.device)
+    pm = torch.ones((K,), dtype=torch.float32, device=shared.device) \
+        if part_mask is None else torch.as_tensor(
+            part_mask, dtype=torch.float32, device=shared.device)
+    recv = pm[None, :] * (1.0 - eye)
+    tgt = robust_weighted_target(shared, recv, mode, trim)
+    return torch.clamp(tgt, 1e-6, 1.0 - 1e-6)
+
+
+# elements of fp32 probabilities a block of rows of
+# ``robust_categorical_target`` holds (its sort adds values and int64
+# indices): 64 Mi, 256 MB
+_TARGET_BLOCK = 1 << 26
+
+
+def robust_categorical_target(received_logits, mode: str, trim: int = 1):
+    """(J, B, V) received logits -> (B, V) robust consensus distribution.
+
+    Coordinate-wise trimmed mean or median over the J received softmax
+    distributions (fp32), clipped to [1e-9, 1] and renormalised onto the
+    simplex.  J - 2 trim < 1 falls back to the untrimmed mean.  The median
+    of an even J is the mean of the ranks (J-1)//2 and J//2 (``jnp.median``;
+    ``torch.median`` would take the lower one).  The target is per
+    position, so it runs over blocks of rows: the sort's transient memory
+    stays at a few times ``_TARGET_BLOCK`` elements.
+    """
+    _check_mode(mode)
+    J, B, V = received_logits.shape
+    t = trim if J - 2 * trim >= 1 else 0
+    rows = max(1, _TARGET_BLOCK // max(J * V, 1))
+    out = torch.empty((B, V), dtype=torch.float32,
+                      device=received_logits.device)
+    for b0 in range(0, B, rows):
+        probs = torch.softmax(received_logits[:, b0:b0 + rows].float(),
+                              dim=-1)                  # (J, rows, V)
+        s = torch.sort(probs, dim=0).values
+        del probs
+        if mode == "median":
+            lo, hi = (J - 1) // 2, J // 2
+            tgt = s[lo] if lo == hi else 0.5 * (s[lo] + s[hi])
+        else:
+            tgt = torch.mean(s[t:J - t], dim=0)
+        del s
+        tgt = torch.clamp(tgt, 1e-9, 1.0)
+        out[b0:b0 + rows] = tgt / torch.sum(tgt, dim=-1, keepdim=True)
+        del tgt
+    return out
+
+
+def kl_to_robust_received(live_logits, received_logits, mode: str,
+                          trim: int = 1, temperature: float = 1.0):
+    """Robust Eq. 2 for ONE client: KL(P_live || robust consensus of the
+    received predictions).  live (B, V) x received (J, B, V) -> (B,).
+    The consensus target is data: computed without a graph."""
+    with torch.no_grad():
+        rec = received_logits.detach()
+        if temperature != 1.0:
+            rec = rec.float() / temperature
+        log_tgt = torch.log(robust_categorical_target(rec, mode, trim))
+        del rec
+    lp_live = torch.log_softmax(live_logits.float() / temperature, dim=-1)
+    p_live = torch.exp(lp_live)
+    return torch.sum(p_live * (lp_live - log_tgt), dim=-1)
 
 
 # ---------------------------------------------------------------------------

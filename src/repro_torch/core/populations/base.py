@@ -13,7 +13,6 @@ from typing import List
 
 import numpy as np
 
-from repro_torch.core.strategies.base import NOT_PORTED, not_ported
 from repro_torch.tree import tree_leaves
 
 
@@ -32,8 +31,6 @@ class Population:
 
     # -- session plumbing --------------------------------------------------
     def validate_strategy(self, strategy) -> None:
-        if strategy.name in NOT_PORTED:
-            raise not_ported(strategy.name)
         if strategy.name not in self.supported:
             raise ValueError(
                 f"{type(self).__name__} does not support strategy "
@@ -61,7 +58,13 @@ class Population:
         return None
 
     def mutual_phase(self, r, part, pm, payload, kl_weight, mutual_epochs,
-                     sparse_k: int = 0) -> dict:
+                     sparse_k: int = 0, dp=None, robust=None) -> dict:
+        """``dp``: a ``privacy.dp.DPSpec`` -- clip + Gaussian-noise each
+        client's shared predictions before they cross the boundary
+        (DP-DML).  ``robust``: ``(mode, trim)`` -- replace the Eq.-2 mean
+        with a trimmed-mean/median consensus target (the Byzantine-robust
+        variants).  Populations that list the corresponding strategies in
+        ``supported`` honour both."""
         raise NotImplementedError
 
     def fedavg_combine(self, part: List[int], pm) -> None:

@@ -30,8 +30,19 @@ port's way to cut depth at full width; the id is then ``cfg.name``).
 ``device=None`` means the CUDA device and raises without one; the kernel
 impl is resolved once (``ops.resolve_impl``).  Init draws and VisionNet
 dropout draws are the port's own; parity crosses the JAX package's state
-through ``load_state_dict`` (its npz schema).  Byzantine clients, payload
-recording and the DP / robust mutual phases are not ported yet.
+through ``load_state_dict`` (its npz schema).
+
+Privacy and robustness, as in the JAX package: ``byzantine`` clients
+(``label-flip`` poisons a vision client's local labels; ``sign-flip``
+negates what a sender shares, ``collude`` replaces it by a one-hot of 8.0
+at ``(label + 1) % V``, on the device and on the sent stack only), the DP
+release of the whole (M, N_pub, V) stack each epoch (``DPDML``: one draw
+of that shape an epoch, ``privacy.dp.gaussian``), the robust combiners
+(``TrimmedDML`` / ``MedianDML``: ``mutual.kl_to_robust_received``, plain
+PyTorch at every impl) and the payload tap (``record_payloads``: a host
+copy of every epoch's stack in ``payload_log``).  Under DP-DML the Eq.-2
+term still runs ``kl_to_received``: on the card the pair kernels against
+the noised stack.
 """
 from __future__ import annotations
 
@@ -44,8 +55,8 @@ import torch
 from repro_torch.core import distributed as D
 from repro_torch.core import stacking
 from repro_torch.core.async_fl import layer_schedule
-from repro_torch.core.mutual import (kl_to_received, sparse_kl_to_received,
-                                     topk_predictions)
+from repro_torch.core.mutual import (kl_to_received, kl_to_robust_received,
+                                     sparse_kl_to_received, topk_predictions)
 from repro_torch.core.populations.base import (Population,
                                                broadcast_mask_counts)
 from repro_torch.data.federated import FoldScheduler, round_batch_indices
@@ -54,10 +65,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import ClientModel, get_client_model
 from repro_torch.models.visionnet import strict_fp32
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.privacy import dp as dp_mod
 from repro_torch.tree import tree_leaves, tree_map
-
-_PRIVACY = ("are not ported yet; they come with the privacy and robustness "
-            "item of queue 1")
 
 
 def comm_bytes_per_round(n_participants: int, n_pub: int, n_classes: int,
@@ -110,7 +119,8 @@ class HeteroClients(Population):
     """
 
     engine_name = "hetero"
-    supported = frozenset({"dml", "sparse-dml", "fedavg", "async"})
+    supported = frozenset({"dml", "sparse-dml", "fedavg", "async",
+                           "dp-dml", "trimmed-dml", "median-dml"})
     log_participants_always = True
     _BYZ_MODES = ("label-flip", "sign-flip", "collude")
 
@@ -146,10 +156,10 @@ class HeteroClients(Population):
             raise ValueError(f"clients disagree on the prediction space V "
                              f"({sorted(spaces)}); shared vocab required")
         self.n_classes = spaces.pop()
-        self._check_byzantine({int(c): m for c, m in
-                               (byzantine or {}).items()})
-        if record_payloads:
-            raise NotImplementedError(f"payload recording {_PRIVACY}")
+        self.byzantine = {int(c): m for c, m in (byzantine or {}).items()}
+        self._check_byzantine(self.byzantine)
+        self.record_payloads = bool(record_payloads)
+        self.payload_log: List[dict] = []
         self.opt_cfg = AdamWConfig(
             lr=lr, warmup=2,
             total_steps=max(rounds * (local_epochs
@@ -180,8 +190,7 @@ class HeteroClients(Population):
         self._shallow = None
 
     def _check_byzantine(self, byzantine: dict) -> None:
-        """The JAX package's checks of the byzantine map; a valid non-empty
-        map then raises: the injectors are not ported yet."""
+        """The JAX package's checks of the byzantine map."""
         for c, mode in byzantine.items():
             if not 0 <= c < self.n_clients:
                 raise ValueError(
@@ -195,8 +204,6 @@ class HeteroClients(Population):
                     "label-flip is undefined for 'lm' clients (the private "
                     "loss is next-token CE on the inputs; labels are only "
                     "fold-stratification ids) -- use sign-flip or collude")
-        if byzantine:
-            raise NotImplementedError(f"byzantine clients {_PRIVACY}")
 
     def validate_strategy(self, strategy) -> None:
         super().validate_strategy(strategy)
@@ -255,10 +262,12 @@ class HeteroClients(Population):
         return aux
 
     def _mutual_step(self, c: int, inputs, labs, received, kl_weight: float,
-                     gen) -> tuple:
+                     gen, robust=None) -> tuple:
         """Eq. 1 with the received predictions fixed (one mutual epoch of
         client c): ``received`` is the (J, N_pub, V) logits or, for
-        SparseDML, the (idx, logp) (J, N_pub, k) sets.  Returns (ce, kl)."""
+        SparseDML, the (idx, logp) (J, N_pub, k) sets; ``robust`` (mode,
+        trim) descends the KL to their robust consensus instead.  Returns
+        (ce, kl)."""
         cm = self._models[self.archs[c]]
 
         def loss(p):
@@ -267,6 +276,9 @@ class HeteroClients(Population):
             if isinstance(received, tuple):
                 terms = sparse_kl_to_received(live, *received,
                                               impl=self._kl_impl)
+            elif robust is not None:
+                terms = kl_to_robust_received(live, received, robust[0],
+                                              int(robust[1]))
             else:
                 terms = kl_to_received(live, received, impl=self._kl_impl)
             kl = torch.mean(terms)
@@ -305,6 +317,8 @@ class HeteroClients(Population):
             with self._precision():
                 for t in range(idx.shape[0]):
                     inputs, labs = self._gather(idx[t])
+                    if self.byzantine.get(c) == "label-flip":
+                        labs = (labs + 1) % self.n_classes
 
                     def loss(p):
                         total = cm.private_loss(p, inputs, labs, gen,
@@ -322,18 +336,34 @@ class HeteroClients(Population):
     def weights_payload(self, r: int):
         return self.folds.pop()[:self._pub_n]
 
+    def _poison_stack(self, stack: torch.Tensor, part: List[int],
+                      pub_labs: torch.Tensor) -> torch.Tensor:
+        """Apply the payload Byzantine modes to the senders' rows of the
+        (M, N_pub, V) logit stack, in place on the device: what they put
+        on the wire.  Their own receipts stay honest; the attack is on what
+        they SEND."""
+        for s, c in enumerate(part):
+            mode = self.byzantine.get(c)
+            if mode == "sign-flip":
+                stack[s] = -stack[s]
+            elif mode == "collude":
+                wrong = (pub_labs.long() + 1) % self.n_classes
+                stack[s] = 0
+                stack[s, torch.arange(len(pub_labs), device=stack.device),
+                      wrong] = 8.0
+        return stack
+
     def mutual_phase(self, r, part, pm, payload, kl_weight, mutual_epochs,
                      sparse_k: int = 0, dp=None, robust=None) -> dict:
-        if dp is not None:
-            raise NotImplementedError(f"the DP release {_PRIVACY}")
-        if robust is not None:
-            raise NotImplementedError(f"the robust combiners {_PRIVACY}")
         K = self.n_clients
         inputs, labs = self._gather(payload.data)
         public_ce = [0.0] * K
         kl_losses = [0.0] * K
         out = {"ran": False, "positions": 0, "public_ce": public_ce,
                "kl_loss": kl_losses}
+        if sparse_k and (dp is not None or robust is not None):
+            raise ValueError("sparse payloads compose with neither the DP "
+                             "release nor the robust combiners")
         if mutual_epochs <= 0 or len(part) < 2:
             return out
         n_pub = None
@@ -351,6 +381,21 @@ class HeteroClients(Population):
                 n_pub = idx_stack.shape[1]
             else:
                 stack = torch.stack(shared)                    # (M,N_pub,V)
+                shared.clear()
+                stack = self._poison_stack(stack, part, labs)
+                if dp is not None:
+                    # the whole stacked payload noised at once: one release
+                    # per sender (leading-axis slices), one draw an epoch
+                    noise = dp_mod.gaussian(dp.keys[e], stack.shape,
+                                            self.device)
+                    stack = dp_mod.dp_noise_payload(
+                        stack, dp.clip, dp.noise_multiplier, noise)
+                    del noise
+                if self.record_payloads:
+                    self.payload_log.append(
+                        {"round": r, "epoch": e, "part": list(part),
+                         "public": np.asarray(payload.data),
+                         "payloads": stack.to("cpu", copy=True)})
                 n_pub = stack.shape[1]
             del shared
             for s, c in enumerate(part):
@@ -359,7 +404,7 @@ class HeteroClients(Population):
                 ce, kl = self._mutual_step(c, inputs, labs, received,
                                            kl_weight,
                                            self._generator(r, 1000 + e * K
-                                                           + c))
+                                                           + c), robust)
                 public_ce[c] = ce
                 kl_losses[c] = kl
                 del received

@@ -28,9 +28,17 @@ by numpy and seeds that phase's ``torch.Generator``; each package restores
 the other's checkpoints, but the masks differ.  ``device=None`` means the
 CUDA device and raises without one.
 
-The population executes ``dml`` / ``fedavg`` / ``async``; ``sparse-dml``
-is refused -- the VisionNet head shares Bernoulli probabilities (one float
-per example), which have no top-k structure to sparsify.
+The population executes ``dml`` / ``fedavg`` / ``async`` and the privacy
+and robustness strategies ``dp-dml`` / ``trimmed-dml`` / ``median-dml``;
+``sparse-dml`` is refused -- the VisionNet head shares Bernoulli
+probabilities (one float per example), which have no top-k structure to
+sparsify.  Byzantine clients, the DP release, the robust combiners and the
+payload tap run the extended mutual program of the JAX package's
+``_mutual_scan_ext``: per epoch the shared predictions, the senders'
+poisoning, the DP release of the whole (K, B) stack (one draw an epoch,
+``privacy.dp.gaussian``), then the plain epoch step or the robust one.
+Without poisoning or DP the shared tensor is the plain path's, so a
+tap-only run is the plain run bit for bit.
 """
 from __future__ import annotations
 
@@ -42,7 +50,9 @@ import torch
 from repro_torch.configs.visionnet import VisionNetConfig
 from repro_torch.core import async_fl, fedavg, stacking
 from repro_torch.core.distributed import value_and_grad
-from repro_torch.core.mutual import _pair_mask, bernoulli_mutual_terms_vs
+from repro_torch.core.mutual import (_pair_mask, bernoulli_kl_to_target,
+                                     bernoulli_mutual_terms_vs,
+                                     robust_bernoulli_target)
 from repro_torch.core.populations.base import Population
 from repro_torch.data.federated import (FoldScheduler, NonIIDScheduler,
                                         round_batch_indices)
@@ -51,6 +61,7 @@ from repro_torch.models.visionnet import (bce_loss, init_visionnet,
                                           shallow_deep_split, strict_fp32,
                                           visionnet_forward)
 from repro_torch.optim import SGDConfig, sgd_init, sgd_update
+from repro_torch.privacy import dp as dp_mod
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -78,13 +89,22 @@ def _masked_step(params, opt, grads, w: torch.Tensor, cfg: SGDConfig,
 class VisionClients(Population):
     """K stacked VisionNet clients on a (train_images, train_labels) pool.
 
-    The JAX constructor's signature and defaults, plus ``device``.  Its
-    ``byzantine``, ``record_payloads`` and ``mesh`` features are not ported:
-    passing them raises.
+    The JAX constructor's signature and defaults, plus ``device``; a
+    ``mesh`` is not ported and raises.
+
+    ``byzantine``: ``{client_index: mode}`` marks adversarial clients --
+    ``"label-flip"`` poisons their LOCAL training labels, ``"sign-flip"``
+    inverts the predictions they share (p -> 1 - p), ``"collude"`` makes
+    them share confident mass on the wrong public label.
+    ``record_payloads`` keeps every round's on-wire prediction payloads in
+    ``payload_log`` ((E, K, B) numpy each) and every round's private-fold
+    indices in ``fold_log`` (the attack probes' observation tap).
     """
 
     engine_name = "federated"
-    supported = frozenset({"dml", "fedavg", "async"})
+    supported = frozenset({"dml", "fedavg", "async",
+                           "dp-dml", "trimmed-dml", "median-dml"})
+    _BYZ_MODES = ("label-flip", "sign-flip", "collude")
 
     def __init__(self, vn_cfg: VisionNetConfig, train_images: np.ndarray,
                  train_labels: np.ndarray, n_clients: int = 5,
@@ -94,15 +114,24 @@ class VisionClients(Population):
                  non_iid_alpha: float = 0.0, seed: int = 0,
                  eval_batch: int = 256, byzantine=None,
                  record_payloads: bool = False, mesh=None, device=None):
-        if byzantine or record_payloads:
-            raise NotImplementedError(
-                "byzantine clients and payload recording are not ported "
-                "yet; they come with the privacy and robustness item of "
-                "queue 1")
         if mesh is not None:
             raise NotImplementedError(
                 "a client mesh is not ported yet; it comes with the "
                 "client-sharding item of queue 1")
+        self.byzantine = {int(c): m for c, m in (byzantine or {}).items()}
+        for c, mode in self.byzantine.items():
+            if not 0 <= c < n_clients:
+                raise ValueError(
+                    f"byzantine client {c} out of range (K={n_clients})")
+            if mode not in self._BYZ_MODES:
+                raise ValueError(
+                    f"unknown byzantine mode {mode!r} for client {c}; "
+                    f"VisionClients supports {self._BYZ_MODES}")
+        self._flip_rows = sorted(c for c, m in self.byzantine.items()
+                                 if m == "label-flip")
+        self.record_payloads = bool(record_payloads)
+        self.payload_log: List[dict] = []
+        self.fold_log: List[list] = []
         self.device = ops.resolve_device(device)
         self.vn_cfg = vn_cfg
         self.images = train_images
@@ -179,16 +208,22 @@ class VisionClients(Population):
         i = torch.as_tensor(idx, device=self.device)
         return self._images[i], self._labels[i]
 
-    def _local_steps(self, params, opt, idx: np.ndarray, mask: np.ndarray):
+    def _local_steps(self, params, opt, idx: np.ndarray, mask: np.ndarray,
+                     flip_rows=()):
         """Every client's local epochs: a loop over the (K, T, B) plan
-        ``idx``; step t updates client c only where mask[c, t] = 1.
-        Returns (params, opt, mean BCE per client (K,) on the device)."""
+        ``idx``; step t updates client c only where mask[c, t] = 1; the
+        labels of the clients in ``flip_rows`` are flipped (label-flip
+        attackers).  Returns (params, opt, mean BCE per client (K,) on the
+        device)."""
         gen = self._dropout_generator()
         w = torch.as_tensor(mask, device=self.device)
         loss_sum = torch.zeros(mask.shape[0], device=self.device)
         with strict_fp32():
             for t in range(idx.shape[1]):
                 images, labels = self._batch(idx[:, t])
+                if flip_rows:
+                    labels = labels.clone()
+                    labels[list(flip_rows)] = 1 - labels[list(flip_rows)]
 
                 def loss_fn(q):
                     probs = visionnet_forward(q, self.vn_cfg, images,
@@ -231,7 +266,7 @@ class VisionClients(Population):
         if part_mask is not None:
             mask = mask * part_mask[:, None]
         self.client_params, self.client_opts, losses = self._local_steps(
-            self.client_params, self.client_opts, idx, mask)
+            self.client_params, self.client_opts, idx, mask, self._flip_rows)
         self.dispatch_log.append((self._round_idx, "local_scan"))
         return folds, losses.tolist()
 
@@ -278,6 +313,10 @@ class VisionClients(Population):
         K = self.n_clients
         folds, losses = self._local_round(pm if len(part) < K else None)
         self._last_folds = folds
+        if self.record_payloads:
+            # per-client private-fold indices: the attack probes' member
+            # ground truth (indices only; the pool itself is not copied)
+            self.fold_log.append([np.asarray(f) for f in folds])
         return losses
 
     def public_payload(self, r: int):
@@ -287,38 +326,87 @@ class VisionClients(Population):
     def weights_payload(self, r: int):
         return self.folds.pop()
 
+    def _byz_payload_masks(self) -> Tuple[np.ndarray, np.ndarray]:
+        sf = np.zeros((self.n_clients,), np.float32)
+        cl = np.zeros((self.n_clients,), np.float32)
+        for c, mode in self.byzantine.items():
+            if mode == "sign-flip":
+                sf[c] = 1.0
+            elif mode == "collude":
+                cl[c] = 1.0
+        return sf, cl
+
+    def _epoch_step(self, params, opt, images, labels, gen, pmt, kl_weight,
+                    full: bool, shared, pair_w, target=None):
+        """One Eq.-1 descent of every client against FIXED received
+        predictions: the Eq.-2 mean against ``shared`` (K, B) under
+        ``pair_w`` or, given a robust ``target`` (K, B), the Bernoulli KL
+        to each client's own target row, absentees at zero KL weight.
+        Updates only the participants.  Returns (params, opt, bce, kld)."""
+        def loss_fn(q):
+            live = visionnet_forward(q, self.vn_cfg, images, train=True,
+                                     generator=gen)
+            bce = bce_loss(live, labels)
+            if target is None:
+                kld = torch.mean(
+                    bernoulli_mutual_terms_vs(live, shared, pair_w), dim=-1)
+            else:
+                kld = torch.mean(bernoulli_kl_to_target(live, target),
+                                 dim=-1) * pmt
+            return (torch.sum(bce * pmt) + kl_weight * torch.sum(kld),
+                    (bce.detach(), kld.detach()))
+
+        with strict_fp32():
+            _, (bce, kld), grads = value_and_grad(loss_fn, params)
+            params, opt = _masked_step(params, opt, grads, pmt, self.sgd_cfg,
+                                       full)
+        return params, opt, bce, kld
+
     def mutual_phase(self, r, part, pm, payload, kl_weight, mutual_epochs,
-                     sparse_k: int = 0) -> dict:
+                     sparse_k: int = 0, dp=None, robust=None) -> dict:
         K = self.n_clients
         pub = payload.data
         out = {"ran": False, "positions": len(pub)}
+        sf, cl = self._byz_payload_masks()
+        poison = bool(sf.any() or cl.any())
         if mutual_epochs > 0 and len(part) >= 2:
             images, labels = self._batch(pub)
             gen = self._dropout_generator()
             pmt = torch.as_tensor(pm, dtype=torch.float32,
                                   device=self.device)
             pair_w = _pair_mask(K, pm, device=self.device)
+            if poison:
+                sft, clt = (torch.as_tensor(m, device=self.device)[:, None]
+                            for m in (sf, cl))
+                wrong = torch.clamp(1.0 - labels.float(), 0.02,
+                                    0.98)[None, :]
             params, opt = self.client_params, self.client_opts
-            for _ in range(mutual_epochs):
+            sent = []
+            for e in range(mutual_epochs):
                 # what goes over the wire: dropout-free, held fixed
                 shared = self._predict(params, images)
-
-                def loss_fn(q):
-                    live = visionnet_forward(q, self.vn_cfg, images,
-                                             train=True, generator=gen)
-                    bce = bce_loss(live, labels)
-                    kld = torch.mean(
-                        bernoulli_mutual_terms_vs(live, shared, pair_w),
-                        dim=-1)
-                    return (torch.sum(bce * pmt) + kl_weight * torch.sum(kld),
-                            (bce.detach(), kld.detach()))
-
-                with strict_fp32():
-                    _, (bce, kld), grads = value_and_grad(loss_fn, params)
-                    params, opt = _masked_step(params, opt, grads, pmt,
-                                               self.sgd_cfg,
-                                               len(part) == K)
+                if poison:
+                    # Byzantine senders replace what they SEND; their own
+                    # training still sees honest receipts
+                    shared = ((1.0 - sft - clt) * shared
+                              + sft * (1.0 - shared) + clt * wrong)
+                if dp is not None:
+                    noise = dp_mod.gaussian(dp.keys[e], shared.shape,
+                                            self.device)
+                    shared = dp_mod.dp_probs_payload(
+                        shared, dp.clip, dp.noise_multiplier, noise)
+                if self.record_payloads:
+                    sent.append(shared)
+                target = None if robust is None else \
+                    robust_bernoulli_target(shared, pm, *robust)
+                params, opt, bce, kld = self._epoch_step(
+                    params, opt, images, labels, gen, pmt, kl_weight,
+                    len(part) == K, shared, pair_w, target)
             self.client_params, self.client_opts = params, opt
+            if self.record_payloads:
+                self.payload_log.append(
+                    {"round": r, "public": np.asarray(pub),
+                     "payloads": torch.stack(sent).cpu().numpy()})
             self.dispatch_log.append((r, "mutual_scan"))
             loss, kld = torch.stack([bce + kl_weight * kld, kld]).tolist()
             out = {"ran": True, "positions": len(pub),

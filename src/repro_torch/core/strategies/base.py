@@ -62,20 +62,6 @@ class Strategy(Protocol):
 
 STRATEGIES: Dict[str, type] = {}
 
-# the JAX package's other strategies, and the slice of the port each
-# comes with (ROADMAP.md)
-NOT_PORTED: Dict[str, str] = {
-    "dp-dml": "the privacy item of queue 1",
-    "trimmed-dml": "the privacy item of queue 1",
-    "median-dml": "the privacy item of queue 1",
-}
-
-
-def not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"strategy {name!r} is not ported yet; it comes with "
-        f"{NOT_PORTED[name]}")
-
 
 def register(cls):
     STRATEGIES[cls.name] = cls
@@ -85,8 +71,6 @@ def register(cls):
 def get_strategy(name: str, **knobs):
     """Resolve a strategy id to a configured instance; knobs the strategy
     does not take are ignored, so one CLI flag namespace drives them all."""
-    if name in NOT_PORTED:
-        raise not_ported(name)
     if name not in STRATEGIES:
         raise ValueError(f"unknown strategy {name!r}; "
                          f"have {sorted(STRATEGIES)}")

@@ -21,11 +21,23 @@ same-arch LM clients (``--method dml``) or of one arch PER client
   PYTHONPATH=src python -m repro_torch.launch.train --method hetero \
       --archs qwen3-4b,qwen3-4b --strategy fedavg --rounds 3 --device cpu
 
-``--strategy`` picks what crosses the wire: dml, sparse-dml, fedavg or
-async.  The JAX CLI's privacy and robust strategies, ``--byzantine`` and
-``--mesh`` are not ported; those strategies and a non-empty
-``--byzantine`` raise, naming the item of the port they come with.  The
-full-width runs are ``chip_smoke.py``'s.
+``--strategy`` picks what crosses the wire: dml, sparse-dml, fedavg,
+async, or the privacy and robustness strategies of the prediction-sharing
+populations: dp-dml clips and Gaussian-noises every shared payload
+(``--dp-epsilon`` calibrates the noise to a target budget over the
+schedule's releases), trimmed-/median-dml swap the Eq.-2 mean for a robust
+consensus, and ``--byzantine`` injects poisoned clients into a hetero
+fleet:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --method hetero \
+      --archs qwen3-4b,mamba2-780m --strategy dp-dml --dp-epsilon 4.0
+  PYTHONPATH=src python -m repro_torch.launch.train --method hetero \
+      --archs qwen3-4b,mamba2-780m,qwen3-4b --strategy median-dml \
+      --byzantine 2=sign-flip --rounds 3
+
+The stacked LM population (``--method dml``) refuses the three, as the
+JAX one does.  The JAX CLI's ``--mesh`` is not ported.  The full-width
+runs are ``chip_smoke.py``'s.
 """
 from __future__ import annotations
 
@@ -36,16 +48,29 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_reduced
-from repro_torch.core.strategies import NOT_PORTED, get_strategy
+from repro_torch.core.strategies import get_strategy
 from repro_torch.kernels import ops
 
 
 def _make_strategy(args):
     """The strategy of ``--strategy`` from one knob namespace (the JAX
     CLI's ``_make_strategy``); ``get_strategy`` drops the knobs it does not
-    take."""
-    return get_strategy(args.strategy, kl_weight=args.kl_weight,
-                        k=args.sparse_k)
+    take.  ``--dp-epsilon`` calibrates dp-dml's noise multiplier over the
+    schedule's releases (rounds for hetero, steps otherwise)."""
+    knobs = dict(kl_weight=args.kl_weight, k=args.sparse_k, trim=args.trim,
+                 dp_clip=args.dp_clip, dp_delta=args.dp_delta,
+                 dp_seed=args.seed)
+    if args.strategy == "dp-dml":
+        sigma = args.dp_noise
+        if args.dp_epsilon:
+            from repro_torch.privacy import calibrate_noise
+            releases = args.rounds if args.method == "hetero" else args.steps
+            sigma = calibrate_noise(args.dp_epsilon, args.dp_delta, releases)
+            print(f"calibrated dp noise multiplier: sigma={sigma:.4f} for "
+                  f"(eps={args.dp_epsilon}, delta={args.dp_delta}) over "
+                  f"{releases} releases")
+        knobs["dp_noise_multiplier"] = sigma
+    return get_strategy(args.strategy, **knobs)
 
 
 def _parse_byzantine(spec: str) -> dict:
@@ -97,6 +122,9 @@ def _run_hetero(args) -> int:
         print(f"resumed from {args.resume} at round {fed.round}")
     h = fed.run(until=args.until)
     _print_history(h)
+    if hasattr(fed.strategy, "epsilon"):
+        print(f"privacy spent: epsilon={fed.strategy.epsilon():.3f} at "
+              f"delta={fed.strategy.dp_delta}")
     fed.evaluate()
     print(f"held-out eval loss per client: "
           f"{['%.3f' % x for x in h.client_eval_loss]}")
@@ -194,14 +222,29 @@ def main(argv=None) -> int:
                          "or one arch per client (hetero)")
     ap.add_argument("--strategy", default="dml",
                     choices=["dml", "sparse-dml", "fedavg", "async",
-                             *NOT_PORTED],
-                    help="what crosses the wire each round (dml, "
-                         "sparse-dml, fedavg and async are ported)")
+                             "dp-dml", "trimmed-dml", "median-dml"],
+                    help="what crosses the wire each round "
+                         "(federated methods only)")
     ap.add_argument("--sparse-k", type=int, default=64,
                     help="top-k kept per position for --strategy sparse-dml")
+    ap.add_argument("--dp-noise", type=float, default=1.0,
+                    help="Gaussian noise multiplier sigma for dp-dml "
+                         "(std = clip * sigma per shared payload)")
+    ap.add_argument("--dp-clip", type=float, default=1.0,
+                    help="L2 clip bound on each dp-dml payload")
+    ap.add_argument("--dp-delta", type=float, default=1e-5,
+                    help="delta of the reported (eps, delta) guarantee")
+    ap.add_argument("--dp-epsilon", type=float, default=0.0,
+                    help="target epsilon: calibrate --dp-noise to spend "
+                         "at most this over the whole schedule "
+                         "(overrides --dp-noise)")
     ap.add_argument("--byzantine", default="", metavar="IDX=MODE,...",
-                    help="poisoned clients for --method hetero (not ported "
-                         "yet: only the empty map runs)")
+                    help="poisoned clients for --method hetero, e.g. "
+                         "'2=collude,0=sign-flip' (modes: label-flip, "
+                         "sign-flip, collude)")
+    ap.add_argument("--trim", type=int, default=1,
+                    help="values trimmed per side by --strategy "
+                         "trimmed-dml")
     ap.add_argument("--clients", type=int, default=2)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=4)

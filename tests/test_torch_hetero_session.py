@@ -38,11 +38,12 @@ from repro.api import SparseDML as JSparseDML
 from repro_torch import interop
 from repro_torch.api import (DML, AsyncWeights, FedAvg, Federation,
                              HeteroClients, SparseDML, comm_bytes_per_round,
-                             make_lm_pool)
+                             get_strategy, make_lm_pool)
 from repro_torch.checkpoint import flatten
 from repro_torch.configs.visionnet import reduced as vn_reduced
 from repro_torch.data.synthetic import make_image_dataset
 from repro_torch.launch import train as cli
+from repro_torch.privacy.dp import DPSpec
 
 torch.set_num_threads(1)
 ARCHS = ("qwen3-4b", "mamba2-780m", "dbrx-132b")        # dense / ssm / moe
@@ -290,13 +291,15 @@ def test_refusals(pool):
     with pytest.raises(ValueError, match="VisionClients"):
         Federation(vision, AsyncWeights())
     for name in ("dp-dml", "trimmed-dml", "median-dml"):
-        with pytest.raises(NotImplementedError, match="privacy"):
-            Federation(mixed, types.SimpleNamespace(name=name))
-    for kw in (dict(dp=object()), dict(robust=("median", 1))):
-        with pytest.raises(NotImplementedError, match="privacy"):
+        assert Federation(mixed, get_strategy(name)).strategy.name == name
+    # as in the JAX package: a sparse payload takes neither the DP release
+    # nor a robust combiner
+    for kw in (dict(dp=DPSpec(1.0, 1.0, np.zeros((1, 2), np.uint32))),
+               dict(robust=("median", 1))):
+        with pytest.raises(ValueError, match="compose with neither"):
             mixed.mutual_phase(0, [0, 1, 2], np.ones(3, np.float32),
                                types.SimpleNamespace(data=np.arange(2)),
-                               1.0, 1, **kw)
+                               1.0, 1, sparse_k=4, **kw)
     with pytest.raises(ValueError, match="held-out common fold"):
         mixed.evaluate(None, split=(images, labels))
 
@@ -310,7 +313,8 @@ def test_default_device_is_the_card(pool):
 
 def test_hetero_cli_on_cpu(capsys, tmp_path):
     """``--method hetero``: the default mixed fleet under DML, and FedAvg
-    on one arch; a byzantine map raises."""
+    on one arch; a byzantine map runs, and label-flip on LM clients is
+    refused as the JAX package refuses it."""
     args = ["--method", "hetero", "--rounds", "1", "--seq", "16",
             "--batch", "2", "--device", "cpu"]
     assert cli.main(args + ["--save", str(tmp_path / "ck")]) == 0
@@ -324,5 +328,7 @@ def test_hetero_cli_on_cpu(capsys, tmp_path):
                             "fedavg"]) == 0
     out = capsys.readouterr().out
     assert "federating [fedavg]: qwen3-4b (dense), qwen3-4b (dense)" in out
-    with pytest.raises(NotImplementedError, match="privacy"):
-        cli.main(args + ["--byzantine", "0=sign-flip"])
+    assert cli.main(args + ["--byzantine", "0=sign-flip"]) == 0
+    assert "round   0 participants=[0, 1, 2]" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="label-flip is undefined"):
+        cli.main(args + ["--byzantine", "0=label-flip"])

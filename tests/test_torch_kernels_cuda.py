@@ -254,7 +254,8 @@ def test_flash_bf16_refuses_misaligned_view(cuda, which):
     (16, 16, 4, 2_048, 1.2, True),
     (9, 16, 3, 1_500, 0.8, True),
     (16, 5, 6, 2_000, 1.0, False),
-    (1, 2, 64, 151_936, 1.0, False)])  # kl_to_received: 1 live, J = 2
+    (1, 2, 64, 151_936, 1.0, False),   # kl_to_received: 1 live, J = 2
+    (1, 3, 64, 151_936, 1.0, False)])  # DP-DML's fleet of four: J = 3
 def test_kl_pair_kernels_match_plain(cuda, dtype, Kl, Kg, B, V, T,
                                      fixed_grad):
     """The pair-KL forward (atol 1e-4 + rtol 1e-4: fp32 streaming against

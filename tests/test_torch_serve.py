@@ -339,7 +339,10 @@ TRAINING_MODULES = (
     "repro_torch.configs.musicgen_medium", "repro_torch.models",
     "repro_torch.core.populations.hetero", "repro_torch.launch.steps",
     "repro_torch.launch.serve", "repro_torch.launch.hetero",
-    "repro_torch.configs.base")
+    "repro_torch.configs.base", "repro_torch.privacy",
+    "repro_torch.privacy.dp", "repro_torch.privacy.accountant",
+    "repro_torch.privacy.attacks", "repro_torch.core.strategies.dp",
+    "repro_torch.core.strategies.robust")
 
 
 def test_port_imports_no_jax_and_no_repro():

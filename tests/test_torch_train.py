@@ -604,7 +604,8 @@ def test_save_state_restores_across_packages(jax_sessions, tmp_path):
 
 def test_session_helpers_match_jax():
     """The participation sampler, the comm accounting, the client-axis
-    lerp, and the strategies that are not ported yet."""
+    lerp, and the privacy strategies, which the stacked LM population
+    refuses as the JAX one does."""
     for seed, r in ((0, 0), (3, 7), (9, 2)):
         assert sample_participants(5, 3, seed, r) == jsample(5, 3, seed, r)
     assert D.comm_bytes(get_reduced("qwen3-4b"), 3, 64) == \
@@ -612,14 +613,13 @@ def test_session_helpers_match_jax():
     a, b = torch.randn(3, 4), torch.randn(3, 4)
     got = stacking.client_lerp({"x": a}, {"x": b}, [1.0, 0.0, 1.0])["x"]
     assert torch.equal(got[0], b[0]) and torch.equal(got[1], a[1])
-    with pytest.raises(NotImplementedError, match="privacy item"):
-        get_strategy("dp-dml", dp_noise_multiplier=1.0)
+    assert get_strategy("dp-dml", dp_noise_multiplier=1.0).name == "dp-dml"
     pop = LMClients(get_reduced("qwen3-4b"), n_clients=2, rounds=1, batch=2,
                     seq=8, device="cpu")
 
     class TrimmedLike:
         name = "trimmed-dml"
-    with pytest.raises(NotImplementedError, match="privacy item"):
+    with pytest.raises(ValueError, match="does not support strategy"):
         Federation(pop, TrimmedLike())
     with pytest.raises(ValueError, match="mutual_epochs"):
         Federation(pop, DML(mutual_epochs=2))

@@ -222,12 +222,13 @@ def test_refusals(data):
     pop = _port_pop(data)
     with pytest.raises(ValueError, match="sparse-dml needs a categorical"):
         Federation(pop, SparseDML(k=4))
+    # the privacy strategies are accepted, as in the JAX package; a
+    # byzantine map is checked with its messages
     for name in ("dp-dml", "trimmed-dml", "median-dml"):
-        with pytest.raises(NotImplementedError, match="privacy"):
-            Federation(pop, types.SimpleNamespace(name=name))
-    for kw in (dict(byzantine={0: "sign-flip"}), dict(record_payloads=True)):
-        with pytest.raises(NotImplementedError, match="privacy and "
-                                                      "robustness"):
+        assert Federation(pop, types.SimpleNamespace(name=name))
+    for kw, match in ((dict(byzantine={7: "sign-flip"}), "out of range"),
+                      (dict(byzantine={0: "firehose"}), "unknown byzantine")):
+        with pytest.raises(ValueError, match=match):
             VisionClients(reduced(), tx, ty, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="client-sharding"):
         VisionClients(reduced(), tx, ty, device="cpu", mesh=object())
