@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards 4     # phases 22 and 23 over 4 cards
 
 Phases, each fatal on failure:
   1. environment and kernel build: the card's name and power limit, torch
@@ -29,8 +30,11 @@ Phases, each fatal on failure:
      forward and backward (at both vocabularies, and past one launch's
      entries: k = 2048 in sender blocks, k = 5000 read in place); and the
      Eq.-2 pair and sparse kernels at phase 17's call, one live row
-     (1, 1024, 151,936) against J = 2 received, and the pair kernels at
-     phase 21's, against J = 3, where the pair kernels' rows are timed;
+     (1, 1024, 151,936) against J = 2 received, the pair kernels at
+     phase 21's, against J = 3, and at phase 22's, Kl = 2 against the
+     gathered J = 4 with zero self weights (K = 3 adds a pad column of
+     zero weight; K = 4 weights every column, and there the pair kernels'
+     rows are timed);
   3. the serving path at the full width of qwen3-4b: a K=2 client ensemble
      from seeded random weights serves ``generate``, continuous batching
      and route mode, and the flash kernel's launch count shows that it ran
@@ -158,7 +162,20 @@ Phases, each fatal on failure:
      TrimmedDML and each client's gradient against impl "ref";
   21b. the reduced fleet of four (qwen3-4b, mamba2-780m, qwen3-4b,
      dbrx-132b), fp32, 2 rounds each of DP-DML and MedianDML through the
-     flash, SSD and pair kernels against impl "ref".
+     flash, SSD and pair kernels against impl "ref";
+  22. the client mesh: ``Federation(LMClients(..., mesh=ClientMesh((cuda:0,
+     cuda:0))), DML())`` of full-width qwen3-4b at 2 of 36 layers, K = 4
+     and K = 3 (a dummy slot), 3 rounds each through the flash and pair
+     kernels (2 pair launches each way a round, no square kernel); an
+     update with a client absent keeps its slot and the dummy's bits;
+     round 1 against the sharded step at impl "ref" and, through the
+     whole update at clip_norm=None, against the unsharded
+     ``make_dml_train_step``;
+  23. phase 9's VisionNet protocol over two entries of the card: 2 rounds
+     each of DML, FedAvg and async against the unsharded engine from the
+     same state, and each weight sync alone bit for bit.
+With ``--cards N`` only phases 22 (K = 4) and 23 run, over N distinct
+cards.
 jamba-1.5-large-398b does not run on the card: one full-width period (8
 layers, 4 MoE FFNs of 16 experts of width 24,576) holds ~44 B params, 88
 GB a client in bf16, and no depth cut goes below a period; the CPU tests
@@ -175,6 +192,7 @@ it exits non-zero and prints no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import functools
 import gc
 import json
@@ -1836,13 +1854,13 @@ def phase_serve(card: str, cfg, reqs, kernel, K: int = 2, B: int = 2,
 # ---------------------------------------------------------------------------
 # phase 4
 
-def _client_grad_errors(g_host, g_dev, K: int) -> list:
-    """Per client, ||g_host - g_dev|| / ||g_dev|| over every leaf; g_host
-    lives on the CPU and crosses to the card one leaf at a time."""
+def _client_grad_errors(g_host, g_dev, K: int, scale: float = 1.0) -> list:
+    """Per client, ||scale g_host - g_dev|| / ||g_dev|| over every leaf;
+    g_host lives on the CPU and crosses to the card one leaf at a time."""
     from repro_torch.tree import tree_leaves
     num, den = torch.zeros(K), torch.zeros(K)
     for a, b in zip(tree_leaves(g_host), tree_leaves(g_dev)):
-        a, b = a.to(b.device).float(), b.float()
+        a, b = a.to(b.device).float() * scale, b.float()
         num += (a - b).square().flatten(1).sum(1).cpu()
         den += b.square().flatten(1).sum(1).cpu()
     return (num.sqrt() / den.sqrt()).tolist()
@@ -3634,9 +3652,549 @@ def phase_hetero_small_privacy(card: str, B: int = 4, S: int = 64,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 22-23: the client mesh
+
+def _sharded_pair_call(K: int, n_dev: int):
+    """Entry 0's side of the sharded step's Eq.-2 call at K clients over
+    n_dev entries: its global ids (K_loc,) and its rows of
+    ``_pair_mask(K_pad, pm)`` on the card, checked zero on each live
+    client's own column and on the pad columns."""
+    from repro_torch.core import stacking
+    from repro_torch.core.mutual import _pair_mask
+    k_loc, k_pad = stacking.client_layout(K, n_dev)
+    gids = stacking.local_client_ids(K, n_dev, 0)
+    pm = torch.zeros(k_pad)
+    pm[:K] = 1.0
+    w = _pair_mask(k_pad, pm)[gids].cuda()
+    self_w = w[torch.arange(k_loc), gids.cuda()]
+    if bool((self_w != 0).any()) or bool((w[:, K:] != 0).any()):
+        raise AssertionError(f"pair weights not zero on self and pads: {w}")
+    return gids, w
+
+
+def phase_kl_sharded(B: int, V: int, n_dev: int = 2, checked=(3, 4),
+                     timed: int = 4) -> list:
+    """The Eq.-2 pair kernels as the sharded DML step calls them
+    (``core.distributed.make_sharded_dml_step``, phase 22): entry 0's live
+    public logits (K_loc, B, V) against the gathered fleet (K_pad, B, V)
+    in natural order, the pads trailing (a dummy re-hosts a real client),
+    with entry 0's rows of ``_pair_mask(K_pad, pm)``: zero on each live
+    client's own column and on the pad columns.  Over 2 entries, K = 3
+    and K = 4 are both Kl = 2 against J = 4; at K = 3 the pad column has
+    weight zero in both rows.  At each K of ``checked``, fp32 and bf16
+    through ``ops.mutual_kl_pair`` at impl "cuda" against impl "ref", the
+    value and dlive (``phase_kl_received``'s tolerances; one pair forward
+    and one pair backward, no square kernel).  Then the bf16 times at K =
+    ``timed`` beside their bounds, which count the planes the function
+    needs: the Kl live ones and the fixed columns some row weights
+    nonzero, read by the forward; the backward reads them and writes
+    dlive (Kl more).  Returns the pair kernels' rows at the timed call."""
+    from repro_torch.kernels import kl_mutual, ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    errs = {}
+    for K in checked:
+        gids, w = _sharded_pair_call(K, n_dev)
+        k_loc, k_pad = w.shape
+        print(f"sharded Eq. 2 at K = {K} over {n_dev} entries: entry 0 "
+              f"holds clients {gids.tolist()} (Kl = {k_loc}) against the "
+              f"gathered fleet (J = K_pad = {k_pad}); weights {w.tolist()}")
+        for dtype in (torch.float32, BF16):
+            fleet = (2 * torch.randn(k_pad, B, V, device="cuda",
+                                     generator=gen)).to(dtype)
+            fleet[K:] = fleet[:k_pad - K]        # a dummy re-hosts client 0
+            live = fleet[gids.cuda()]
+            gbar = torch.randn(k_loc, B, device="cuda", generator=gen)
+            res = []
+            for impl in ("cuda", "ref"):
+                a = live.detach().requires_grad_(True)
+                before = _kernel_counts()
+                out = ops.mutual_kl_pair(a, fleet, w, impl=impl)
+                (g,) = torch.autograd.grad(out, a, gbar)
+                after = _kernel_counts()
+                ran = {n: after[n] - before[n] for n in after
+                       if after[n] != before[n]}
+                res.append((out.detach(), g.float(), ran))
+                del a, out, g
+            (out, dl, ran), (want, want_dl, ran_ref) = res
+            f_err = (out - want).abs().max().item()
+            f_rel = ((out - want).norm() / want.norm()).item()
+            b_rel = ((dl - want_dl).norm() / want_dl.norm()).item()
+            lim = 1e-4 if dtype == torch.float32 else 2e-2
+            need = {"kl_mutual_pair_fwd": 1, "kl_mutual_pair_bwd": 1}
+            if not (torch.allclose(out, want, atol=1e-3, rtol=1e-4)
+                    and b_rel <= lim and ran == need and not ran_ref):
+                raise AssertionError(
+                    f"sharded Eq. 2 at K = {K}, {dtype}: forward max |err| "
+                    f"{f_err:.3g}, relative {f_rel:.3g}; dlive relative "
+                    f"{b_rel:.3g}; launched {ran} (ref {ran_ref})")
+            print(f"sharded Eq. 2 at K = {K}, Kl={k_loc} against J={k_pad} "
+                  f"(B={B}, V={V}) {str(dtype)[6:]}, impl=cuda vs impl=ref:"
+                  f" forward max |err| {f_err:.3g} (relative {f_rel:.3g}), "
+                  f"dlive relative {b_rel:.3g} (limit {lim}); launched "
+                  f"{ran}")
+            if K == timed:
+                errs[dtype] = (f_err, (dl - want_dl).abs().max().item())
+            del res, out, dl, want, want_dl, fleet, live, gbar
+            torch.cuda.empty_cache()
+
+    gids, w = _sharded_pair_call(timed, n_dev)
+    k_loc, k_pad = w.shape
+    used = int((w != 0).any(0).sum())
+    fleet = (2 * torch.randn(k_pad, B, V, device="cuda", generator=gen)) \
+        .to(BF16)
+    live = fleet[gids.cuda()]
+    gbar = torch.randn(k_loc, B, device="cuda", generator=gen)
+    out, zl, zf, name = kl_mutual._forward(live, fleet, w, 1.0)
+    if name != kl_mutual.PAIR:
+        raise AssertionError(f"the sharded call left the pair kernel: "
+                             f"{name}")
+    ms_f = time_ms(lambda: kl_mutual._forward(live, fleet, w, 1.0))
+    ms_b = time_ms(lambda: kl_mutual._backward(live, fleet, w, out, zl, zf,
+                                               gbar, 1.0, False))
+    a = live.detach().requires_grad_(True)
+
+    def plain_f():
+        with torch.no_grad():
+            ref.mutual_kl_pair(a, fleet, w)
+
+    def plain_fb():
+        torch.autograd.grad(ref.mutual_kl_pair(a, fleet, w), a, gbar)
+    plain_fwd = time_ms(plain_f, iters=5)
+    plain_bwd = time_ms(plain_fb, iters=5) - plain_fwd
+    plane = B * V * 2
+    fb = _bound(_kl_ops(k_loc, used, B, V), (k_loc + used) * plane,
+                torch.float32)
+    bb = _bound(_kl_bwd_ops(k_loc, used, B, V), (2 * k_loc + used) * plane,
+                torch.float32)
+    for what, ms, plain, (bound, by) in (("forward", ms_f, plain_fwd, fb),
+                                         ("backward", ms_b, plain_bwd, bb)):
+        print(f"KL pair {what} at K = {timed}, Kl={k_loc} against J={k_pad}"
+              f" ({used} columns weighted) at (B={B}, V={V}) bf16: "
+              f"{ms:.4f} ms, plain {plain:.4f} ms; bound {bound:.4f} ms by "
+              f"{by} ({bound / ms:.0%} of it)")
+    del fleet, live, a, out, zl, zf, gbar
+    torch.cuda.empty_cache()
+    src = "src/repro_torch/kernels/csrc/kl_mutual_pair.cu"
+    row = dict(route="cuda", source=src, launches=None, library_ms=None)
+    return [
+        {"name": "kl_mutual_pair_fwd", **row,
+         "replaces": "src/repro/kernels/kl_mutual.py:68",
+         "max_abs_err": errs[BF16][0], "ms": ms_f, "plain_ms": plain_fwd,
+         "bound_ms": fb[0], "bound_by": fb[1]},
+        {"name": "kl_mutual_pair_bwd", **row,
+         "replaces": "src/repro/kernels/kl_mutual.py:178",
+         "max_abs_err": errs[BF16][1], "ms": ms_b, "plain_ms": plain_bwd,
+         "bound_ms": bb[0], "bound_by": bb[1]},
+    ]
+
+
+def _sync_all() -> None:
+    """Wait for every visible card (a mesh of distinct cards ends a round
+    with work still queued on the others)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _peak_gb(devices) -> list:
+    """The peak memory allocated since the last reset, GB, on each distinct
+    device of ``devices`` in order."""
+    return [round(torch.cuda.max_memory_allocated(d) / 1e9, 1)
+            for d in dict.fromkeys(devices)]
+
+
+def _reset_peaks(devices) -> None:
+    for d in dict.fromkeys(devices):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def _rel_norm(host, dev) -> float:
+    """||host - dev|| / ||dev|| over matching lists of tensors, ``host`` on
+    the CPU crossing to ``dev``'s device one tensor at a time."""
+    num = den = 0.0
+    for a, b in zip(host, dev):
+        a, b = a.to(b.device).float(), b.float()
+        num += float((a - b).square().sum())
+        den += float(b.square().sum())
+    return (num / den) ** 0.5
+
+
+def _slot_state(params, opts, slot) -> list:
+    """Host copies of one entry slot's params and AdamW moments."""
+    from repro_torch.tree import tree_leaves
+    d, i = slot
+    return [t[i].cpu() for tree in (params[d], opts[d]["mu"], opts[d]["nu"])
+            for t in tree_leaves(tree)]
+
+
+def phase_sharded_train(card: str, cfg, K: int, B: int = 4, S: int = 512,
+                        rounds: int = 3,
+                        devices=("cuda:0", "cuda:0")) -> dict:
+    """The client mesh's training path: ``Federation(LMClients(cfg, K,
+    mesh=ClientMesh(devices)), DML())`` at the full width of ``cfg``
+    (depth as given).  By default two entries of the one card, K_loc
+    clients each (K = 3: a dummy slot on entry 1); ``devices`` distinct
+    cards give each card its own entry, the unsharded comparisons running
+    on the first.  Round 1's metrics and each
+    client's gradient are taken first through the sharded step
+    (``value_and_grad``, no update); then ``rounds`` rounds at impl "cuda"
+    (the first warms up, the last is profiled): each entry's private and
+    public forwards through the flash kernels, one gather of the public
+    logits, and each entry's Eq. 2 through the pair kernels at (K_loc,
+    K_pad): one pair forward and backward per entry a round, no square
+    kernel.  Then a fourth update with client 1 absent: its slot and the
+    dummy slot keep their params and moments bit for bit.  Round 1 is
+    held against the sharded step at impl "ref" (its metrics and each
+    client's gradient) and against the unsharded ``make_dml_train_step``
+    through the kernels: both steps run round 1's whole update at
+    ``clip_norm=None`` from the same seeded state, and their metrics,
+    every client's gradient (the unsharded one read from its first
+    moment, (1 - b1) g at step 1) and client 1's updated params and
+    moments are compared, the sharded client's slice on the host.  The
+    limits: metrics within relative 2e-2, bf16 gradients and state within
+    relative norm error 2e-2, the parity rule's bf16 clause for a dense
+    path of at most 4 layers.  Its fp32 clauses hold the kernels
+    themselves: phase 2 the pair kernels at this call, phase 4 the flash
+    kernels at these widths.  Returns the kernels' launch counts over the
+    rounds."""
+    from repro_torch.api import DML, Federation, LMClients
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.core import stacking
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import ClientMesh
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    mesh = ClientMesh(devices)
+    n = mesh.size
+    k_loc, k_pad = stacking.client_layout(K, n)
+    B_pub = max(1, B // 2)
+    _reset_peaks(mesh.devices)
+    pop, secs = _timed(lambda: LMClients(
+        cfg, n_clients=K, rounds=rounds + 1, batch=B, seq=S, seed=0,
+        mesh=mesh))
+    state_gb = sum(t.numel() * t.element_size() for t in
+                   tree_leaves(pop.state_dict())) / 1e9
+    print(f"sharded DML: {K} x {cfg.name} clients, {cfg.n_layers} of "
+          f"{get_config(cfg.name).n_layers} layers at full width (seeded "
+          f"random weights), over a mesh of {n} entries "
+          f"({mesh.devices}): K_loc {k_loc}, K_pad {k_pad} "
+          f"({k_pad - K} dummy slots); {pop.params_per_client / 1e9:.3f} B "
+          f"params a client, {state_gb:.1f} GB of params and AdamW moments; "
+          f"init {secs:.1f} s; kernels impl={pop.impl}")
+    inputs = _round0_inputs(pop)
+    tokens, pub = inputs["tokens"], inputs["public_tokens"]
+    step = pop._dml_step(1.0, 0)
+    _, g_cuda = step.value_and_grad(pop._to_mesh()[0], tokens, pub,
+                                    device="cpu")
+
+    fed = Federation(pop, DML())
+    _kernel_counts(zero=True)                     # the main path starts here
+    trained = K * (B + B_pub) * S
+    walls = []
+    for r in range(rounds):
+        _reset_peaks(mesh.devices)
+        if r == rounds - 1:
+            (by_name, union), wall = _timed(lambda: device_spans(
+                lambda: (fed.run(until=r + 1), _sync_all())))
+        else:
+            _, wall = _timed(lambda: (fed.run(until=r + 1), _sync_all()))
+            walls.append(wall)
+        rl = fed.history.rounds[-1]
+        print(f"sharded round {r}: {wall:.3f} s wall"
+              f"{' (profiled)' if r == rounds - 1 else ''}, "
+              f"{trained / wall:.0f} trained tok/s; private_loss "
+              f"{_fmt(rl.client_loss)} public_ce {_fmt(rl.public_ce)} "
+              f"kld_avg {_fmt(rl.kl_loss)}; peak memory "
+              f"{_peak_gb(mesh.devices)} GB")
+    counts = _kernel_counts()                     # ... and ends here
+    need = {"flash_attention_fwd": n * 2 * 2 * cfg.n_layers * rounds,
+            "flash_attention_bwd": n * 2 * cfg.n_layers * rounds,
+            "kl_mutual_pair_fwd": n * rounds,
+            "kl_mutual_pair_bwd": n * rounds}
+    ran = {k: v for k, v in counts.items() if v}
+    print(f"sharded training launches {ran}; need {need} exactly for the "
+          f"pair kernels (one a round per entry) and at least for flash, "
+          f"and no square or sparse kernel")
+    if any(counts[k] < v for k, v in need.items()) or \
+            counts["kl_mutual_pair_fwd"] != need["kl_mutual_pair_fwd"] or \
+            counts["kl_mutual_pair_bwd"] != need["kl_mutual_pair_bwd"] or \
+            set(ran) - set(need):
+        raise AssertionError("the sharded round left its kernels")
+    hist = fed.history.rounds
+    if not all(np.isfinite(x).all() for rl in hist
+               for x in (rl.client_loss, rl.public_ce, rl.kl_loss)):
+        raise AssertionError("non-finite sharded training losses")
+    steady = walls[-1]
+    busy_us = sum(us for us, _ in by_name.values())
+    n_dist = len(set(mesh.devices))
+    gathered = n_dist * k_pad * B_pub * S * cfg.vocab_size * 2
+    comm = D.comm_bytes(cfg, K, B_pub * S)["dml_round"]
+    # idle is the one card's; over distinct cards the busy time is their sum
+    idle = f"device idle {1 - union / 1e6 / steady:.1%}" if n_dist == 1 \
+        else f"{busy_us / 1e3 / n_dist:.1f} ms busy a card, idle not measured"
+    print(f"sharded train round on {card}: {steady:.3f} s wall (round "
+          f"{rounds - 2}, unprofiled) = {trained / steady:.0f} trained tok/s;"
+          f" round {rounds - 1}: {busy_us / 1e3:.1f} ms device busy, "
+          f"{union / 1e3:.1f} ms with one running -> {idle}; gathered "
+          f"{gathered / 1e9:.3f} GB "
+          f"a round (K_pad x B_pub*S x V bf16 onto each of {n_dist} distinct "
+          f"devices) against "
+          f"comm_bytes' dml_round {comm / 1e9:.3f} GB (sent and received by "
+          f"K clients); history comm {hist[-1].comm_bytes} bytes")
+    _print_top(by_name, 1, "round", n=6)
+
+    # a fourth update with client 1 absent: its slot and the dummies hold
+    params, opts = pop._to_mesh()
+    slots = [(1 % n, 1 // n)] + [(d, i) for d in range(n)
+                                 for i in range(k_loc) if i * n + d >= K]
+    before = [_slot_state(params, opts, sl) for sl in slots]
+    pm = [1.0] * K
+    pm[1] = 0.0
+    step.on_entries(params, opts, pop._private_batch(rounds),
+                    pop._public_batch(rounds), part_mask=pm)
+    same = [all(torch.equal(a, b) for a, b in
+                zip(was, _slot_state(params, opts, sl)))
+            for was, sl in zip(before, slots)]
+    print(f"an update with client 1 absent: slots (entry, slot) {slots} "
+          f"(client 1, then the dummies) unchanged bit for bit: {same}")
+    if not all(same):
+        raise AssertionError("an absent or dummy slot moved")
+    first = hist[0]
+    noclip = dataclasses.replace(pop.opt_cfg, clip_norm=None)
+    del fed, pop, params, opts, before, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # round 1 against impl "ref" (the sharded step on the plain versions)
+    _reset_peaks(mesh.devices)
+    ref_step = D.make_sharded_dml_step(cfg, AdamWConfig(), mesh, K,
+                                       impl="ref")
+    m_ref, g_ref = ref_step.value_and_grad(stacking.to_entries(
+        D.stacked_init(0, cfg, K, device="cuda"), K, mesh.devices), tokens,
+        pub)
+    e_ref = _client_grad_errors(g_cuda, g_ref, K)
+    del g_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ... and round 1's whole update at clip_norm=None, sharded and then
+    # unsharded, each from the seeded state; client c's updated slice of
+    # the sharded state crosses to the host
+    c = 1
+    sh_step = D.make_sharded_dml_step(cfg, noclip, mesh, K, impl="cuda")
+    params = stacking.to_entries(D.stacked_init(0, cfg, K, device="cuda"),
+                                 K, mesh.devices)
+    opts = [D.stacked_adamw_init(p) for p in params]
+    m_sh = sh_step.on_entries(params, opts, tokens, pub)
+    n_leaves = len(tree_leaves(params[0]))
+    s_sh = _slot_state(params, opts, (c % n, c // n))
+    del params, opts, sh_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    p_un = D.stacked_init(0, cfg, K, device="cuda")
+    o_un = D.stacked_adamw_init(p_un)
+    _, _, m_un = D.make_dml_train_step(cfg, noclip, impl="cuda")(
+        p_un, o_un, tokens, pub)
+    e_un = _client_grad_errors(g_cuda, o_un["mu"], K, scale=1 - noclip.b1)
+    s_un = [t[c] for tree in (p_un, o_un["mu"], o_un["nu"])
+            for t in tree_leaves(tree)]
+    e_state = [_rel_norm(s_sh[k * n_leaves:(k + 1) * n_leaves],
+                         s_un[k * n_leaves:(k + 1) * n_leaves])
+               for k in range(3)]
+    del p_un, o_un, s_un, s_sh
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = lambda a, b: abs(a - b) / abs(b)                  # noqa: E731
+    worst = {}
+    for what, got, m in (("round 1 vs unsharded", first, m_un),
+                         ("round 1 vs sharded impl=ref", first, m_ref),
+                         ("sharded vs unsharded update", None, m_un)):
+        mine = (m_sh["private_loss"].tolist(), m_sh["public_ce"].tolist(),
+                m_sh["kld_avg"].tolist()) if got is None else \
+            (got.client_loss, got.public_ce, got.kl_loss)
+        worst[what] = {
+            "private_loss": max(map(rel, mine[0], m["private_loss"].tolist())),
+            "public_ce": max(map(rel, mine[1], m["public_ce"].tolist())),
+            "kld_avg": max(abs(a - b) / (abs(b) + 0.05) for a, b in
+                           zip(mine[2], m["kld_avg"].tolist()))}
+    gn = float(torch.sqrt(torch.sum(torch.square(m_sh["grad_norm"]))))
+    worst["sharded vs unsharded update"].update(
+        grad_norm=rel(gn, float(m_un["grad_norm"])),
+        lr=rel(float(m_sh["lr"]), float(m_un["lr"])))
+    print(f"sharded round 1 (impl=cuda) against the unsharded step and the "
+          f"sharded step at impl=ref: worst relative error {worst} (limit "
+          f"2e-2; kld_avg within 2e-2 |ref| + 1e-3; the fleet's grad norm "
+          f"from the per-client ones); per-client gradients in bf16, "
+          f"relative norm error against the unsharded impl=cuda ones "
+          f"{_fmt(e_un, '.4g')} and against the sharded impl=ref ones "
+          f"{_fmt(e_ref, '.4g')}; client {c} after the update at "
+          f"clip_norm=None, sharded against unsharded: params, mu, nu "
+          f"{_fmt(e_state, '.4g')} (limit 2e-2); peak memory "
+          f"{_peak_gb(mesh.devices)} GB")
+    if not (all(v <= 2e-2 for w in worst.values() for v in w.values())
+            and max(e_un + e_ref + e_state) <= 2e-2):
+        raise AssertionError("the sharded round disagrees with the "
+                             "unsharded step or the plain path")
+    del g_cuda
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"sharded DML at K = {K}: {time.perf_counter() - t_phase:.1f} s "
+          f"of command time")
+    return counts
+
+
+def phase_vision_mesh(card: str, cfg=None, K: int = 5, n_rounds: int = 2,
+                      rounds: int = 12, epochs: int = 3, B: int = 16,
+                      lr: float = 0.05,
+                      devices=("cuda:0", "cuda:0")) -> dict:
+    """Phase 9's VisionNet protocol (full width, K = 5, the paper's
+    datasets and schedule, fp32 with TF32 off) over a client mesh of
+    ``devices``, by default two entries of the card: K_loc 4, K_pad 8,
+    three dummy slots.  For each of
+    ``DML()``, ``FedAvg()`` and ``AsyncWeights(delta=2, min_round=0)``
+    (shallow, then deep), ``n_rounds`` rounds with the paper's dropout of
+    the sharded population and of an unsharded one loaded with its state,
+    both on cuDNN's deterministic algorithms: the first round's client_loss
+    and kl_loss within relative norm error 1e-4 (phase 9's limit), the
+    second's within 1e-3, and after the rounds each client's params within
+    1e-3 (phase 9's).  The two engines draw the same dropout masks, but
+    their convolutions run at other group counts, and training amplifies
+    the rounding: the second round's losses differ by ~2e-4, on the CPU
+    as on the card (phase 9: the losses amplify the params' rounding).
+    Then each weight sync alone, from one state in both layouts, must give
+    the same bits.  Round walls beside phase 9's; no kernel of this repo
+    runs: returns every launch count, all 0."""
+    from repro_torch.api import (DML, AsyncWeights, FedAvg, Federation,
+                                 VisionClients)
+    from repro_torch.configs.visionnet import CONFIG
+    from repro_torch.sharding import ClientMesh
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = cfg or CONFIG
+    mesh = ClientMesh(devices)
+    (tx, ty), _ = _paper_datasets(cfg.image_size, 3833, 5988)
+    kw = dict(n_clients=K, rounds=rounds, local_epochs=epochs, batch_size=B,
+              lr=lr)
+    clone = lambda pop: tree_map(torch.clone, pop.state_dict())  # noqa: E731
+    _kernel_counts(zero=True)                     # the main path starts here
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for make in (DML, FedAvg, lambda: AsyncWeights(delta=2,
+                                                       min_round=0)):
+            a = VisionClients(cfg, tx, ty, mesh=mesh, **kw)
+            b = VisionClients(cfg, tx, ty, **kw)
+            b.load_state_dict(clone(a), a.meta_dict())
+            fa, fb = Federation(a, make()), Federation(b, make())
+            name = fa.strategy.name
+            walls = {"sharded": [], "unsharded": []}
+            e_loss, lims = [], []
+            for r in range(n_rounds):
+                walls["sharded"].append(_timed(
+                    lambda: (fa.run(until=r + 1), _sync_all()))[1])
+                walls["unsharded"].append(_timed(
+                    lambda: fb.run(until=r + 1))[1])
+                ra, rb = fa.history.rounds[-1], fb.history.rounds[-1]
+                for x, y in ((ra.client_loss, rb.client_loss),
+                             (ra.kl_loss, rb.kl_loss)):
+                    y = torch.tensor(y)
+                    if float(y.norm()):
+                        e_loss.append(_rel(torch.tensor(x), y))
+                        lims.append(1e-4 if r == 0 else 1e-3)
+                if ra.comm_bytes != rb.comm_bytes:
+                    raise AssertionError(f"{name}: comm bytes differ")
+            e_par = [_rel(*(torch.cat([t[c].flatten().cpu()
+                                       for t in tree_leaves(p)])
+                            for p in (a.client_params, b.client_params)))
+                     for c in range(K)]
+            print(f"vision on a mesh of {mesh.size} entries "
+                  f"({len(set(mesh.devices))} devices), {name}: round walls "
+                  f"sharded {_fmt(walls['sharded'], '.4f')} s, unsharded "
+                  f"{_fmt(walls['unsharded'], '.4f')} s; losses' relative "
+                  f"norm error {_fmt(e_loss, '.3g')} (limits "
+                  f"{_fmt(lims, '.0e')}), params "
+                  f"by client after {n_rounds} rounds {_fmt(e_par, '.3g')} "
+                  f"(limit 1e-3)")
+            if any(e > lim for e, lim in zip(e_loss, lims)) or \
+                    max(e_par) > 1e-3:
+                raise AssertionError(f"the sharded {name} rounds disagree "
+                                     f"with the unsharded engine")
+            if name != "dml":
+                # the sync alone from one state, sharded and not: one bits
+                c = VisionClients(cfg, tx, ty, mesh=mesh, **kw)
+                for pop in (c, b):
+                    pop.load_state_dict(clone(b), b.meta_dict())
+                    pop._last_folds = b._last_folds
+                c._to_mesh()
+                part, pm = list(range(K)), np.ones(K, np.float32)
+                for pop in (c, b):
+                    if name == "fedavg":
+                        pop.fedavg_combine(part, pm)
+                    else:
+                        pop.async_combine(n_rounds, part, pm, 2, 0,
+                                          pop.weights_payload(n_rounds))
+                sa, sb = c.state_dict(), b.state_dict()
+                same = all(torch.equal(x, y) for x, y in
+                           zip(tree_leaves(sa), tree_leaves(sb)))
+                print(f"  {name}'s sync alone from one state, gathered "
+                      f"from the mesh and unsharded: the same bits {same}")
+                if not same:
+                    raise AssertionError(f"the {name} sync differs on the "
+                                         f"mesh")
+                del c
+            del fa, fb, a, b
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    counts = _kernel_counts()                     # ... and ends here
+    if any(counts.values()):
+        raise AssertionError(f"the vision mesh launched a kernel: {counts}")
+    print(f"vision mesh peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {card}; "
+          f"{time.perf_counter() - t_phase:.1f} s of command time")
+    return counts
+
+
+def run_cards(card: str, n: int) -> int:
+    """``--cards N``: phases 22 and 23 alone over a client mesh of N
+    distinct cards (``launch.mesh.make_client_mesh``, one entry a card):
+    qwen3-4b at phase 22's width and depth with K = 4 (K_loc 2: a client
+    and a dummy slot a card), and the VisionNet protocol with K = 5."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_client_mesh
+    devices = make_client_mesh(n).devices     # raises past the visible
+    scfg = get_config("qwen3-4b").replace(n_layers=2)
+    paths = []
+    for phase in (lambda: phase_sharded_train(card, scfg, 4, 4, 512,
+                                              devices=devices),
+                  lambda: phase_vision_mesh(card, devices=devices)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        _reset_peaks(devices)
+        paths.append(phase())
+    print(f"launches on each path (qwen3-4b sharded DML at K = 4, "
+          f"VisionNet) over {n} cards: " + json.dumps(paths))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cards", type=int, default=0,
+                    help="run only the client-mesh phases (22, 23) over "
+                         "this many distinct cards")
+    args = ap.parse_args()
     check_cuda()
     env = phase_env()
+    if args.cards:
+        return run_cards(env["card"], args.cards)
     from repro_torch.api import SparseDML
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -3682,6 +4240,10 @@ def main() -> int:
     hcfgs = (tcfg, qtcfg, get_config("qwen3-8b").replace(n_layers=2))
     pcfgs = hcfgs + (tcfg,)
     HB, HS, HPUB = 4, 512, 2
+    # phase 22's sharded fleet: full width at 2 of 36 layers, so that four
+    # clients' params, moments, one entry's gradients and the round's
+    # activations stay under ~70 GB
+    scfg = cfg.replace(n_layers=2)
 
     def shapes(c):
         return (c.n_heads, c.n_kv_heads, c.head_dim_)
@@ -3733,8 +4295,17 @@ def main() -> int:
     # the kernels line are timed
     received += phase_kl_received(HPUB * HS, cfg.vocab_size,
                                   len(pcfgs) - 1, 64, sparse=False)
+    # ... and at phase 22's sharded calls, Kl = 2 against J = 4 with zero
+    # self weights (K = 3 adds a pad column of zero weight), where the pair
+    # rows of the kernels line are now timed, at K = 4 (every column
+    # weighted); the J = 3 call's numbers ride along under "also"
+    sharded = phase_kl_sharded(HPUB * HS, cfg.vocab_size)
+    for row, prev in zip(sharded, received[2:]):
+        row["also"] = {"call": "Kl=1 against J=3 received (phase 21)",
+                       **{k: prev[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "max_abs_err")}}
     kernels = [r for r in kernels if r["name"] not in
-               {x["name"] for x in received}] + received[2:]
+               {x["name"] for x in received}] + sharded
     # the mamba2 round's Eq.-2 term: checked, its rows kept at qwen3-4b's
     phase_kl(MTK, max(1, MTB // 2) * MTS, mcfg.vocab_size)
     # the prefix archs' rounds' Eq.-2 terms (token positions only)
@@ -3785,11 +4356,17 @@ def main() -> int:
             lambda: phase_single(env["card"], cfg),
             lambda: phase_vision_privacy(env["card"]),
             lambda: phase_hetero_privacy(env["card"], pcfgs, HB, HS, HPUB),
-            lambda: phase_hetero_small_privacy(env["card"])):
+            lambda: phase_hetero_small_privacy(env["card"]),
+            lambda: phase_sharded_train(env["card"], scfg, 4, HB, HS),
+            lambda: phase_sharded_train(env["card"], scfg, 3, HB, HS),
+            lambda: phase_vision_mesh(env["card"])):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        t_path = time.perf_counter()
         paths.append(phase())
+        print(f"path {len(paths)} of the launch line: "
+              f"{time.perf_counter() - t_path:.1f} s")
     print("launches on each path (qwen3-4b serving, qwen3-4b DML training, "
           "mamba2-780m serving, mamba2-780m training, qwen3-4b SparseDML "
           "training, qwen3-4b FedAvg + AsyncWeights, VisionNet DML + FedAvg + "
@@ -3800,7 +4377,8 @@ def main() -> int:
           "reduced hetero fleet + one-arch weight rounds, qwen3-4b "
           "single-model training + decode, VisionNet DP-DML + robust + "
           "attack experiments, the full-width privacy fleet, the reduced "
-          "privacy fleet): " + json.dumps(paths))
+          "privacy fleet, qwen3-4b sharded DML at K = 4 and K = 3, "
+          "VisionNet on a client mesh): " + json.dumps(paths))
     for row in kernels:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)
     print(json.dumps({"kernels": kernels}))

@@ -20,8 +20,11 @@ public logits, against which every client descends (``_mutual_term``).
 
 The weight-sharing baselines on the client axis: ``fedavg_sync`` and
 ``async_sync`` (with ``transformer_shallow_mask``) average in fp32 and
-write the params IN PLACE.  The device-sharded step comes with a later
-slice of the port.
+write the params IN PLACE.
+
+``make_sharded_dml_step`` runs the fused DML step over a client mesh
+(``sharding.ClientMesh``): each entry owns whole clients, and the only
+cross-entry tensor is the gathered public logits of the Eq.-2 term.
 """
 from __future__ import annotations
 
@@ -30,12 +33,16 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import stacking
 from repro_torch.core.async_fl import layer_schedule
 from repro_torch.core.fedavg import client_mean, normalised_scores
-from repro_torch.core.mutual import (mutual_kl_loss, sparse_mutual_kl_loss,
-                                     topk_predictions)
+from repro_torch.core.mutual import (_pair_mask, mutual_kl_loss,
+                                     sparse_mutual_kl_loss, topk_predictions)
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as tfm
-from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                               client_norms)
+from repro_torch.sharding import map_entries
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Any
@@ -270,6 +277,217 @@ def make_dml_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                                   part_mask)
         return params, opt, {**metrics, **om}
     return step
+
+
+# ---------------------------------------------------------------------------
+# the fused step over a client mesh
+
+class ShardedDMLStep:
+    """``make_sharded_dml_step``'s step; see there.  ``__call__`` takes
+    and returns the natural layout; ``on_entries`` runs on the mesh's entry
+    layout (``stacking.to_entries``), which a population keeps between
+    rounds."""
+
+    def __init__(self, cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
+                 n_clients: int, kl_weight: float, temperature: float,
+                 remat: bool, impl: str):
+        if cfg.prefix_tokens:
+            raise ValueError("sharded DML step: prefix-conditioned archs "
+                             "are not supported yet")
+        self.cfg, self.opt_cfg, self.mesh = cfg, opt_cfg, mesh
+        self.n_clients = n_clients
+        self.kl_weight, self.temperature = kl_weight, temperature
+        self.remat, self.impl = remat, impl
+        self.n_dev = mesh.shape[stacking.CLIENT_AXIS]
+        self.k_loc, self.k_pad = stacking.client_layout(n_clients,
+                                                        self.n_dev)
+        self.rows = stacking.entry_rows(n_clients, self.n_dev)
+
+    def __call__(self, stacked_params, opt_state, tokens, public_tokens,
+                 part_mask=None):
+        """The natural layout in and out: the state is cut into the entry
+        layout, stepped, and written back IN PLACE; returns (params, opt,
+        metrics) with the objects passed in."""
+        K, devices = self.n_clients, self.mesh.devices
+        params = stacking.to_entries(stacked_params, K, devices)
+        opts = stacking.to_entries(opt_state, K, devices)
+        metrics = self.on_entries(params, opts, tokens, public_tokens,
+                                  part_mask)
+        with torch.no_grad():
+            for tree, entries in ((stacked_params, params),
+                                  (opt_state, opts)):
+                new = stacking.drain_entries(entries, K, devices[0])
+                for t, n in zip(tree_leaves(tree), tree_leaves(new)):
+                    t.copy_(n)
+        return stacked_params, opt_state, metrics
+
+    def _forward(self, params, tokens, public_tokens):
+        """One entry's private CE (K_loc,), public CE (K_loc,) and public
+        logits (K_loc, B_pub * S, V), on the autograd tape."""
+        cfg = self.cfg
+        priv, _ = tfm.loss_fn_clients(params, cfg, tokens, None,
+                                      remat=self.remat, impl=self.impl)
+        ce_pub, fwd = _public_ce_and_logits(params, cfg, public_tokens,
+                                            None, self.remat, self.impl)
+        k, b, s, v = fwd.shape
+        return [priv, ce_pub, fwd.reshape(k, b * s, v)]
+
+    def on_entries(self, params, opts, tokens, public_tokens,
+                   part_mask=None) -> Dict:
+        """One fused round on the entry layout, IN PLACE: ``params`` and
+        ``opts`` are per-entry trees (an opt tree holds "mu", "nu" and the
+        entry's copy of the shared "step").  ``tokens`` (K, B, S) and
+        ``part_mask`` (K,) in natural order; returns the natural metrics
+        ((K,) on the first entry's device, "lr" a 0-d tensor).  The shared
+        step is read on the host once a round."""
+        step = int(opts[0]["step"])
+        metrics = self._run(params, tokens, public_tokens, part_mask,
+                            lambda d, grads, pm_loc: self._update(
+                                params[d], opts[d], grads, pm_loc, step))
+        lr = self.opt_cfg.make_schedule()(step + 1)
+        return {**metrics, "lr": torch.tensor(lr, dtype=torch.float32)}
+
+    def value_and_grad(self, params, tokens, public_tokens, part_mask=None,
+                       device=None):
+        """The round's metrics and each client's gradient, with no update:
+        (metrics, the gradient tree in natural order on ``device``, the
+        first entry's device by default).  The per-client gradients of the
+        round's loss equal the unsharded ``dml_total_loss``'s (each
+        client's loss terms are its own)."""
+        device = self.mesh.devices[0] if device is None else device
+        grads = [None] * self.n_dev
+
+        def keep(d, g, pm_loc):
+            grads[d] = tree_map(lambda t: t.to(device), g)
+            return client_norms(g)
+
+        metrics = self._run(params, tokens, public_tokens, part_mask, keep)
+        return metrics, stacking.drain_entries(grads, self.n_clients, device)
+
+    def _run(self, params, tokens, public_tokens, part_mask,
+             on_grads) -> Dict:
+        """Every entry's forward, then the one gather of the public logits,
+        then each entry's Eq.-1 loss on its own clients and its gradient,
+        handed to ``on_grads(d, grads, pm_loc)`` (which returns the
+        entry's (K_loc,) grad norms) before the next entry's backward.
+        The host's small tensors cross to the devices before any work is
+        queued (a copy from pageable memory waits for its stream), so that
+        the entries of distinct cards overlap."""
+        K, mesh = self.n_clients, self.mesh
+        pm = torch.ones(K) if part_mask is None else torch.as_tensor(
+            part_mask, dtype=torch.float32).cpu()
+        pm_nat = torch.zeros(self.k_pad)
+        pm_nat[:K] = pm
+        pair = _pair_mask(self.k_pad, pm_nat)
+        gids = [stacking.local_client_ids(K, self.n_dev, d)
+                for d in range(self.n_dev)]
+        rows = [torch.as_tensor(r, device=tokens.device) for r in self.rows]
+        w_loc = [pm_nat[g].to(dev) for g, dev in zip(gids, mesh.devices)]
+        pair_loc = [pair[g].to(dev) for g, dev in zip(gids, mesh.devices)]
+        leaves = [tree_leaves(p) for p in params]
+
+        def entry_grads(d, dev, p, fwd, ls):
+            priv, ce_pub, flat = fwd
+            fwd.clear()                  # the logits die with this entry
+            w = w_loc[d]
+            kl = torch.mean(ops.mutual_kl_pair(
+                flat, gathered[dev], pair_loc[d],
+                temperature=self.temperature, impl=self.impl), dim=-1)
+            total = torch.sum(priv * w) + torch.sum(ce_pub * w) \
+                + self.kl_weight * torch.sum(kl)
+            it = iter(torch.autograd.grad(total, ls))
+            del total, flat
+            with torch.no_grad():
+                norms = on_grads(d, tree_map(lambda _: next(it), p),
+                                 pm_nat[gids[d]])
+            return {"private_loss": priv.detach(),
+                    "public_ce": ce_pub.detach(), "kld_avg": kl.detach(),
+                    "grad_norm": norms}
+
+        for t in (t for ls in leaves for t in ls):
+            t.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                fwd = map_entries(mesh, lambda d, dev, p: self._forward(
+                    p, tokens.index_select(0, rows[d]).to(dev),
+                    public_tokens.to(dev)), params)
+                shards = [f[2].detach() for f in fwd]
+                gathered = {dev: stacking.gather_clients(shards, K,
+                                                         self.n_dev, dev)
+                            for dev in set(mesh.devices)}
+                del shards
+                out = map_entries(mesh, entry_grads, params, fwd, leaves)
+        finally:
+            for t in (t for ls in leaves for t in ls):
+                t.requires_grad_(False)
+        return {key: stacking.gather_clients(
+            [m[key] for m in out], K, self.n_dev, mesh.devices[0])[:K]
+            for key in ("private_loss", "public_ce", "kld_avg", "grad_norm")}
+
+    def _update(self, params, opt, grads, pm_loc, step: int):
+        """AdamW on an entry's participating slots, each client's gradient
+        clipped by its own norm (JAX: ``vmap(clip_by_global_norm)``, then
+        an unclipped update): one ``adamw_update`` for each run of
+        adjacent participating slots (the whole entry in a full round), on
+        views of their rows, at the shared ``step`` the host passes.
+        Dummies and absentees are untouched (their params and moments keep
+        their bits); the entry's copy of the shared step advances.
+        Returns the (K_loc,) gradient norms."""
+        norms = client_norms(grads)
+        clip = self.opt_cfg.clip_norm
+        scale = torch.ones_like(norms) if clip is None else torch.clamp(
+            clip / torch.clamp(norms, min=1e-9), max=1.0)
+        for a, b in _live_spans(pm_loc):
+            rows = lambda t: t[a:b]                  # noqa: E731
+            adamw_update(tree_map(rows, params), tree_map(rows, grads),
+                         {"mu": tree_map(rows, opt["mu"]),
+                          "nu": tree_map(rows, opt["nu"]), "step": step},
+                         self.opt_cfg, client_scale=scale[a:b])
+        opt["step"] += 1
+        return norms
+
+
+def _live_spans(pm_loc) -> list:
+    """(start, stop) of each run of adjacent nonzero slots of ``pm_loc``."""
+    spans, start = [], None
+    for i, m in enumerate([float(x) for x in pm_loc] + [0.0]):
+        if m and start is None:
+            start = i
+        elif not m and start is not None:
+            spans.append((start, i))
+            start = None
+    return spans
+
+
+def make_sharded_dml_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
+                          n_clients: int, kl_weight: float = 1.0,
+                          temperature: float = 1.0, remat: bool = True, *,
+                          impl: str) -> ShardedDMLStep:
+    """``make_dml_train_step`` sharded over a client mesh
+    (``repro/core/distributed.py:262-354``).
+
+    Each entry owns whole clients (round-robin spill for K > entries,
+    ``stacking.client_layout``); private CE runs entry by entry, and the
+    ONLY cross-entry tensor is the public-batch logits (K_loc, B_pub * S,
+    V) of every entry, gathered once (``stacking.gather_clients``) and
+    detached: the paper's communication frontier (``comm_bytes``'s
+    ``dml_round`` counts these bytes sent and received).
+
+    Two deliberate deltas from the unsharded step, as in JAX:
+      - grad clipping is per client (``clip_norm`` applies to each
+        client's own gradient, whose norm the metrics report);
+      - the Eq.-2 term goes through ``ops.mutual_kl_pair``: live (K_loc,
+        ...) against the gathered (K_pad, ...) with the rows of
+        ``_pair_mask(K_pad, ...)`` at the entry's global ids, zero on each
+        client's own column and on the padding slots (impl "cuda": the
+        pair-KL kernels).
+
+    Prefix-conditioned archs are refused.  Returns ``step(stacked_params,
+    opt_state, tokens, public_tokens, part_mask=None)``; it updates the
+    state IN PLACE, as the port's other steps do.
+    """
+    return ShardedDMLStep(cfg, opt_cfg, mesh, n_clients, kl_weight,
+                          temperature, remat, impl)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Client populations for ``repro_torch.core.api.Federation``:
 :class:`LMClients`, the stacked same-arch LM clients over the
 ``core.distributed`` steps; :class:`VisionClients`, the paper's stacked
-VisionNet clients under Algorithm 1; and :class:`HeteroClients`,
+VisionNet clients under Algorithm 1 (both on one device or a client
+mesh); and :class:`HeteroClients`,
 architecture-heterogeneous clients through the per-client model registry.
 ``Population`` documents the capability surface strategies drive."""
 from repro_torch.core.populations.base import Population

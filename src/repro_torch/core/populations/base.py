@@ -13,6 +13,7 @@ from typing import List
 
 import numpy as np
 
+from repro_torch.core import stacking
 from repro_torch.tree import tree_leaves
 
 
@@ -95,6 +96,74 @@ class Population:
 
     def load_state_dict(self, state: dict, meta: dict) -> None:
         raise NotImplementedError
+
+
+class MeshState:
+    """The client-stacked state (``client_params``, ``client_opts``) of a
+    population that may shard its clients over a client mesh
+    (``self.mesh``, a ``sharding.ClientMesh`` or None).
+
+    The state is in one of two layouts.  Natural order on ``self.device``
+    is what the weight syncs, ``evaluate`` and checkpoints read; the mesh
+    phases run on the mesh's entry layout (``stacking.to_entries``), which
+    stays between them, as the JAX package keeps a sharded fleet on its
+    mesh.  ``_to_mesh`` moves the state to the entries and
+    ``_gather_clients_host`` back, each leaf by leaf, so that a full-width
+    fleet's state is never held twice; reading or setting
+    ``client_params`` / ``client_opts`` gathers first.  A move drops only
+    the population's own references: a tree a caller read keeps its
+    tensors (and their memory) for as long as the caller holds it.
+    """
+
+    mesh = None
+    _entries = None            # (params per entry, opts per entry)
+    _client_params = None
+    _client_opts = None
+
+    @property
+    def client_params(self):
+        self._gather_clients_host()
+        return self._client_params
+
+    @client_params.setter
+    def client_params(self, tree):
+        self._gather_clients_host()
+        self._client_params = tree
+
+    @property
+    def client_opts(self):
+        self._gather_clients_host()
+        return self._client_opts
+
+    @client_opts.setter
+    def client_opts(self, tree):
+        self._gather_clients_host()
+        self._client_opts = tree
+
+    def _gather_clients_host(self) -> None:
+        """Commit the state to natural order on ``self.device``."""
+        if self._entries is None:
+            return
+        moves = [([tree_leaves(e) for e in entries],
+                  stacking.tree_skeleton(entries[0]))
+                 for entries in self._entries]
+        self._entries = None
+        self._client_params, self._client_opts = [
+            stacking.move_from_entries(leaves, skeleton, self.n_clients,
+                                       self.device)
+            for leaves, skeleton in moves]
+
+    def _to_mesh(self):
+        """The state on the mesh's entries: (params, opts) per entry."""
+        if self._entries is None:
+            moves = [(tree_leaves(t), stacking.tree_skeleton(t))
+                     for t in (self._client_params, self._client_opts)]
+            self._client_params = self._client_opts = None
+            self._entries = tuple(
+                stacking.move_to_entries(leaves, skeleton, self.n_clients,
+                                         self.mesh.devices)
+                for leaves, skeleton in moves)
+        return self._entries
 
 
 def broadcast_mask_counts(stacked_params, mask_tree, n_clients: int):

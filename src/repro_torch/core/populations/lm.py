@@ -10,6 +10,12 @@ leaf.  Per strategy, one round is:
   - fedavg / async: ``make_local_train_step`` for the local phase, then
     ``fedavg_sync`` / ``async_sync`` on the stacked axis.
 
+With a client mesh (``LMClients(..., mesh=...)``, a ``sharding.ClientMesh``)
+the dml round runs ``distributed.make_sharded_dml_step``: each entry owns
+whole clients, and the public logits are gathered once a round.  The state
+stays in the entry layout between rounds (``base.MeshState``); other
+strategies are refused on a mesh, as in the JAX package.
+
 Private data is per-client synthetic bigram streams (one domain per
 client -- non-IID); the public batch is fresh every round.  The batches
 are the JAX package's, token for token.  A prefix-token arch also draws
@@ -31,7 +37,7 @@ import torch
 
 from repro_torch.core import distributed as D
 from repro_torch.core.async_fl import layer_schedule
-from repro_torch.core.populations.base import (Population,
+from repro_torch.core.populations.base import (MeshState, Population,
                                                broadcast_mask_counts)
 from repro_torch.data.synthetic import make_token_stream
 from repro_torch.kernels import ops
@@ -40,7 +46,7 @@ from repro_torch.optim import AdamWConfig
 from repro_torch.tree import tree_leaves, tree_map
 
 
-class LMClients(Population):
+class LMClients(MeshState, Population):
     """K stacked same-arch LM clients on synthetic domain streams."""
 
     engine_name = "lm"
@@ -50,13 +56,14 @@ class LMClients(Population):
 
     def __init__(self, cfg, n_clients: int = 2, rounds: int = 20,
                  batch: int = 4, seq: int = 64, lr: float = 1e-3,
-                 seed: int = 0, device=None, kernel_impl=None):
+                 seed: int = 0, mesh=None, device=None, kernel_impl=None):
         self.cfg = cfg
         self.n_clients = n_clients
         self.rounds = rounds
         self.batch = batch
         self.seq = seq
         self.seed = seed
+        self.mesh = mesh
         self.device = ops.resolve_device(device)
         self.impl = ops.resolve_impl(kernel_impl, self.device)
         self.opt_cfg = AdamWConfig(lr=lr, warmup=5, total_steps=rounds)
@@ -73,6 +80,10 @@ class LMClients(Population):
             raise ValueError(
                 "the LM population fuses the whole round into one update; "
                 "mutual_epochs must be 1")
+        if self.mesh is not None and strategy.name != "dml":
+            raise ValueError(
+                "mesh-sharded LM rounds support the dense dml strategy "
+                f"only (make_sharded_dml_step), got {strategy.name!r}")
 
     # -- data -------------------------------------------------------------
     def _tokens(self, toks: np.ndarray) -> torch.Tensor:
@@ -113,11 +124,16 @@ class LMClients(Population):
 
     # -- cached steps -----------------------------------------------------
     def _dml_step(self, kl_weight: float, sparse_k: int):
-        key = ("dml", kl_weight, sparse_k)
+        key = ("dml", kl_weight, sparse_k, self.mesh)
         if key not in self._steps:
-            self._steps[key] = D.make_dml_train_step(
-                self.cfg, self.opt_cfg, kl_weight=kl_weight,
-                sparse_k=sparse_k, impl=self.impl)
+            if self.mesh is not None:
+                self._steps[key] = D.make_sharded_dml_step(
+                    self.cfg, self.opt_cfg, self.mesh, self.n_clients,
+                    kl_weight=kl_weight, impl=self.impl)
+            else:
+                self._steps[key] = D.make_dml_train_step(
+                    self.cfg, self.opt_cfg, kl_weight=kl_weight,
+                    sparse_k=sparse_k, impl=self.impl)
         return self._steps[key]
 
     def _local_step(self):
@@ -151,11 +167,16 @@ class LMClients(Population):
                              "is not supported by the fused LM step")
         part_mask = pm if len(part) < self.n_clients else None
         step = self._dml_step(kl_weight, sparse_k)
-        self.client_params, self.client_opts, m = step(
-            self.client_params, self.client_opts, self._private_batch(r),
-            pub, prefix=self._private_prefix(r),
-            public_prefix=self._prefix(10_000 + r, int(pub.shape[0])),
-            part_mask=part_mask)
+        if self.mesh is not None:
+            # no prefix: the sharded step refuses prefix-token archs
+            m = step.on_entries(*self._to_mesh(), self._private_batch(r),
+                                pub, part_mask=part_mask)
+        else:
+            self.client_params, self.client_opts, m = step(
+                self.client_params, self.client_opts, self._private_batch(r),
+                pub, prefix=self._private_prefix(r),
+                public_prefix=self._prefix(10_000 + r, int(pub.shape[0])),
+                part_mask=part_mask)
         self._last_metrics = m
         return {"ran": True,
                 "positions": int(pub.shape[0]) * int(pub.shape[1]),
@@ -193,8 +214,10 @@ class LMClients(Population):
 
     @property
     def params_per_client(self) -> int:
-        total = sum(t.numel() for t in tree_leaves(self.client_params))
-        return int(total // self.n_clients)
+        # one client's rows, in whichever layout the state is
+        params = self._client_params if self._entries is None else \
+            self._entries[0][0]
+        return int(sum(t[0].numel() for t in tree_leaves(params)))
 
     # -- eval / checkpoint -------------------------------------------------
     @torch.no_grad()
@@ -234,5 +257,6 @@ class LMClients(Population):
         """Takes trees of tensors on any device (a restored checkpoint's are
         on the CPU) and moves them to the population's device."""
         to = lambda t: torch.as_tensor(t).to(self.device)  # noqa: E731
+        self._entries = None
         self.client_params = tree_map(to, state["client_params"])
         self.client_opts = tree_map(to, state["client_opts"])

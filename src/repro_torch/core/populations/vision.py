@@ -39,6 +39,21 @@ poisoning, the DP release of the whole (K, B) stack (one draw an epoch,
 ``privacy.dp.gaussian``), then the plain epoch step or the robust one.
 Without poisoning or DP the shared tensor is the plain path's, so a
 tap-only run is the plain run bit for bit.
+
+With a client mesh (``VisionClients(..., mesh=...)``, a
+``sharding.ClientMesh``) and K > 1 the local and mutual phases run on the
+mesh's entries (``_sharded_local_steps``, ``_sharded_mutual``): each entry
+owns whole clients (round-robin spill, ``stacking.client_layout``), local
+training moves nothing between entries, and the mutual phase gathers the
+(K_loc, B_pub) public-fold predictions once a mutual epoch.  Both
+engines draw the dropout masks at the whole fleet's shape
+(``visionnet.FleetDraws``), each entry taking its clients' rows, so a
+sharded session draws an unsharded one's masks.  Its rounds match the
+unsharded engine's within fp32 rounding (the grouped convolutions run at
+another group count), not bit for bit as the JAX package's width-2
+chunks make them; the weight syncs gather the fleet to natural order
+first and run the same code.  The DP, Byzantine, robust and payload-tap
+features run unsharded only.
 """
 from __future__ import annotations
 
@@ -53,15 +68,17 @@ from repro_torch.core.distributed import value_and_grad
 from repro_torch.core.mutual import (_pair_mask, bernoulli_kl_to_target,
                                      bernoulli_mutual_terms_vs,
                                      robust_bernoulli_target)
-from repro_torch.core.populations.base import Population
+from repro_torch.core.populations.base import MeshState, Population
 from repro_torch.data.federated import (FoldScheduler, NonIIDScheduler,
                                         round_batch_indices)
 from repro_torch.kernels import ops
-from repro_torch.models.visionnet import (bce_loss, init_visionnet,
+from repro_torch.models.visionnet import (FleetDraws, bce_loss,
+                                          init_visionnet,
                                           shallow_deep_split, strict_fp32,
                                           visionnet_forward)
 from repro_torch.optim import SGDConfig, sgd_init, sgd_update
 from repro_torch.privacy import dp as dp_mod
+from repro_torch.sharding import map_entries
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -86,11 +103,13 @@ def _masked_step(params, opt, grads, w: torch.Tensor, cfg: SGDConfig,
              "step": opt["step"] + w.to(torch.int32)})
 
 
-class VisionClients(Population):
+class VisionClients(MeshState, Population):
     """K stacked VisionNet clients on a (train_images, train_labels) pool.
 
-    The JAX constructor's signature and defaults, plus ``device``; a
-    ``mesh`` is not ported and raises.
+    The JAX constructor's signature and defaults, plus ``device``.
+    ``mesh``: a ``sharding.ClientMesh`` with a ``clients`` axis -- the
+    round's training phases then run on its entries (see the module
+    docstring).
 
     ``byzantine``: ``{client_index: mode}`` marks adversarial clients --
     ``"label-flip"`` poisons their LOCAL training labels, ``"sign-flip"``
@@ -114,10 +133,11 @@ class VisionClients(Population):
                  non_iid_alpha: float = 0.0, seed: int = 0,
                  eval_batch: int = 256, byzantine=None,
                  record_payloads: bool = False, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a client mesh is not ported yet; it comes with the "
-                "client-sharding item of queue 1")
+        axes = getattr(mesh, "axis_names", ())
+        if mesh is not None and stacking.CLIENT_AXIS not in axes:
+            raise ValueError(
+                f"mesh needs a '{stacking.CLIENT_AXIS}' axis, got {axes}")
+        self.mesh = mesh
         self.byzantine = {int(c): m for c, m in (byzantine or {}).items()}
         for c, mode in self.byzantine.items():
             if not 0 <= c < n_clients:
@@ -215,28 +235,43 @@ class VisionClients(Population):
         labels of the clients in ``flip_rows`` are flipped (label-flip
         attackers).  Returns (params, opt, mean BCE per client (K,) on the
         device)."""
-        gen = self._dropout_generator()
+        fleet = FleetDraws(self._dropout_generator(), mask.shape[0])
         w = torch.as_tensor(mask, device=self.device)
         loss_sum = torch.zeros(mask.shape[0], device=self.device)
         with strict_fp32():
-            for t in range(idx.shape[1]):
-                images, labels = self._batch(idx[:, t])
-                if flip_rows:
-                    labels = labels.clone()
-                    labels[list(flip_rows)] = 1 - labels[list(flip_rows)]
-
-                def loss_fn(q):
-                    probs = visionnet_forward(q, self.vn_cfg, images,
-                                              train=True, generator=gen)
-                    bce = bce_loss(probs, labels)
-                    return torch.sum(bce), bce.detach()
-
-                _, bce, grads = value_and_grad(loss_fn, params)
-                params, opt = _masked_step(params, opt, grads, w[:, t],
-                                           self.sgd_cfg,
-                                           bool(mask[:, t].all()))
+            for t, images, labels in self._plan_batches(idx, flip_rows):
+                fleet.step()
+                params, opt, bce = self._sgd_step(params, opt, images, labels,
+                                                  fleet.rows(), w[:, t],
+                                                  bool(mask[:, t].all()))
                 loss_sum += bce * w[:, t]
         return params, opt, loss_sum / torch.clamp(w.sum(1), min=1.0)
+
+    def _plan_batches(self, idx: np.ndarray, flip_rows=()):
+        """(t, images, labels) of each step of the (K, T, B) plan ``idx``,
+        gathered on the device, the labels of the clients in
+        ``flip_rows`` flipped (label-flip attackers)."""
+        for t in range(idx.shape[1]):
+            images, labels = self._batch(idx[:, t])
+            if flip_rows:
+                labels = labels.clone()
+                labels[list(flip_rows)] = 1 - labels[list(flip_rows)]
+            yield t, images, labels
+
+    def _sgd_step(self, params, opt, images, labels, gen, w: torch.Tensor,
+                  all_real: bool):
+        """One local SGD step of a client stack on its batch, applied where
+        w = 1: (params, opt, BCE per client)."""
+        def loss_fn(q):
+            probs = visionnet_forward(q, self.vn_cfg, images, train=True,
+                                      generator=gen)
+            bce = bce_loss(probs, labels)
+            return torch.sum(bce), bce.detach()
+
+        _, bce, grads = value_and_grad(loss_fn, params)
+        params, opt = _masked_step(params, opt, grads, w, self.sgd_cfg,
+                                   all_real)
+        return params, opt, bce
 
     def _train_single(self, fold: np.ndarray) -> float:
         """Global-model training = the same local steps with K = 1."""
@@ -265,10 +300,99 @@ class VisionClients(Population):
             return folds, [0.0] * K
         if part_mask is not None:
             mask = mask * part_mask[:, None]
-        self.client_params, self.client_opts, losses = self._local_steps(
-            self.client_params, self.client_opts, idx, mask, self._flip_rows)
+        if self.mesh is not None and K > 1:
+            losses = self._sharded_local_steps(idx, mask, self._flip_rows)
+        else:
+            self.client_params, self.client_opts, losses = \
+                self._local_steps(self.client_params, self.client_opts, idx,
+                                  mask, self._flip_rows)
         self.dispatch_log.append((self._round_idx, "local_scan"))
         return folds, losses.tolist()
+
+    # -- the client mesh ---------------------------------------------------
+    def _entry_layout(self):
+        """Per entry: the natural client of each slot (a dummy wraps to a
+        real one) and a (K_loc,) 0/1 float of its real slots."""
+        n = self.mesh.shape[stacking.CLIENT_AXIS]
+        rows = stacking.entry_rows(self.n_clients, n)
+        real = [(stacking.local_client_ids(self.n_clients, n, d)
+                 < self.n_clients).float() for d in range(n)]
+        return rows, real
+
+    def _gather_losses(self, per_entry) -> torch.Tensor:
+        n = self.mesh.shape[stacking.CLIENT_AXIS]
+        return stacking.gather_clients(per_entry, self.n_clients, n,
+                                       self.device)[:self.n_clients]
+
+    def _sharded_local_steps(self, idx: np.ndarray, mask: np.ndarray,
+                             flip_rows=()) -> torch.Tensor:
+        """``_local_steps`` on the mesh's entries, each training only its
+        own clients on their own batches: no tensor crosses between
+        entries.  Dummy slots sit the phase out, so they keep the state of
+        the client they re-host.  Returns the mean BCE per client (K,) on
+        ``self.device``."""
+        params, opts = self._to_mesh()
+        rows, real = self._entry_layout()
+        fleet = FleetDraws(self._dropout_generator(), self.n_clients)
+        w_np = [mask[r] * m.numpy()[:, None] for r, m in zip(rows, real)]
+        w = [torch.as_tensor(x, device=dev)
+             for x, dev in zip(w_np, self.mesh.devices)]
+        loss_sum = [torch.zeros(x.shape[0], device=dev)
+                    for x, dev in zip(w_np, self.mesh.devices)]
+        t = images = labels = None
+
+        def one(d, dev, p, o):
+            r = torch.as_tensor(rows[d], device=images.device)
+            params[d], opts[d], bce = self._sgd_step(
+                p, o, images.index_select(0, r).to(dev),
+                labels.index_select(0, r).to(dev), fleet.rows(rows[d]),
+                w[d][:, t], bool(w_np[d][:, t].all()))
+            loss_sum[d] += bce * w[d][:, t]
+
+        with strict_fp32():
+            for t, images, labels in self._plan_batches(idx, flip_rows):
+                fleet.step()
+                map_entries(self.mesh, one, list(params), list(opts))
+        return self._gather_losses(
+            [s / torch.clamp(x.sum(1), min=1.0) for s, x in zip(loss_sum, w)])
+
+    def _sharded_mutual(self, images, labels, pm, kl_weight: float,
+                        mutual_epochs: int):
+        """The mutual epochs on the mesh's entries.  Per epoch each entry
+        predicts its own clients on the public fold; the (K_loc, B_pub)
+        predictions are gathered (the one cross-entry tensor of the round),
+        put back in natural order and cut to K, and each entry descends
+        Eq. 1 for its clients only, under its rows of ``_pair_mask(K,
+        pm)``; dummies are masked out of the average and the update.
+        Returns the last epoch's (bce, kld), each (K,)."""
+        K, n = self.n_clients, self.mesh.shape[stacking.CLIENT_AXIS]
+        params, opts = self._to_mesh()
+        rows, real = self._entry_layout()
+        fleet = FleetDraws(self._dropout_generator(), K)
+        pmt, pair = (torch.as_tensor(pm, dtype=torch.float32),
+                     _pair_mask(K, pm))
+        pm_loc, pair_rows = [], []
+        for d, m in enumerate(real):
+            safe = torch.clamp(stacking.local_client_ids(K, n, d), max=K - 1)
+            pm_loc.append(pmt[safe] * m)
+            pair_rows.append(pair[safe] * m[:, None])
+        on = [(images.to(dev), labels.to(dev)) for dev in self.mesh.devices]
+        for _ in range(mutual_epochs):
+            shared_loc = map_entries(
+                self.mesh, lambda d, dev, p: self._predict(p, on[d][0]),
+                params)
+            shared = {dev: stacking.gather_clients(shared_loc, K, n, dev)[:K]
+                      for dev in set(self.mesh.devices)}
+            fleet.step()
+            out = map_entries(
+                self.mesh, lambda d, dev, p, o: self._epoch_step(
+                    p, o, *on[d], fleet.rows(rows[d]), pm_loc[d].to(dev),
+                    kl_weight, bool(pm_loc[d].all()), shared[dev],
+                    pair_rows[d].to(dev)), list(params), list(opts))
+            for d, (p, o, _, _) in enumerate(out):
+                params[d], opts[d] = p, o
+        return (self._gather_losses([o[2] for o in out]),
+                self._gather_losses([o[3] for o in out]))
 
     @torch.no_grad()
     def _predict(self, stacked_params, images) -> torch.Tensor:
@@ -369,9 +493,24 @@ class VisionClients(Population):
         out = {"ran": False, "positions": len(pub)}
         sf, cl = self._byz_payload_masks()
         poison = bool(sf.any() or cl.any())
-        if mutual_epochs > 0 and len(part) >= 2:
+        if self.mesh is not None and (dp is not None or robust is not None
+                                      or poison or self.record_payloads):
+            raise NotImplementedError(
+                "DP / Byzantine / robust-combine / payload recording run "
+                "on the unsharded engine only; drop mesh= or the feature")
+        if mutual_epochs > 0 and len(part) >= 2 and self.mesh is not None \
+                and K > 1:
             images, labels = self._batch(pub)
-            gen = self._dropout_generator()
+            bce, kld = self._sharded_mutual(images, labels, pm, kl_weight,
+                                            mutual_epochs)
+            self.dispatch_log.append((r, "mutual_scan"))
+            loss, kld = torch.stack([bce + kl_weight * kld, kld]).tolist()
+            out = {"ran": True, "positions": len(pub),
+                   "client_loss": [x * m for x, m in zip(loss, pm)],
+                   "kl_loss": kld}
+        elif mutual_epochs > 0 and len(part) >= 2:
+            images, labels = self._batch(pub)
+            fleet = FleetDraws(self._dropout_generator(), K)
             pmt = torch.as_tensor(pm, dtype=torch.float32,
                                   device=self.device)
             pair_w = _pair_mask(K, pm, device=self.device)
@@ -399,8 +538,9 @@ class VisionClients(Population):
                     sent.append(shared)
                 target = None if robust is None else \
                     robust_bernoulli_target(shared, pm, *robust)
+                fleet.step()
                 params, opt, bce, kld = self._epoch_step(
-                    params, opt, images, labels, gen, pmt, kl_weight,
+                    params, opt, images, labels, fleet.rows(), pmt, kl_weight,
                     len(part) == K, shared, pair_w, target)
             self.client_params, self.client_opts = params, opt
             if self.record_payloads:
@@ -415,6 +555,7 @@ class VisionClients(Population):
         return out
 
     def fedavg_combine(self, part: List[int], pm) -> None:
+        self._gather_clients_host()
         if len(part) == self.n_clients:
             self.client_params = fedavg.average_weights(self.client_params)
             avg = self.client_params
@@ -427,6 +568,7 @@ class VisionClients(Population):
         self.global_params = stacking.client_slice(avg, 0)
 
     def async_combine(self, r, part, pm, delta, min_round, pub) -> str:
+        self._gather_clients_host()
         scores = self._fold_accuracies(self._last_folds)
         # absentees contribute no weight to the aggregate and receive none
         # of it back (scores masked -> their average weight is 0)
@@ -459,6 +601,7 @@ class VisionClients(Population):
                 "held-out dataset: evaluate(split=(test_images, "
                 "test_labels))")
         self._round_idx = self.rounds                  # eval phase
+        self._gather_clients_host()
         images = torch.as_tensor(split[0], dtype=torch.float32,
                                  device=self.device)
         labels = torch.as_tensor(split[1], device=self.device)
@@ -507,6 +650,7 @@ class VisionClients(Population):
         checkpoint's are CPU tensors, the JAX package's numpy arrays) and
         moves them to the population's device."""
         to = lambda t: torch.as_tensor(t).to(self.device)  # noqa: E731
+        self._entries = None
         self.client_params = tree_map(to, state["client_params"])
         self.client_opts = tree_map(to, state["client_opts"])
         self.global_params = tree_map(to, state["global_params"])

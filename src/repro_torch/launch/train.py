@@ -36,8 +36,15 @@ fleet:
       --byzantine 2=sign-flip --rounds 3
 
 The stacked LM population (``--method dml``) refuses the three, as the
-JAX one does.  The JAX CLI's ``--mesh`` is not ported.  The full-width
-runs are ``chip_smoke.py``'s.
+JAX one does.  The full-width runs are ``chip_smoke.py``'s.
+
+Device-sharded DML (``--mesh clients=N``, ``--method dml``): each entry of
+the client mesh owns whole clients, and the only cross-entry tensor is the
+gathered public logits (``core.distributed.make_sharded_dml_step``).  The
+mesh is built on ``--device``: N cards, or N entries of the CPU.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --method dml \
+      --clients 4 --steps 8 --mesh clients=2 --device cpu
 """
 from __future__ import annotations
 
@@ -185,11 +192,20 @@ def _run_federated_lm(args, cfg) -> int:
     """Stacked same-arch LM clients."""
     from repro_torch.api import Federation, LMClients
 
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import make_client_mesh, parse_mesh_spec
+        axes = parse_mesh_spec(args.mesh)
+        if set(axes) != {"clients"}:
+            raise SystemExit(f"--mesh supports clients=N, got {args.mesh}")
+        mesh = make_client_mesh(axes["clients"], device=args.device)
+        print(f"sharding {args.clients} clients over {axes['clients']} "
+              "devices (all-gather of public logits is the only collective)")
     t0 = time.time()
     strategy = _make_strategy(args)
     population = LMClients(cfg, n_clients=args.clients, rounds=args.steps,
                            batch=args.batch, seq=args.seq, lr=args.lr,
-                           seed=args.seed, device=args.device,
+                           seed=args.seed, mesh=mesh, device=args.device,
                            kernel_impl=args.kernel_impl)
     fed = Federation(population, strategy, participation=args.participation)
     print(f"model: {cfg.name} x {args.clients} clients [{args.strategy} "
@@ -259,6 +275,9 @@ def main(argv=None) -> int:
                     help="kernel implementation (default: cuda on a CUDA "
                          "device, ref on the CPU)")
     ap.add_argument("--save", default=None, help="checkpoint path")
+    ap.add_argument("--mesh", default=None, metavar="clients=N",
+                    help="shard the DML client axis over a 'clients' mesh "
+                         "of N entries on --device (--method dml)")
     ap.add_argument("--until", type=int, default=0,
                     help="stop after this round/step (0 = run the full "
                          "schedule); with --save this checkpoints "

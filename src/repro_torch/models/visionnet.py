@@ -20,7 +20,7 @@ torch's conv backward is already per group.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -112,21 +112,63 @@ def _conv(x, layer, groups: int):
                     groups=groups)
 
 
-def dropout(x, rate: float, generator: torch.Generator):
+class FleetDraws:
+    """The dropout draws of a natural-order fleet of ``n_clients``: the
+    n-th draw of a forward is made once, at the whole fleet's shape, from
+    ``generator``, and a forward of some of its clients (a mesh entry's)
+    takes their rows.  So a sharded fleet draws the masks an unsharded one
+    does, and the population's two engines share one draw path.  Call
+    ``step()`` before each forward of the fleet and pass ``rows(ids)``
+    (``rows()``: every client) to each forward as its ``generator``."""
+
+    def __init__(self, generator: torch.Generator, n_clients: int):
+        self.generator, self.n_clients = generator, n_clients
+        self._draws = []
+
+    def step(self) -> None:
+        self._draws = []
+
+    def rows(self, ids=None) -> "_FleetRows":
+        return _FleetRows(self, None if ids is None else torch.as_tensor(ids))
+
+
+class _FleetRows:
+    def __init__(self, fleet: FleetDraws, ids):
+        self.fleet, self.ids, self.calls = fleet, ids, 0
+
+    def rand(self, shape, device) -> torch.Tensor:
+        f = self.fleet
+        if self.calls == len(f._draws):
+            f._draws.append(torch.rand(
+                (f.n_clients,) + tuple(shape[1:]), generator=f.generator,
+                device=f.generator.device))
+        u = f._draws[self.calls]
+        self.calls += 1
+        if self.ids is not None:
+            u = u.index_select(0, self.ids.to(u.device))
+        return u.to(device)
+
+
+def dropout(x, rate: float, generator):
     """``x * bernoulli(1 - rate) / (1 - rate)`` with the mask drawn from
-    ``generator`` (on ``x``'s device), as the JAX forward computes it."""
+    ``generator`` (on ``x``'s device), as the JAX forward computes it;
+    ``generator`` may be a ``FleetDraws.rows`` view."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return x * mask / keep
+    if isinstance(generator, torch.Generator):
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        u = generator.rand(x.shape, x.device)
+    return x * (u < keep) / keep
 
 
 def visionnet_forward(params: Dict, cfg: VisionNetConfig, images, *,
                       train: bool = False,
-                      generator: Optional[torch.Generator] = None):
+                      generator=None):
     """Client-stacked forward.  ``images``: (B, H, W, C) in [0, 1] shared by
     all K clients, or (K, B, H, W, C), one batch per client.  Returns the
     sigmoid probabilities (K, B) in fp32.  Dropout runs when ``train`` and
-    a ``generator`` are given (one independent mask per client)."""
+    a ``generator`` (a ``torch.Generator`` or a ``FleetDraws.rows`` view)
+    are given (one independent mask per client)."""
     K = params["conv"][0]["w"].shape[0]
     x = images.float()
     if x.dim() == 4:                   # shared: one plain conv for all K

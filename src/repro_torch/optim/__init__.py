@@ -58,6 +58,20 @@ def _runs(*ts):
     return list(zip(*(t.view(-1).split(CHUNK) for t in ts)))
 
 
+def _client_runs(scale, *ts):
+    """``_runs`` of matching client-stacked tensors, each paired with the
+    factor its gradient takes: ``scale`` itself when it is None or 0-d;
+    for a (K,) ``scale``, the client's entry, broadcast over a whole small
+    leaf, and a leaf of more than ``CHUNK`` elements run client by client
+    so that each run lies in one client."""
+    if scale is None or scale.dim() == 0:
+        return [(r, scale) for r in _runs(*ts)]
+    if ts[0].numel() <= CHUNK or not all(t.is_contiguous() for t in ts):
+        return [(ts, _per_client(scale, ts[0]))]
+    return [(r, scale[c]) for c in range(ts[0].shape[0])
+            for r in _runs(*(t[c] for t in ts))]
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32 (a 0-d tensor)."""
     sq = [torch.sum(torch.square(r.float())) for x in tree_leaves(tree)
@@ -132,19 +146,24 @@ def _at(tree, path):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
+def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
+                 client_scale: Optional[torch.Tensor] = None):
     """One AdamW step, IN PLACE on ``params`` and ``state``'s moments.
 
     The global norm is taken over the whole (client-stacked) ``grads`` tree
-    and one clip scale applies to every leaf, as in the JAX package.
-    Returns (params, state, {"grad_norm", "lr"}); params and state are the
-    objects passed in.
+    and one clip scale applies to every leaf, as in the JAX package.  A
+    (K,) ``client_scale`` instead multiplies each client's gradient by its
+    entry, in fp32 (the sharded step's per-client clip); no global norm is
+    then taken and "grad_norm" is None.  ``state["step"]`` may be a host
+    int, which spares the read of a device step.  Returns (params, state,
+    {"grad_norm", "lr"}); params and state are the objects passed in.
     """
-    gnorm = global_norm(grads)
-    scale = None
-    if cfg.clip_norm is not None:
-        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
-                            max=1.0)
+    gnorm, scale = None, client_scale
+    if client_scale is None:
+        gnorm = global_norm(grads)
+        if cfg.clip_norm is not None:
+            scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                                max=1.0)
     state["step"] += 1
     step = int(state["step"])
     lr = cfg.make_schedule()(step)
@@ -153,12 +172,12 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     bc2 = 1 - b2 ** step
     for path, leaf in _leaves_with_path(params):
         decay = cfg.weight_decay and _wd_mask(path)
-        for p, g, mu, nu in _runs(leaf, _at(grads, path),
-                                  _at(state["mu"], path),
-                                  _at(state["nu"], path)):
+        for (p, g, mu, nu), s in _client_runs(
+                scale, leaf, _at(grads, path), _at(state["mu"], path),
+                _at(state["nu"], path)):
             g = g.float()
-            if scale is not None:
-                g = g * scale                # never scales the caller's grads
+            if s is not None:
+                g = g * s                    # never scales the caller's grads
             mu.mul_(b1).add_(g, alpha=1 - b1)
             nu.mul_(b2).addcmul_(g, g, value=1 - b2)
             del g
@@ -191,11 +210,21 @@ def sgd_init(params) -> dict:
                                 device=tree_leaves(params)[0].device)}
 
 
+def _client_sq(x: torch.Tensor) -> torch.Tensor:
+    """(K,) fp32 sums of squares of each client's slice of ``x``, a leaf of
+    more than ``CHUNK`` elements a client and a run at a time."""
+    if x.numel() <= CHUNK:
+        return torch.sum(torch.square(x.float()).reshape(x.shape[0], -1),
+                         dim=1)
+    return torch.stack([torch.sum(torch.stack(
+        [torch.sum(torch.square(r.float())) for (r,) in _runs(x[c])]))
+        for c in range(x.shape[0])])
+
+
 def client_norms(tree) -> torch.Tensor:
     """(K,) fp32: for each client of a client-stacked tree, the global norm
     of its slices of every leaf."""
-    sq = [torch.sum(torch.square(x.float()).reshape(x.shape[0], -1), dim=1)
-          for x in tree_leaves(tree)]
+    sq = [_client_sq(x) for x in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(sq), dim=0))
 
 

@@ -255,13 +255,19 @@ def test_flash_bf16_refuses_misaligned_view(cuda, which):
     (9, 16, 3, 1_500, 0.8, True),
     (16, 5, 6, 2_000, 1.0, False),
     (1, 2, 64, 151_936, 1.0, False),   # kl_to_received: 1 live, J = 2
-    (1, 3, 64, 151_936, 1.0, False)])  # DP-DML's fleet of four: J = 3
+    (1, 3, 64, 151_936, 1.0, False),   # DP-DML's fleet of four: J = 3
+    (2, 4, 64, 151_936, 1.0, False)])  # the sharded step: K_loc against
+#                                        K_pad, zero on self and pads
 def test_kl_pair_kernels_match_plain(cuda, dtype, Kl, Kg, B, V, T,
                                      fixed_grad):
     """The pair-KL forward (atol 1e-4 + rtol 1e-4: fp32 streaming against
     a two-pass softmax) and backward (relative norm 1e-5 fp32, 2e-2 bf16)
     against ``ref.mutual_kl_pair`` and its autograd, with masked weights
-    (one live row: the uniform 1/Kg of ``core.mutual.kl_to_received``)."""
+    (one live row: the uniform 1/Kg of ``core.mutual.kl_to_received``;
+    Kl = 2 against J = 4: ``make_sharded_dml_step``'s call for entry 0 of
+    K = 3 over two entries, which holds clients 0 and 2 against the
+    gathered fleet whose pad re-hosts client 0, the weights zero on each
+    client's own column and on the pad)."""
     from repro_torch.core.mutual import _pair_mask
     from repro_torch.kernels import kl_mutual
     gen = torch.Generator(device=cuda).manual_seed(2)
@@ -270,6 +276,10 @@ def test_kl_pair_kernels_match_plain(cuda, dtype, Kl, Kg, B, V, T,
     w = torch.full((1, Kg), 1.0 / Kg, device=cuda) if Kl == 1 else \
         _pair_mask(max(Kl, Kg), [1.0] * (max(Kl, Kg) - 1) + [0.0],
                    cuda)[:Kl, :Kg]
+    if (Kl, Kg) == (2, 4):
+        fixed[[0, 2, 3]] = live[[0, 1, 0]]
+        w = _pair_mask(4, [1.0, 1.0, 1.0, 0.0], cuda)[[0, 2]]
+        assert w[0, 0] == w[1, 2] == 0 and not w[:, 3].any()
     gbar = torch.randn(Kl, B, generator=gen, device=cuda)
     outs, grads, rises = [], [], []
     for fn in (kl_mutual.kl_mutual_pair, ref.mutual_kl_pair):

@@ -315,8 +315,8 @@ def test_serve_cli_on_cpu(capsys):
     assert "arch=mamba2-780m random-init" in out
 
 
-# the training, SSM, vision, MoE, prefix-frontend and hetero slices' modules,
-# named so that the walk below cannot miss one
+# the training, SSM, vision, MoE, prefix-frontend, hetero and mesh slices'
+# modules, named so that the walk below cannot miss one
 TRAINING_MODULES = (
     "repro_torch.api", "repro_torch.core.api", "repro_torch.core.distributed",
     "repro_torch.core.mutual", "repro_torch.core.stacking",
@@ -342,7 +342,8 @@ TRAINING_MODULES = (
     "repro_torch.configs.base", "repro_torch.privacy",
     "repro_torch.privacy.dp", "repro_torch.privacy.accountant",
     "repro_torch.privacy.attacks", "repro_torch.core.strategies.dp",
-    "repro_torch.core.strategies.robust")
+    "repro_torch.core.strategies.robust", "repro_torch.sharding",
+    "repro_torch.launch.mesh")
 
 
 def test_port_imports_no_jax_and_no_repro():

@@ -230,7 +230,7 @@ def test_refusals(data):
                       (dict(byzantine={0: "firehose"}), "unknown byzantine")):
         with pytest.raises(ValueError, match=match):
             VisionClients(reduced(), tx, ty, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="client-sharding"):
+    with pytest.raises(ValueError, match="mesh needs a 'clients' axis"):
         VisionClients(reduced(), tx, ty, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="held-out dataset"):
         Federation(pop, DML()).evaluate()
