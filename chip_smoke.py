@@ -49,9 +49,9 @@ Phases, each fatal on failure:
      ``impl="ref"``;
   5. phase 3 for K=2 full-width, full-depth (48-layer) mamba2-780m clients
      on 1024-token prompts, through the SSD forward kernel;
-  6. phase 4 for K=3 full-width, full-depth mamba2-780m clients at seq 1024
-     (18,432 trained tokens a round), through the SSD forward and backward
-     kernels and the square pair-KL kernels;
+  6. phase 4 for K=3 full-width mamba2-780m clients at 24 of its 48
+     layers, seq 1024 (18,432 trained tokens a round), through the SSD
+     forward and backward kernels and the square pair-KL kernels;
   7. phase 4 with ``SparseDML(k=64)``: each client shares the top-64
      (index, log-prob) sets of its public logits, and the Eq.-2 term runs
      through the sparse-KL forward and backward kernels (no pair-KL
@@ -118,10 +118,9 @@ Phases, each fatal on failure:
      1536, 24/24 heads of 64, vocab 2048, 48 layers: 1.82 B params a
      client) behind a 64-position conditioning prefix of dim 768; the
      prefill parity on the whole population;
-  16. phase 4 for K=3 musicgen-medium clients at full width and depth
-     (5.46 B params, ~65 GB of params, gradients and AdamW moments), batch
-     4, public 2, seq 512, round 1 and the gradients held on the whole
-     population;
+  16. phase 4 for K=3 musicgen-medium clients at full width, 24 of its 48
+     layers (0.914 B params a client), batch 4, public 2, seq 512, round 1
+     and the gradients held on the whole population;
   17. a mixed-architecture federation at full width,
      ``Federation(HeteroClients(...), strategy)`` of qwen3-4b (4 of 36
      layers), qwen2-moe-a2.7b (1 of 24) and qwen3-8b (2 of 36), one
@@ -173,7 +172,16 @@ Phases, each fatal on failure:
      ``make_dml_train_step``;
   23. phase 9's VisionNet protocol over two entries of the card: 2 rounds
      each of DML, FedAvg and async against the unsharded engine from the
-     same state, and each weight sync alone bit for bit.
+     same state, and each weight sync alone bit for bit;
+  24. the dry-run and the roofline against the card: phase 4's round
+     counted on the meta device (``launch.dryrun.count``) and run on the
+     card at impl "ref" under ``FlopCounterMode`` (the FLOP counts agree to
+     1e-6; the dry-run's peak bytes within 0.8-1.25x of the card's
+     ``max_memory_allocated``); ``analysis.roofline.roofline_terms`` at
+     ``launch.mesh.H100``'s peaks for phase 4's round and phase 19's step
+     against their measured walls (the bound's share of the wall, the
+     MFU); then ``launch.quickstart`` and ``launch.serve_lm`` on the card
+     (the flash, square Eq.-2 and SSD kernels launched).
 With ``--cards N`` only phases 22 (K = 4) and 23 run, over N distinct
 cards.
 jamba-1.5-large-398b does not run on the card: one full-width period (8
@@ -212,14 +220,23 @@ sys.path.insert(0, str(ROOT / "src"))
 # fails here, before anything runs, without the port beside this file
 from repro_torch.kernels import _build  # noqa: E402
 
-# H100 SXM published peaks (dense): bf16 tensor cores, fp32 without them,
-# and HBM3 bandwidth
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
+from repro_torch.launch.mesh import H100  # noqa: E402
+
+# the H100 SXM's published dense peaks, from their one source: bf16 tensor
+# cores, fp32 without them, and HBM3 bandwidth; TFLOP/s and TB/s for the
+# printed rates
+PEAK_FLOPS = {torch.bfloat16: H100.peak_flops_bf16,
+              torch.float32: H100.peak_flops_fp32}
+PEAK_BYTES = H100.hbm_bandwidth
+BF16_TFLOPS = H100.peak_flops_bf16 / 1e12
+HBM_TBS = H100.hbm_bandwidth / 1e12
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd",
                   "kl_mutual_pair", "ssd_scan_fwd", "ssd_scan_bwd",
                   "sparse_kl")
 BF16 = torch.bfloat16
+# the unprofiled walls (s) of phase 4's round and phase 19's step, kept
+# for phase 24's shares of the card
+MEASURED: dict = {}
 # the SSD sweep of phase 2: (H, P, N, G), sequence lengths, chunks
 SSD_SWEEP = dict(heads=((48, 64, 128, 1), (8, 32, 16, 2), (4, 16, 8, 4)),
                  lengths=(1, 100, 256, 1000, 1024), chunks=(256, 64))
@@ -468,20 +485,21 @@ def phase_flash_fwd(main_shape, admit_batch, admit_lens,
         vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
         lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
         ops_ms, bytes_ms = attention_bound_ms(b, S, Hq, Hkv, hd, bf16)
-        tflops = ops_ms * 989 / t_ms      # causal flops / time, TFLOP/s
+        tflops = ops_ms * BF16_TFLOPS / t_ms      # causal flops / time, TFLOP/s
         line = (f"flash_attention at (B={b}, S={S}, Hq={Hq}, Hkv={Hkv}, "
                 f"hd={hd}) bf16: {t_ms:.4f} ms ({tflops:.1f} TFLOP/s), "
                 f"launch function _forward alone {launch_ms:.4f} ms "
-                f"({ops_ms * 989 / launch_ms:.1f} TFLOP/s), sdpa (library) "
-                f"{lib_ms:.4f} ms ({ops_ms * 989 / lib_ms:.1f} TFLOP/s)")
+                f"({ops_ms * BF16_TFLOPS / launch_ms:.1f} TFLOP/s), sdpa (library) "
+                f"{lib_ms:.4f} ms ({ops_ms * BF16_TFLOPS / lib_ms:.1f} TFLOP/s)")
         if i == 0:
             ms, library_ms = t_ms, lib_ms
             plain_ms = time_ms(lambda: ref.attention_lse(q, k, v), iters=5)
             bound_ms, bound_by = max((ops_ms, "operations"),
                                      (bytes_ms, "bytes"))
             line += (f", plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
-                     f"by {bound_by} (causal flops / 989 TFLOP/s "
-                     f"{ops_ms:.4f} ms, bytes / 3.35 TB/s {bytes_ms:.4f} "
+                     f"by {bound_by} (causal flops / {BF16_TFLOPS:.0f} "
+                     f"TFLOP/s {ops_ms:.4f} ms, bytes / {HBM_TBS} TB/s "
+                     f"{bytes_ms:.4f} "
                      f"ms); max |err| {max_err:.3g}")
         else:
             line += f"; bound {max(ops_ms, bytes_ms):.4f} ms"
@@ -546,7 +564,7 @@ def _time_other_fwd(fa, b, heads, S, window, gen) -> None:
     ops_ms, bytes_ms = attention_bound_ms(b, S, Hq, Hkv, hd, BF16, window)
     bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
     print(f"flash_attention at (B={b}, S={S}, Hq={Hq}, Hkv={Hkv}, hd={hd}, "
-          f"window={window}) bf16: {t_ms:.4f} ms ({ops_ms * 989 / t_ms:.1f} "
+          f"window={window}) bf16: {t_ms:.4f} ms ({ops_ms * BF16_TFLOPS / t_ms:.1f} "
           f"TFLOP/s over the unmasked pairs); bound {bound_ms:.4f} ms by "
           f"{bound_by} ({causal_pairs(S, window):.0f} unmasked pairs a "
           f"head); sdpa {backend}"
@@ -672,8 +690,9 @@ def phase_flash_bwd(train_shape, train_shapes, more=(), timed=()) -> dict:
           f"ref, fwd+bwd - fwd) {plain_ms:.4f} ms, sdpa (library, fwd+bwd "
           f"- fwd) {library_ms:.4f} ms ({tflops * ms / library_ms:.1f} "
           f"TFLOP/s); bound {bound_ms:.4f} ms by {bound_by} "
-          f"(10 hd flops per unmasked pair / 989 TFLOP/s; q, k, v, out, "
-          f"dout, lse read and dq, dk, dv written / 3.35 TB/s); max |err| "
+          f"(10 hd flops per unmasked pair / {BF16_TFLOPS:.0f} TFLOP/s; q, "
+          f"k, v, out, dout, lse read and dq, dk, dv written / {HBM_TBS} "
+          f"TB/s); max |err| "
           f"{max_err:.3g}")
     del q, k, v, out, lse, dout, leaves, lib
     for b, heads, S, window in timed:
@@ -1516,9 +1535,10 @@ def phase_ssd(train_shapes, serve_shapes) -> list:
         print(f"SSD forward at the {name} shape (B, S, H, P, G, N) = {shape} "
               f"bf16 chunk 256: {fwd_ms:.4f} ms, plain {plain_fwd:.4f} ms, "
               f"no single library call; bound {fb[0]:.4f} ms by {fb[1]} "
-              f"({_ssd_ops(*shape, 256, False) / 1e9:.1f} GFLOP / 989 "
-              f"TFLOP/s, {_ssd_bytes(*shape, 256, BF16, False) / 1e6:.0f} MB "
-              f"/ 3.35 TB/s)")
+              f"({_ssd_ops(*shape, 256, False) / 1e9:.1f} GFLOP / "
+              f"{BF16_TFLOPS:.0f} TFLOP/s, "
+              f"{_ssd_bytes(*shape, 256, BF16, False) / 1e6:.0f} MB / "
+              f"{HBM_TBS} TB/s)")
         print(f"SSD backward at the {name} shape: {bwd_ms:.4f} ms, plain "
               f"(autograd of ref, fwd+bwd - fwd) {plain_bwd:.4f} ms; bound "
               f"{bb[0]:.4f} ms by {bb[1]} "
@@ -1984,7 +2004,8 @@ def _round1_parity(population, cfg, K: int, strategy, bf16_limit, loss_kw,
 
 def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
                 rounds: int = 3, bf16_limit: float | None = 2e-2,
-                strategy=None, eq2=None, check=None) -> dict:
+                strategy=None, eq2=None, check=None,
+                record: str | None = None) -> dict:
     """The port's training path: ``Federation(LMClients(cfg, K), strategy)``
     (``DML()`` by default) at the full width of ``cfg`` (depth as given),
     ``rounds`` fused rounds through the kernels, then Eq. 2 of the final
@@ -2006,8 +2027,9 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
     logits differ in rounding, so their top-k sets can differ at
     near-ties: the SparseDML round 1 of each impl shares its own sets, but
     every gradient of the parity runs on one (idx, logp) computed once,
-    from the kernel path's logits.  Returns the kernels' launch counts over
-    the training run."""
+    from the kernel path's logits.  ``record`` names the path in
+    ``MEASURED``, which keeps its unprofiled round's wall for phase 24.
+    Returns the kernels' launch counts over the training run."""
     from repro_torch.api import DML, Federation, LMClients
     from repro_torch.core import distributed as D
     from repro_torch.configs import get_config
@@ -2149,6 +2171,8 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
     busy_us = sum(us for us, _ in by_name.values())
     n_kernels = sum(cnt for _, cnt in by_name.values())
     steady = walls[-1]
+    if record:
+        MEASURED[record] = steady
     behind = (f"; {positions} positions with the prefixes, "
               f"{positions / steady:.0f} a second"
               if cfg.prefix_tokens else "")
@@ -3066,6 +3090,7 @@ def phase_single(card: str, cfg, B: int = 4, S: int = 512, steps: int = 3,
         toks = batch(i)
         (params, opt, m), secs = _timed(lambda: step(params, opt, toks))
         ce, gn = float(m["ce"]), float(m["grad_norm"])
+        MEASURED["phase 19"] = secs            # the last step's wall
         print(f"step {i}: {secs:.3f} s wall, {B * S / secs:.0f} trained "
               f"tok/s; ce {ce:.4f} grad_norm {gn:.3f}; peak memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
@@ -4159,6 +4184,129 @@ def phase_vision_mesh(card: str, cfg=None, K: int = 5, n_rounds: int = 2,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the dry-run and the roofline against the card, the examples
+
+def _shares(card: str, what: str, counts, wall: float, n_active: int,
+            tokens: int) -> None:
+    """The roofline of a program's meta counts at ``launch.mesh.H100``'s
+    peaks against its measured wall: the bound's share of the wall and the
+    MFU (6 * active params * trained tokens / (wall * bf16 peak))."""
+    from repro_torch.analysis.roofline import roofline_terms
+    t = roofline_terms(counts.flops, counts.bytes, 0.0)
+    mfu = 6 * n_active * tokens / (wall * H100.peak_flops_bf16)
+    print(f"{what} on {card}: counted on the meta device at impl ref "
+          f"{counts.flops / 1e12:.3f} TFLOP (matmul-class), "
+          f"{counts.bytes / 1e9:.1f} GB of op traffic (unfused); at "
+          f"{H100.name}'s published peaks t_compute {t['t_compute']:.4f} s, "
+          f"t_memory {t['t_memory']:.4f} s, t_collective "
+          f"{t['t_collective']:.4f} s, dominant {t['dominant']}; measured "
+          f"wall at impl cuda (unprofiled) {wall:.3f} s: bound "
+          f"{t['t_bound']:.4f} s = {t['t_bound'] / wall:.1%} of the wall; "
+          f"MFU {mfu:.2%} (6 x {n_active / 1e9:.3f} B active params x "
+          f"{tokens} trained tokens / (wall x "
+          f"{H100.peak_flops_bf16 / 1e12:.0f} TFLOP/s))")
+    if not (np.isfinite(mfu) and 0 < mfu < 1 and t["t_bound"] > 0):
+        raise AssertionError(f"{what}: no share of the card ({mfu})")
+
+
+def phase_tooling(card: str, cfg, tcfg, K: int, B: int, S: int,
+                  single_B: int = 4, single_S: int = 512) -> dict:
+    """Phase 24.  (a) Phase 4's round (``make_dml_train_step`` of K
+    ``tcfg`` clients, batch B, public B // 2, seq S, LMClients' AdamW and
+    DML()'s weight) counted on the meta device by ``launch.dryrun.count``
+    and run on the card at impl "ref" under ``FlopCounterMode``: the FLOP
+    counts agree to 1e-6 (one aten program).  (b) The dry-run's peak bytes
+    against the card's ``max_memory_allocated`` over that round, less
+    what was allocated before it: within 0.8-1.25x.  (c) The roofline of
+    phase 4's round and of phase 19's full-depth ``make_train_step`` step
+    (``cfg``, single_B x single_S) against their measured walls.  (d)
+    ``launch.quickstart`` and ``launch.serve_lm`` on the card, whose
+    kernel launches are this path's.  Returns (d)'s launch counts."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.api import DML
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, quickstart, serve_lm
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import tree_leaves
+
+    pub = max(1, B // 2)
+    # LMClients' optimiser at phase 4's 3 rounds; DML()'s Eq.-1 weight
+    kw = dict(opt_cfg=AdamWConfig(lr=1e-3, warmup=5, total_steps=3),
+              kl_weight=DML().kl_weight)
+    fn, args = dryrun.dml_case(tcfg, K, B, pub, S, **kw)
+    t0 = time.perf_counter()
+    with dryrun.count() as meta:
+        out = fn(*args)
+    meta_secs = time.perf_counter() - t0
+    del fn, args, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    fn, args = dryrun.dml_case(tcfg, K, B, pub, S, device="cuda", **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        (_, _, m), secs = _timed(lambda: fn(*args))
+    card_peak = torch.cuda.max_memory_allocated() - base
+    card_flops = fc.get_total_flops()
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(m)
+               if isinstance(t, torch.Tensor)):
+        raise AssertionError("the impl-ref round's metrics are not finite")
+    del fn, args, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = abs(meta.flops - card_flops) / card_flops
+    print(f"phase 4's round (K={K} x {tcfg.name} at {tcfg.n_layers} layers, "
+          f"B {B}, public {pub}, S {S}, impl ref): FLOPs on the meta device "
+          f"{meta.flops} ({meta_secs:.1f} s on the host), on the card under "
+          f"FlopCounterMode {card_flops} ({secs:.2f} s): relative "
+          f"difference {rel:.3g} (limit 1e-6)")
+    if rel > 1e-6:
+        raise AssertionError("the meta count and the card's disagree")
+    ratio = meta.peak_bytes / card_peak
+    print(f"  memory: dry-run peak {meta.peak_bytes / 1e9:.3f} GB (arguments "
+          f"{meta.argument_bytes / 1e9:.3f}, outputs "
+          f"{meta.output_bytes / 1e9:.6f}, temporaries "
+          f"{meta.temp_bytes / 1e9:.3f}) against the card's "
+          f"max_memory_allocated {card_peak / 1e9:.3f} GB over the round: "
+          f"{ratio:.3f}x (limit 0.8-1.25x)")
+    if not 0.8 <= ratio <= 1.25:
+        raise AssertionError("the dry-run's peak memory is off the card's")
+
+    tokens = K * (B + pub) * S
+    _shares(card, f"phase 4's DML round ({tokens} trained tokens)", meta,
+            MEASURED["phase 4"], tcfg.active_param_count(), tokens)
+    fn, args = dryrun.build_case(
+        cfg, ShapeConfig("phase19", single_S, single_B, "train"), "single",
+        "standard")
+    with dryrun.count() as step19:
+        fn(*args)
+    del fn, args
+    _shares(card, f"phase 19's make_train_step step ({cfg.name}, "
+            f"{cfg.n_layers} layers, {single_B} x {single_S})", step19,
+            MEASURED["phase 19"], cfg.active_param_count(),
+            single_B * single_S)
+
+    _kernel_counts(zero=True)                       # the path starts here
+    t0 = time.perf_counter()
+    if quickstart.main([]) != 0:
+        raise AssertionError("launch.quickstart failed")
+    t1 = time.perf_counter()
+    if serve_lm.main([]) != 0:
+        raise AssertionError("launch.serve_lm failed")
+    counts = {n: c for n, c in _kernel_counts().items() if c}
+    print(f"examples on the card: quickstart {t1 - t0:.1f} s, serve_lm "
+          f"{time.perf_counter() - t1:.1f} s; launches {counts}")
+    short = [n for n in ("flash_attention_fwd", "flash_attention_bwd",
+                         "kl_mutual_square_fwd", "kl_mutual_square_bwd",
+                         "ssd_scan_fwd") if not counts.get(n)]
+    if short:
+        raise AssertionError(f"the examples did not run through {short}")
+    return counts
+
+
 def run_cards(card: str, n: int) -> int:
     """``--cards N``: phases 22 and 23 alone over a client mesh of N
     distinct cards (``launch.mesh.make_client_mesh``, one entry a card):
@@ -4209,7 +4357,8 @@ def main() -> int:
     reqs = make_requests(cfg)
     mcfg = get_config("mamba2-780m")   # full width and depth
     MK, MB, MS0 = 2, 2, 1024           # mamba2 serving: 4 chunks a prompt
-    MTK, MTB, MTS = 3, 4, 1024         # the mamba2 training run
+    MTK, MTB, MTS = 3, 4, 1024         # the mamba2 training run,
+    mtcfg = mcfg.replace(n_layers=24)  # at 24 of 48 layers (time)
     mreqs = make_requests(mcfg)
     qcfg = get_config("qwen2-moe-a2.7b")   # full width and depth: serving
     QK, QB, QS0 = 2, 2, 512
@@ -4228,11 +4377,13 @@ def main() -> int:
     LTK, LTB, LTS = 3, 4, 1280
     lcheck = (1, 2, 1)                 # its round-1 parity: 1 layer, K 2, B 1
     lreqs = make_requests(lcfg)
-    # musicgen-medium: full width and depth, serving (K = 2) and training
-    # (K = 3), behind the 64-position conditioning prefix
+    # musicgen-medium: full width, serving (K = 2) at full depth and
+    # training (K = 3) at 24 of 48 layers (time), behind the 64-position
+    # conditioning prefix
     gcfg = get_config("musicgen-medium")
     GK, GB, GS0 = 2, 2, 512
     GTK, GTB, GTS = 3, 4, 512
+    gtcfg = gcfg.replace(n_layers=24)
     greqs = make_requests(gcfg)
     # the mixed fleet of phase 17 (one vocabulary, 151,936): full width,
     # depth cut so that three clients' params and moments fit (~40 GB);
@@ -4322,11 +4473,12 @@ def main() -> int:
     paths = []
     for phase in (
             lambda: phase_serve(env["card"], cfg, reqs, flash_fwd, K, B, S0),
-            lambda: phase_train(env["card"], tcfg, flash, TK, TB, TS),
+            lambda: phase_train(env["card"], tcfg, flash, TK, TB, TS,
+                                record="phase 4"),
             lambda: phase_serve(env["card"], mcfg, mreqs,
                                 ("ssd_scan_fwd", ssd_scan), MK, MB, MS0, 32,
                                 None),
-            lambda: phase_train(env["card"], mcfg,
+            lambda: phase_train(env["card"], mtcfg,
                                 ("ssd_scan_fwd", "ssd_scan_bwd", ssd_scan),
                                 MTK, MTB, MTS, 3, None),
             lambda: phase_train(env["card"], tcfg, flash, TK, TB, TS,
@@ -4349,7 +4501,7 @@ def main() -> int:
             lambda: phase_serve(env["card"], gcfg, greqs, flash_fwd, GK, GB,
                                 GS0, 32, None,
                                 prefix=_random_prefix(gcfg, GB, 0)),
-            lambda: phase_train(env["card"], gcfg, flash, GTK, GTB, GTS, 3,
+            lambda: phase_train(env["card"], gtcfg, flash, GTK, GTB, GTS, 3,
                                 None),
             lambda: phase_hetero(env["card"], hcfgs, HB, HS, HPUB),
             lambda: phase_hetero_small(env["card"], tcfg),
@@ -4359,7 +4511,8 @@ def main() -> int:
             lambda: phase_hetero_small_privacy(env["card"]),
             lambda: phase_sharded_train(env["card"], scfg, 4, HB, HS),
             lambda: phase_sharded_train(env["card"], scfg, 3, HB, HS),
-            lambda: phase_vision_mesh(env["card"])):
+            lambda: phase_vision_mesh(env["card"]),
+            lambda: phase_tooling(env["card"], cfg, tcfg, TK, TB, TS)):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4378,7 +4531,8 @@ def main() -> int:
           "single-model training + decode, VisionNet DP-DML + robust + "
           "attack experiments, the full-width privacy fleet, the reduced "
           "privacy fleet, qwen3-4b sharded DML at K = 4 and K = 3, "
-          "VisionNet on a client mesh): " + json.dumps(paths))
+          "VisionNet on a client mesh, the quickstart and serve_lm examples): "
+          + json.dumps(paths))
     for row in kernels:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)
     print(json.dumps({"kernels": kernels}))

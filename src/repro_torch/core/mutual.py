@@ -151,7 +151,8 @@ def _topk_lax_order(x, k: int):
     """
     vals, idx = torch.topk(x, k, dim=-1)
     n_ge = torch.sum(x >= vals[..., -1:], dim=-1)
-    wide = int(n_ge.max())
+    # the meta device (the dry-run) holds no values, so no ties: k wide
+    wide = k if x.is_meta else int(n_ge.max())
     if wide > k:
         vals, idx = torch.topk(x, wide, dim=-1)
     idx, order = torch.sort(idx, dim=-1)

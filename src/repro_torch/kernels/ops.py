@@ -30,9 +30,10 @@ def _check_impl(impl: str) -> str:
 
 def resolve_device(device=None) -> torch.device:
     """Entry points run on the card: ``None`` means CUDA, and raises when
-    there is none.  Only an explicit ``device="cpu"`` runs on the CPU."""
+    there is none.  Only an explicit ``device="cpu"`` runs on the CPU, and
+    ``device="meta"`` builds shapes without storage (the dry-run)."""
     device = torch.device("cuda" if device is None else device)
-    if device.type == "cpu":
+    if device.type in ("cpu", "meta"):
         return device
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")

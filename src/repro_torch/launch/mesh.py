@@ -1,10 +1,14 @@
 """The client mesh of a run (``repro/launch/mesh.py``'s
-``make_client_mesh`` and ``parse_mesh_spec``).
+``make_client_mesh`` and ``parse_mesh_spec``) and the card's constants for
+the roofline (``HardwareSpec``, ``H100``).
 
-The JAX module's production meshes and hardware constants describe a TPU
-pod and are not ported.
+The JAX module's production meshes describe a TPU pod and are not ported
+yet (the data x model slice); its ``V5E`` numbers are a TPU's and are not
+carried over.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -48,3 +52,27 @@ def parse_mesh_spec(spec: str) -> dict:
             raise ValueError(f"bad mesh spec {spec!r}: expected axis=N")
         out[name.strip()] = int(num)
     return out
+
+
+@dataclass(frozen=True)
+class HardwareSpec:
+    """One card's peaks for the roofline (``analysis.roofline``), with the
+    JAX class's field names: dense FLOP/s a card by dtype, HBM bytes/s,
+    the link's bytes/s one way (``ici_bandwidth``: the term JAX gives the
+    TPU's inter-chip link) and the card's memory."""
+    name: str
+    peak_flops_bf16: float
+    peak_flops_tf32: float
+    peak_flops_fp32: float
+    hbm_bandwidth: float
+    ici_bandwidth: float
+    hbm_bytes: int
+
+
+# NVIDIA's published dense peaks of one H100 SXM at its 700 W limit: bf16
+# and TF32 on the tensor cores, fp32 without them, HBM3, and one direction
+# of NVLink 4 (900 GB/s both ways).  The one source of the card's numbers.
+H100 = HardwareSpec(name="h100_sxm", peak_flops_bf16=989e12,
+                    peak_flops_tf32=495e12, peak_flops_fp32=67e12,
+                    hbm_bandwidth=3.35e12, ici_bandwidth=450e9,
+                    hbm_bytes=80 * 10 ** 9)

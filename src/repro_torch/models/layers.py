@@ -15,14 +15,31 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 # init helpers
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the meta device, which has
+    none: the init helpers draw nothing there and return tensors of the
+    right shapes and dtypes without storage (the dry-run)."""
+    device = torch.device("meta")
+
+
+def make_generator(seed: int, device: torch.device):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; on the meta
+    device a ``MetaGenerator``."""
+    if device.type == "meta":
+        return MetaGenerator()
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def _stacked(lead: Tuple[int, ...], shape: Tuple[int, ...], dtype, device,
              draw) -> torch.Tensor:
     """A (lead + shape) tensor of ``dtype`` filled one ``shape`` slice at a
     time (per client and layer): ``draw(t)`` fills an fp32 slice in place,
     which is then cast into the output.  The fp32 temporary is one slice,
     never the whole stacked leaf (a qwen2-moe expert leaf of two clients is
-    33 GB in fp32)."""
+    33 GB in fp32).  On the meta device nothing is drawn."""
     out = torch.empty(lead + tuple(shape), dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     flat = out.view(-1, *shape)
     tmp = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     for i in range(flat.shape[0]):

@@ -43,7 +43,8 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig,
     s, di, nh, conv_ch = _dims(cfg)
     d_in_proj = 2 * di + 2 * s.n_groups * s.d_state + nh
     dev = gen.device
-    u = torch.rand(lead + (nh,), generator=gen, device=dev)
+    u = (torch.empty(lead + (nh,), device=dev) if dev.type == "meta"
+         else torch.rand(lead + (nh,), generator=gen, device=dev))
     dt = torch.exp(u * (math.log(s.dt_max) - math.log(s.dt_min))
                    + math.log(s.dt_min))
     dt_bias = dt + torch.log(-torch.expm1(-dt))       # softplus^-1(dt)

@@ -38,7 +38,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
-                                       init_mlp, per_client, rms_norm)
+                                       init_mlp, make_generator, per_client,
+                                       rms_norm)
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
@@ -97,11 +98,12 @@ def init_model(seed: int, cfg: ModelConfig, *, n_clients: int = 0,
                device=None) -> Params:
     """Random params with the JAX package's distributions (truncated-normal
     fan-in, embed N(0, 0.02), zero norms), drawn from a ``torch.Generator``
-    seeded with ``seed`` on ``device`` (default: the CUDA device).  The bits
-    differ from JAX's.  ``n_clients`` > 0 stacks that many independent
-    clients on a leading axis."""
+    seeded with ``seed`` on ``device`` (default: the CUDA device); on
+    ``device="meta"`` nothing is drawn.  The bits differ from JAX's.
+    ``n_clients`` > 0 stacks that many independent clients on a leading
+    axis."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = make_generator(seed, device)
     lead = (n_clients,) if n_clients else ()
     params: Params = {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), cfg.pdtype(),
