@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA H100.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --cards 4     # phases 22 and 23 over 4 cards
+    python3 chip_smoke.py --cards 4     # phases 22, 23 and 25 over 4 cards
 
 Phases, each fatal on failure:
   1. environment and kernel build: the card's name and power limit, torch
@@ -35,8 +35,8 @@ Phases, each fatal on failure:
      gathered J = 4 with zero self weights (K = 3 adds a pad column of
      zero weight; K = 4 weights every column, and there the pair kernels'
      rows are timed);
-  3. the serving path at the full width of qwen3-4b: a K=2 client ensemble
-     from seeded random weights serves ``generate``, continuous batching
+  3. the serving path at the full width and depth of qwen3-4b: a K=2
+     client ensemble from seeded random weights serves ``generate``, continuous batching
      and route mode, and the flash kernel's launch count shows that it ran
      through it; the first token's and a decode step's device busy time
      against their wall time;
@@ -47,10 +47,12 @@ Phases, each fatal on failure:
      reads out Eq. 2 of the final public logits through ``mutual_kl``, and
      round 1 and each client's gradient are held against the same round at
      ``impl="ref"``;
-  5. phase 3 for K=2 full-width, full-depth (48-layer) mamba2-780m clients
-     on 1024-token prompts, through the SSD forward kernel;
-  6. phase 4 for K=3 full-width mamba2-780m clients at 24 of its 48
-     layers, seq 1024 (18,432 trained tokens a round), through the SSD
+  5. phase 3 for K=2 full-width mamba2-780m clients at 12 of its 48
+     layers (for time) on 1024-token prompts, through the SSD forward
+     kernel;
+  6. phase 4 for K=3 full-width mamba2-780m clients at 6 of its 48
+     layers (for time), seq 1024 (18,432 trained tokens a round), through
+     the SSD
      forward and backward kernels and the square pair-KL kernels;
   7. phase 4 with ``SparseDML(k=64)``: each client shares the top-64
      (index, log-prob) sets of its public logits, and the Eq.-2 term runs
@@ -75,10 +77,11 @@ Phases, each fatal on failure:
      Table-II analogue.  No kernel of this repo lies on this path (cuDNN
      convolutions and cuBLAS matmuls in fp32, TF32 off): every launch
      count must stay 0.
-  10. phase 3 for K=2 clients of qwen2-moe-a2.7b at full width and depth
-     (d 2048, 16 heads of 128 with QKV bias, 60 experts top-4 of width 1408
-     and 4 shared, vocab 151,936, 24 layers: 14.32 B params a client, 57.3
-     GB for two in bf16), through the flash forward; its MoE FFNs route in
+  10. phase 3 for K=2 clients of qwen2-moe-a2.7b at full width (d 2048,
+     16 heads of 128 with QKV bias, 60 experts top-4 of width 1408 and 4
+     shared, vocab 151,936), 6 of its 24 layers (for time; at
+     24 layers 14.32 B params a client, 57.3 GB for two in bf16), through
+     the flash forward; its MoE FFNs route in
      groups of min(256, S) tokens that must tile a prompt, so every prompt
      is at most 256 tokens or a multiple of 256, as the JAX engine's
      prefill at the request's own length requires; a decode step runs all
@@ -95,9 +98,10 @@ Phases, each fatal on failure:
      layers (57 GB in bf16): the flash forward at GQA 6:1, the expert
      products at their widest; the prefill parity on a copy of the first
      layer of both clients;
-  13. phase 3 for K=2 llava-next-mistral-7b clients at full width and depth
-     (d 4096, 32/8 heads of 128, d_ff 14,336, vocab 32,000, 32 layers:
-     7.24 B params a client, 29 GB for two): each prompt of 1536 tokens
+  13. phase 3 for K=2 llava-next-mistral-7b clients at full width (d 4096,
+     32/8 heads of 128, d_ff 14,336, vocab 32,000), 8 of its 32 layers
+     (for time; at 32 layers 7.24 B params a client, 29 GB for
+     two): each prompt of 1536 tokens
      stands behind its own 2880-position image prefix of dim 1024 (seeded
      N(0, 1), through the projector), so P + S = 4416 is past the 4096
      window: the flash forward runs windowed and decode wraps the 4096-key
@@ -114,18 +118,20 @@ Phases, each fatal on failure:
      same seed cut to 1 layer, K = 2, batch 1 (public 1), the window
      still biting: the plain attention's fp32 scores for the population's
      18 sequences would be ~40 GB a layer;
-  15. phase 3 for K=2 musicgen-medium clients at full width and depth (d
-     1536, 24/24 heads of 64, vocab 2048, 48 layers: 1.82 B params a
-     client) behind a 64-position conditioning prefix of dim 768; the
-     prefill parity on the whole population;
-  16. phase 4 for K=3 musicgen-medium clients at full width, 24 of its 48
-     layers (0.914 B params a client), batch 4, public 2, seq 512, round 1
+  15. phase 3 for K=2 musicgen-medium clients at full width (d 1536, 24/24
+     heads of 64, vocab 2048), 6 of its 48 layers (for time),
+     behind a 64-position conditioning prefix of dim 768; the prefill
+     parity on the whole population;
+  16. phase 4 for K=3 musicgen-medium clients at full width, 6 of its 48
+     layers (for time), batch 4, public 2,
+     seq 512, round 1
      and the gradients held on the whole population;
   17. a mixed-architecture federation at full width,
-     ``Federation(HeteroClients(...), strategy)`` of qwen3-4b (4 of 36
-     layers), qwen2-moe-a2.7b (1 of 24) and qwen3-8b (2 of 36), one
-     vocabulary (151,936), ~40 GB of params and AdamW moments: folds of 8
-     sequences of 512 (2 local steps of batch 4 a client), public 2; 3
+     ``Federation(HeteroClients(...), strategy)`` of qwen3-4b (2 of 36
+     layers, for time), qwen2-moe-a2.7b (1 of 24) and qwen3-8b
+     (2 of 36), one vocabulary (151,936), ~40 GB of params and AdamW
+     moments with a 4-layer qwen3-4b (less at 2): folds of 8 sequences of 512 (2
+     local steps of batch 4 a client), public 2; 3
      rounds of ``DML()`` (each client's Eq. 2 against the 2 received
      logits through the pair kernels: M launches each way a round, no
      square kernel), one at participation 2 (the absent client's params
@@ -153,7 +159,8 @@ Phases, each fatal on failure:
      at its sizes through the port (directions asserted, its margins
      printed); no kernel launch;
   21. a mixed fleet of four at full width (phase 17's three and a second
-     4-layer qwen3-4b, ~52 GB), client 3 sign-flipping: 3 rounds of
+     qwen3-4b, ~52 GB with 4-layer qwen3-4b clients), client 3
+     sign-flipping: 3 rounds of
      ``DPDML(1)`` (the pair kernels against the noised stack, J = 3: 4
      launches each way a round; the third profiled), 2 of
      ``TrimmedDML(trim=1)`` and 1 of ``MedianDML()`` (no Eq.-2 kernel);
@@ -182,7 +189,27 @@ Phases, each fatal on failure:
      against their measured walls (the bound's share of the wall, the
      MFU); then ``launch.quickstart`` and ``launch.serve_lm`` on the card
      (the flash, square Eq.-2 and SSD kernels launched).
-With ``--cards N`` only phases 22 (K = 4) and 23 run, over N distinct
+  25. the data x model mesh (``sharding.use_mesh``, DTensor programs):
+     four ranks as a (data 2, model 2) DeviceMesh, sharing the card over
+     gloo (which collectives gloo takes on CUDA tensors is checked and
+     printed; the functional ones DTensor calls go through gloo's eager
+     ones, ``_gloo_cuda_collectives``), or a card each over
+     NCCL with ``--cards 4``; full-width qwen3-4b at 2 layers, params drawn
+     from seed 0 and kept as shards by their logical axes: 3
+     ``make_train_step`` steps, one fused DML round (K = 2) and one
+     SparseDML round (k = 64, the vocab-sharded top-k), all at impl "cuda"
+     (the flash kernels on each rank's (batch, heads) shard, the square
+     Eq.-2 and sparse-KL kernels on the vocab-gathered logits), each held
+     against the same program run unsharded on the card by rank 0: metrics
+     within relative 2e-2, and leaf by leaf each update (after - before)
+     and first moment within
+     ``DM_UPDATE_LIMIT`` and ``DM_MU_LIMIT``, limits that the same program
+     on half of every batch (the control) must exceed on every leaf;
+     per-rank peak memory, the walls and ``CommDebugMode``'s
+     collective counts printed; then the ``pod``-mesh dry-run (data 16 x
+     model 16, the fake process group) of phase 4's round and phase 19's
+     step in a subprocess, their per-card counts printed;
+With ``--cards N`` only phases 22 (K = 4), 23 and 25 run, over N distinct
 cards.
 jamba-1.5-large-398b does not run on the card: one full-width period (8
 layers, 4 MoE FFNs of 16 experts of width 24,576) holds ~44 B params, 88
@@ -204,6 +231,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -4307,11 +4335,518 @@ def phase_tooling(card: str, cfg, tcfg, K: int, B: int, S: int,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the data x model mesh
+
+DM_COLLECTIVES = ("all_gather_into_tensor", "all_reduce",
+                  "reduce_scatter_tensor", "all_to_all_single")
+# phase 25's limits on each leaf, sharded against unsharded: the relative
+# norm error of the update (after - before) and of the first moment.  On
+# the H100, full-width 2-layer qwen3-4b in bf16, the sound programs read at
+# most 0.149 and 0.0197 a leaf and the half-batch control at least 0.635
+# and 0.509 (Adam's first steps are near sign(g): a gradient near 0 whose
+# sign flips moves a whole step); each limit is near the geometric mean
+DM_UPDATE_LIMIT = 0.3
+DM_MU_LIMIT = 0.1
+
+
+def _dm_collectives(dev) -> dict:
+    """Which of the four collectives the process group takes on tensors of
+    ``dev``, each checked against its expected values: "ok", or the
+    refusal's first line."""
+    import torch.distributed as dist
+    n, r = dist.get_world_size(), dist.get_rank()
+    x = torch.arange(2 * n, dtype=torch.float32, device=dev) + 100 * r
+    ranks = torch.arange(n, dtype=torch.float32, device=dev)
+
+    def gather():
+        out = torch.empty(2 * n * n, device=dev)
+        dist.all_gather_into_tensor(out, x)
+        want = (torch.arange(2 * n, device=dev)[None] + 100 * ranks[:, None])
+        return torch.equal(out, want.reshape(-1))
+
+    def reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return torch.equal(y, n * torch.arange(2 * n, device=dev)
+                           + 100 * ranks.sum())
+
+    def scatter():
+        out = torch.empty(2, device=dev)
+        dist.reduce_scatter_tensor(out, x)
+        return torch.equal(out, n * torch.arange(2 * r, 2 * r + 2,
+                                                 device=dev)
+                           + 100 * ranks.sum())
+
+    def to_all():
+        out = torch.empty(2 * n, device=dev)
+        dist.all_to_all_single(out, x)
+        want = torch.arange(2 * r, 2 * r + 2, device=dev)[None] \
+            + 100 * ranks[:, None]
+        return torch.equal(out, want.reshape(-1))
+
+    out = {}
+    for name, fn in zip(DM_COLLECTIVES, (gather, reduce, scatter, to_all)):
+        try:
+            out[name] = "ok" if fn() else "wrong values"
+        except Exception as e:  # noqa: BLE001 - a refusal is the answer
+            out[name] = f"{type(e).__name__}: {e}".splitlines()[0][:160]
+    return out
+
+
+def _full(v):
+    """A metric as a host float tensor: a DTensor gathered (every rank
+    takes part), a plain tensor copied."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(v, DTensor):
+        v = v.full_tensor()
+    return v.detach().float().cpu()
+
+
+def _dm_paths(cfg, K: int, B: int, S: int, sparse_k: int, steps: int):
+    """The three programs of phase 25 as (name, build, run): ``build(dev,
+    mesh)`` draws the params (seed 0, on the card) and, with a mesh,
+    distributes them by their logical axes; ``run(params, dev, mesh,
+    half=False)`` steps them from zero moments and returns (params,
+    optimizer state, metrics per step, step walls).  ``half`` runs the
+    program on the first half of every batch: the control that the
+    comparison must reject (a gradient that misses half the rows, as a
+    partial sum left unreduced over the data axis would)."""
+    from repro_torch import sharding as shd
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import steps as st
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    # LMClients' optimiser and DML()'s Eq.-1 weight, as phase 24's
+    opt_cfg = AdamWConfig(lr=1e-3, warmup=5, total_steps=3)
+    pub = max(1, B // 2)
+    gen = torch.Generator().manual_seed(25)
+    V = cfg.vocab_size
+    data = {"train": [torch.randint(0, V, (B, S), generator=gen)
+                      for _ in range(steps)],
+            "tokens": torch.randint(0, V, (K, B, S), generator=gen),
+            "public": torch.randint(0, V, (pub, S), generator=gen)}
+
+    def put(t, axes, dev, mesh):
+        t = t.to(dev, torch.int32)
+        return shd.distribute(t, axes, mesh) if mesh is not None else t
+
+    def build(stacked):
+        def fn(dev, mesh):
+            if stacked:
+                params = D.stacked_init(0, cfg, K, device=dev)
+                axes = D.stacked_logical_axes(cfg)
+            else:
+                params = tfm.init_model(0, cfg, device=dev)
+                axes = tfm.logical_axes(cfg)
+            if mesh is not None:
+                params = shd.distribute_tree(params, axes, mesh)
+            return params
+        return fn
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def train(params, dev, mesh, half=False):
+        step = st.make_train_step(cfg, opt_cfg, impl="cuda")
+        opt = adamw_init(params)
+        ms, walls = [], []
+        for toks in data["train"]:
+            x = put(toks[:B // 2] if half else toks, ("batch", "seq"), dev,
+                    mesh)
+            (params, opt, m), secs = timed(lambda: step(params, opt, x))
+            ms.append({"ce": _full(m["ce"]), "grad_norm":
+                       _full(m["grad_norm"])})
+            walls.append(secs)
+        return params, opt, ms, walls
+
+    def dml(sk):
+        def run(params, dev, mesh, half=False):
+            step = D.make_dml_train_step(cfg, opt_cfg, sparse_k=sk,
+                                         impl="cuda")
+            opt = adamw_init(params)
+            toks, public = data["tokens"], data["public"]
+            if half:
+                toks, public = toks[:, :B // 2], public[:max(1, pub // 2)]
+            x = put(toks, ("client", "batch", "seq"), dev, mesh)
+            p = put(public, ("batch", "seq"), dev, mesh)
+            (params, opt, m), secs = timed(lambda: step(params, opt, x, p))
+            return params, opt, [{k: _full(m[k]) for k in (
+                "private_loss", "public_ce", "kld_avg", "grad_norm")}], [secs]
+        return run
+
+    return [("train", build(False), train),
+            ("dml", build(True), dml(0)),
+            ("sparse_dml", build(True), dml(sparse_k))]
+
+
+# the library that routes the functional collectives of CUDA tensors
+# through gloo's eager collectives (``_gloo_cuda_collectives``), once
+_GLOO_CUDA = []
+
+
+def _gloo_cuda_collectives() -> None:
+    """DTensor moves data with ``torch.distributed``'s functional
+    collectives (``_c10d_functional.*`` and ``wait_tensor``); over gloo on
+    CUDA tensors their ``wait_tensor`` crashes the process, while gloo's
+    eager collectives take CUDA tensors (staging them through the host).
+    So for CUDA tensors each functional collective is written here from
+    the eager one of the same name, run synchronously on the group the op
+    names (an average as a sum over the group's size: gloo has no AVG),
+    and ``wait_tensor`` returns its input.  The data never leaves the
+    card but through gloo's own staging."""
+    if _GLOO_CUDA:
+        return
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    ops = {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.SUM,
+           "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
+           "product": dist.ReduceOp.PRODUCT}
+
+    def all_reduce(x, op, group):
+        pg = _resolve_process_group(group)
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, op=ops[op.lower()], group=pg)
+        return y / pg.size() if op.lower() == "avg" else y
+
+    def all_gather_into_tensor(x, size, group):
+        out = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(),
+                                    group=_resolve_process_group(group))
+        return out
+
+    def reduce_scatter_tensor(x, op, size, group):
+        pg = _resolve_process_group(group)
+        out = x.new_empty((x.shape[0] // size,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x.contiguous(), op=ops[op.lower()],
+                                   group=pg)
+        return out / size if op.lower() == "avg" else out
+
+    def all_to_all_single(x, out_sizes, in_sizes, group):
+        pg = _resolve_process_group(group)
+        rows = sum(out_sizes) if out_sizes else x.shape[0]
+        out = x.new_empty((rows,) + tuple(x.shape[1:]))
+        dist.all_to_all_single(out, x.contiguous(), out_sizes or None,
+                               in_sizes or None, group=pg)
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for fn in (all_reduce, all_gather_into_tensor, reduce_scatter_tensor,
+               all_to_all_single):
+        lib.impl(fn.__name__, fn, "CUDA")
+    lib.impl("wait_tensor", lambda t: t, "CUDA")
+    _GLOO_CUDA.append(lib)
+
+
+
+
+def _on_rank0(t, group, dtype=None):
+    """The DTensor ``t`` whole on rank 0 (None on the others), cast to
+    ``dtype`` if given: each rank's shard goes to rank 0 once, through the
+    host over ``group`` (gloo), a quarter of the traffic of
+    ``full_tensor``'s all-gather."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import local_offset
+    mesh = t.device_mesh
+    local = t.to_local().detach()
+    local = (local if dtype is None else local.to(dtype)).cpu().contiguous()
+    first = dist.get_rank() == 0
+    parts = ([torch.empty_like(local) for _ in range(dist.get_world_size())]
+             if first else None)
+    dist.gather(local, parts, dst=0, group=group)
+    if not first:
+        return None
+    full = torch.empty(t.shape, dtype=local.dtype)
+    for r, part in enumerate(parts):
+        coord = [int(c) for c in (mesh.mesh == r).nonzero()[0]]
+        full[tuple(slice(o, o + n) for o, n in
+                   zip(local_offset(t, coord), part.shape))] = part
+    return full
+
+
+def _dm_rank(rank: int, world: int, store: str, out_dir: str, backend: str,
+             cfg, K: int, B: int, S: int, sparse_k: int, steps: int) -> None:
+    """One rank of phase 25: the three programs on the (data 2, model 2)
+    mesh at impl "cuda" under ``CommDebugMode``, each program's launches
+    counted from 0 and read right after it; then rank 0 runs each again
+    unsharded on its card from the same seeded draw, and once more on half
+    of every batch (the control), and compares leaf by leaf: each leaf's
+    update (after - before) and first moment (the clipped gradients'
+    average), the sharded leaf sent to rank 0 whole.  Writes its record to
+    ``out_dir/rank<r>.json``; any failure raises, so the rank exits
+    non-zero."""
+    import faulthandler
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch import sharding as shd
+    from repro_torch.checkpoint import flatten
+    from repro_torch.launch.mesh import make_card_mesh
+
+    faulthandler.enable()           # a crashing rank says where
+
+    # four ranks share the card's 80 GB: whole blocks go back between the
+    # programs
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        rec = {"rank": rank, "device": str(dev), "backend": backend,
+               "collectives": _dm_collectives(dev)}
+        if backend == "gloo":
+            _gloo_cuda_collectives()
+        mesh = make_card_mesh((2, 2), ("data", "model"))
+        host = dist.new_group(backend="gloo")   # the comparison's sends
+        for name, build, run in _dm_paths(cfg, K, B, S, sparse_k, steps):
+            params = build(dev, mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _kernel_counts(zero=True)
+            with shd.use_mesh(mesh), CommDebugMode() as comm:
+                params, opt, gms, walls = run(params, dev, mesh)
+            launches = {n: c for n, c in _kernel_counts().items() if c}
+            rec[name] = {
+                "walls": walls, "launches": launches,
+                "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                "comm": {str(k).split(".")[-1]: v
+                         for k, v in comm.get_comm_counts().items()},
+                "metrics": [{k: v.tolist() for k, v in m.items()}
+                            for m in gms]}
+            mu = opt["mu"]
+            del opt
+            # rank 0: the draw every run starts from, the unsharded run
+            # and the control; their params and first moments kept
+            t_ref = time.perf_counter()
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+            if rank == 0:
+                before = flatten(build(dev, None))
+                want, w_opt, ms, ref_walls = run(build(dev, None), dev, None)
+                rec[name].update(ref_walls=ref_walls, metric_rel={
+                    k: max(float(((g[k] - w[k]).abs()
+                                  / w[k].abs().clamp(min=1e-6)).max())
+                           for g, w in zip(gms, ms)) for k in ms[0]})
+                want, w_mu = flatten(want), flatten(w_opt["mu"])
+                del w_opt
+                gc.collect()
+                torch.cuda.empty_cache()  # the reference's activations
+                c_p, c_opt, _, _ = run(build(dev, None), dev, None,
+                                       half=True)
+                c_p, c_mu = flatten(c_p), flatten(c_opt["mu"])
+                del c_opt
+                rec[name]["control"] = {
+                    "update": {k: _rel(c_p[k].float() - before[k],
+                                           want[k].float() - before[k])
+                               for k in want},
+                    "mu": {k: _rel(c_mu[k], w_mu[k]) for k in w_mu}}
+                del c_p, c_mu
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+            t_cmp = time.perf_counter()
+            upd, mus = {}, {}
+            got_mu = flatten(mu)
+            for k, t in flatten(params).items():
+                p = _on_rank0(t, host)
+                # the moments cross in bf16, half the bytes: the rounding
+                # moves a reading by at most 2**-8 of the moment's norm
+                m = _on_rank0(got_mu[k], host, torch.bfloat16)
+                if rank == 0:
+                    p, m = p.to(dev), m.to(dev)
+                    w, b = want[k].float(), before[k].float()
+                    upd[k] = _rel(p.float() - b, w - b)
+                    mus[k] = _rel(m, w_mu[k])
+                del p, m
+            if rank == 0:
+                rec[name].update(update_rel=upd, mu_rel=mus)
+                del want, w_mu, before
+            rec[name]["secs"] = {"reference": t_cmp - t_ref,
+                                 "compare": time.perf_counter() - t_cmp}
+            del params, mu, got_mu
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_data_model(card: str, cfg, K: int = 2, B: int = 4, S: int = 512,
+                     sparse_k: int = 64, steps: int = 3,
+                     world: int = 4) -> dict:
+    """Phase 25: the data x model mesh.  Four ranks form a (data 2, model
+    2) DeviceMesh (``launch.mesh.make_card_mesh``): over NCCL when each
+    rank has its own card, else over gloo with the ranks sharing the one
+    card (NCCL refuses two ranks on one device); which collectives gloo
+    takes on CUDA tensors is checked first and printed.  Each rank draws
+    ``cfg``'s params from seed 0 on its card and keeps its shards by the
+    logical axes (``sharding.distribute_tree``); under
+    ``sharding.use_mesh`` it runs ``steps`` ``launch.steps.make_train_step``
+    steps of B x S, one fused DML round of K clients
+    (``core.distributed.make_dml_train_step``: private B, public B // 2)
+    and one SparseDML round at k = ``sparse_k`` (its top-k through the
+    vocab-sharded two-stage ``_distributed_topk``), all at impl "cuda":
+    the flash kernels on each rank's (batch, heads) shard, the square
+    Eq.-2 and sparse-KL kernels on the vocab-gathered logits.  Rank 0 then
+    runs each program unsharded on its card from the same seeded state;
+    the limits: metrics within relative 2e-2, and on every leaf (the
+    gathered shards against the unsharded tree) the relative norm error
+    of the update (after - before) within ``DM_UPDATE_LIMIT`` and of the
+    first moment within ``DM_MU_LIMIT``; the control (rank 0's run on half
+    of every batch) must exceed both on every leaf.  Prints each rank's peak memory,
+    the walls of both and the collectives ``CommDebugMode`` counted; then
+    the ``pod``-mesh dry-run of phase 4's round and phase 19's step in a
+    subprocess.  Returns the launches summed over the ranks."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= world else "gloo"
+    # the pod dry-run counts on the host's CPU meanwhile
+    pod = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--pod-dryrun"], stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            store = str(Path(tmp, "store"))
+            t0 = time.perf_counter()
+            mp.start_processes(_dm_rank, args=(world, store, tmp, backend, cfg,
+                                               K, B, S, sparse_k, steps),
+                               nprocs=world, join=True, start_method="spawn")
+            secs = time.perf_counter() - t0
+            recs = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                    for r in range(world)]
+        r0 = recs[0]
+        print(f"phase 25 on {card}: {world} ranks as (data 2, model 2) over "
+              f"{backend} on {min(n_cards, world)} card(s), {secs:.1f} s with "
+              f"the spawns; {cfg.name} at {cfg.n_layers} of its layers, full "
+              f"width; collectives on CUDA tensors: {r0['collectives']}")
+        launches: dict = {}
+        bad = []
+        for name in ("train", "dml", "sparse_dml"):
+            row = r0[name]
+            for r in recs:
+                for k, v in r[name]["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            peaks = [f"{r[name]['peak_bytes'] / 1e9:.2f}" for r in recs]
+            print(f"  {name}: walls sharded {_fmt(row['walls'], '.3f')} s, "
+                  f"unsharded {_fmt(row['ref_walls'], '.3f')} s; peak GB per "
+                  f"rank {peaks}; collectives (rank 0) {row['comm']}; "
+                  f"launches (rank 0) {row['launches']}; metrics "
+                  f"{row['metrics'][-1]}; relative errors "
+                  f"{row['metric_rel']}; rank 0's seconds {row['secs']}")
+            bad += [f"{name} {k}" for k, v in row["metric_rel"].items()
+                    if not v <= 2e-2]
+            for what, limit in (("update", DM_UPDATE_LIMIT),
+                                ("mu", DM_MU_LIMIT)):
+                got, ctl = row[f"{what}_rel"], row["control"][what]
+                worst, easiest = max(got, key=got.get), min(ctl, key=ctl.get)
+                print(f"    {what} by leaf (limit {limit:g}): sharded max "
+                      f"{got[worst]:.3e} ({worst}), half-batch control min "
+                      f"{ctl[easiest]:.3e} ({easiest}); sharded "
+                      + json.dumps({k: float(f"{v:.3e}")
+                                    for k, v in got.items()})
+                      + "; control "
+                      + json.dumps({k: float(f"{v:.3e}")
+                                    for k, v in ctl.items()}))
+                bad += [f"{name} {what} {k}" for k, v in got.items()
+                        if not v <= limit]
+                bad += [f"{name} control {what} {k} passed" for k, v in
+                        ctl.items() if not v > limit]
+        if bad:
+            raise AssertionError(f"phase 25: {bad}")
+        need = ("flash_attention_fwd", "flash_attention_bwd",
+                "kl_mutual_square_fwd", "kl_mutual_square_bwd",
+                "sparse_kl_fwd", "sparse_kl_bwd")
+        short = [n for n in need if not launches.get(n)]
+        if short:
+            raise AssertionError(f"phase 25 did not run through {short}")
+        _pod_dryrun(card, pod)
+        return launches
+    finally:
+        if pod.poll() is None:           # a failure before its read
+            pod.kill()
+            pod.wait()
+
+
+def pod_dryrun() -> int:
+    """``--pod-dryrun`` (phase 25's subprocess): phase 4's round and phase
+    19's step counted per card on the ``pod`` mesh (data 16 x model 16 on
+    the fake process group, meta tensors, impl "ref"), one JSON line each."""
+    from repro_torch.api import DML
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import specs as S
+    from repro_torch.optim import AdamWConfig
+
+    cfg = get_config("qwen3-4b")
+    mesh = dryrun.production_mesh("pod")
+    K, B, S_, pub = 3, 4, 512, 2         # phase 4's round
+    fn, args = dryrun.dml_case(
+        cfg.replace(n_layers=4), K, B, pub, S_,
+        opt_cfg=AdamWConfig(lr=1e-3, warmup=5, total_steps=3),
+        kl_weight=DML().kl_weight)
+    p = S.model_state_axes(cfg, K)
+    axes = (p, S.opt_logical_axes(p), ("client", "batch", "seq"),
+            ("batch", "seq"), None, None)
+    cases = [("phase 4's round (K=3 x qwen3-4b at 4 layers, B 4, public "
+              "2, S 512)", fn, args, axes, dryrun.mesh_rules("dml"))]
+    shape = ShapeConfig("phase19", 512, 4, "train")
+    fn, args = dryrun.build_case(cfg, shape, "pod", "standard")
+    cases.append(("phase 19's step (qwen3-4b, 36 layers, 4 x 512)", fn, args,
+                  dryrun.case_axes(cfg, shape, "standard"), {}))
+    for what, fn, args, axes, rules in cases:
+        t0 = time.perf_counter()
+        c = dryrun.count_sharded(fn, args, axes, mesh, rules)
+        print(json.dumps({"case": what, "cards": 256,
+                          "flops_per_card": c.flops,
+                          "bytes_per_card": c.bytes,
+                          "peak_bytes_per_card": c.peak_bytes,
+                          "collectives": {k: v for k, v in
+                                          c.collectives.items()
+                                          if k != "by_axis"},
+                          "host_s": round(time.perf_counter() - t0, 1)}))
+        del fn, args
+    return 0
+
+
+def _pod_dryrun(card: str, proc) -> None:
+    """Reads ``proc``, the ``--pod-dryrun`` subprocess (the ``pod``-mesh
+    dry-run of phase 4's round and phase 19's step: data 16 x model 16 on
+    the fake process group, meta tensors), and prints its per-card
+    counts; its failure fails the phase."""
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the pod dry-run failed:\n{err[-2000:]}")
+    lines = [x for x in out.splitlines() if x.startswith("{")]
+    if len(lines) != 2:
+        raise AssertionError(f"the pod dry-run printed {out[-2000:]}")
+    for line in lines:
+        print(f"  pod dry-run on {card}'s host: {line}")
+
+
 def run_cards(card: str, n: int) -> int:
     """``--cards N``: phases 22 and 23 alone over a client mesh of N
     distinct cards (``launch.mesh.make_client_mesh``, one entry a card):
     qwen3-4b at phase 22's width and depth with K = 4 (K_loc 2: a client
-    and a dummy slot a card), and the VisionNet protocol with K = 5."""
+    and a dummy slot a card), and the VisionNet protocol with K = 5; then
+    phase 25, whose four ranks take a card each over NCCL when four are
+    visible."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_client_mesh
     devices = make_client_mesh(n).devices     # raises past the visible
@@ -4319,13 +4854,15 @@ def run_cards(card: str, n: int) -> int:
     paths = []
     for phase in (lambda: phase_sharded_train(card, scfg, 4, 4, 512,
                                               devices=devices),
-                  lambda: phase_vision_mesh(card, devices=devices)):
+                  lambda: phase_vision_mesh(card, devices=devices),
+                  lambda: phase_data_model(card, scfg)):
         gc.collect()
         torch.cuda.empty_cache()
         _reset_peaks(devices)
         paths.append(phase())
     print(f"launches on each path (qwen3-4b sharded DML at K = 4, "
-          f"VisionNet) over {n} cards: " + json.dumps(paths))
+          f"VisionNet, qwen3-4b on a (data 2, model 2) mesh) over {n} cards: "
+          + json.dumps(paths))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4336,10 +4873,14 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cards", type=int, default=0,
-                    help="run only the client-mesh phases (22, 23) over "
-                         "this many distinct cards")
+                    help="run only the mesh phases (22, 23, 25) over this "
+                         "many distinct cards")
+    ap.add_argument("--pod-dryrun", action="store_true",
+                    help=argparse.SUPPRESS)   # phase 25's subprocess
     args = ap.parse_args()
     check_cuda()
+    if args.pod_dryrun:
+        return pod_dryrun()
     env = phase_env()
     if args.cards:
         return run_cards(env["card"], args.cards)
@@ -4358,7 +4899,8 @@ def main() -> int:
     mcfg = get_config("mamba2-780m")   # full width and depth
     MK, MB, MS0 = 2, 2, 1024           # mamba2 serving: 4 chunks a prompt
     MTK, MTB, MTS = 3, 4, 1024         # the mamba2 training run,
-    mtcfg = mcfg.replace(n_layers=24)  # at 24 of 48 layers (time)
+    mtcfg = mcfg.replace(n_layers=6)   # at 6 of 48 layers (time)
+    mscfg = mcfg.replace(n_layers=12)  # serving at 12 of 48 (time)
     mreqs = make_requests(mcfg)
     qcfg = get_config("qwen2-moe-a2.7b")   # full width and depth: serving
     QK, QB, QS0 = 2, 2, 512
@@ -4368,7 +4910,7 @@ def main() -> int:
     # dbrx: two clients of 4 of its 40 layers hold 57 GB in bf16
     dcfg = get_config("dbrx-132b").replace(n_layers=4)
     dreqs = make_requests(dcfg)
-    # llava-next: serving at full width and depth (K = 2, 29 GB) on prompts
+    # llava-next: serving at full width, 8 of 32 layers (time), on prompts
     # of 1536 behind the 2880-position image prefix, past the 4096 window;
     # training at 4 of 32 layers (K = 3), seq 1280: P + S = 4160 > 4096
     lcfg = get_config("llava-next-mistral-7b")
@@ -4377,24 +4919,24 @@ def main() -> int:
     LTK, LTB, LTS = 3, 4, 1280
     lcheck = (1, 2, 1)                 # its round-1 parity: 1 layer, K 2, B 1
     lreqs = make_requests(lcfg)
-    # musicgen-medium: full width, serving (K = 2) at full depth and
-    # training (K = 3) at 24 of 48 layers (time), behind the 64-position
-    # conditioning prefix
+    # musicgen-medium: full width, serving (K = 2) and training (K = 3) at
+    # 6 of 48 layers (time), behind the 64-position conditioning prefix
     gcfg = get_config("musicgen-medium")
     GK, GB, GS0 = 2, 2, 512
     GTK, GTB, GTS = 3, 4, 512
-    gtcfg = gcfg.replace(n_layers=24)
+    gtcfg = gcfg.replace(n_layers=6)
     greqs = make_requests(gcfg)
+    # phase 22's sharded fleet and phase 25's mesh: full width at 2 of 36
+    # layers, so that four clients' params, moments, one entry's gradients
+    # and the round's activations stay under ~70 GB
+    scfg = cfg.replace(n_layers=2)
     # the mixed fleet of phase 17 (one vocabulary, 151,936): full width,
     # depth cut so that three clients' params and moments fit (~40 GB);
-    # phase 21's fleet of four adds a second qwen3-4b client (~52 GB)
-    hcfgs = (tcfg, qtcfg, get_config("qwen3-8b").replace(n_layers=2))
-    pcfgs = hcfgs + (tcfg,)
+    # phase 21's fleet of four adds a second qwen3-4b client (~52 GB);
+    # qwen3-4b at 2 layers (time)
+    hcfgs = (scfg, qtcfg, get_config("qwen3-8b").replace(n_layers=2))
+    pcfgs = hcfgs + (scfg,)
     HB, HS, HPUB = 4, 512, 2
-    # phase 22's sharded fleet: full width at 2 of 36 layers, so that four
-    # clients' params, moments, one entry's gradients and the round's
-    # activations stay under ~70 GB
-    scfg = cfg.replace(n_layers=2)
 
     def shapes(c):
         return (c.n_heads, c.n_kv_heads, c.head_dim_)
@@ -4475,7 +5017,7 @@ def main() -> int:
             lambda: phase_serve(env["card"], cfg, reqs, flash_fwd, K, B, S0),
             lambda: phase_train(env["card"], tcfg, flash, TK, TB, TS,
                                 record="phase 4"),
-            lambda: phase_serve(env["card"], mcfg, mreqs,
+            lambda: phase_serve(env["card"], mscfg, mreqs,
                                 ("ssd_scan_fwd", ssd_scan), MK, MB, MS0, 32,
                                 None),
             lambda: phase_train(env["card"], mtcfg,
@@ -4487,18 +5029,20 @@ def main() -> int:
                                      sparse_kl)),
             lambda: phase_weights(env["card"], tcfg, flash, TK, TB, TS),
             lambda: phase_vision(env["card"]),
-            lambda: phase_serve(env["card"], qcfg, qreqs, flash_fwd, QK, QB,
-                                QS0, 32, None, parity_layers=4),
+            lambda: phase_serve(env["card"], qcfg.replace(n_layers=6), qreqs,
+                                flash_fwd, QK, QB, QS0, 32, None,
+                                parity_layers=4),
             lambda: phase_train(env["card"], qtcfg, flash, QTK, QTB, QTS, 3,
                                 None),
             lambda: phase_serve(env["card"], dcfg, dreqs, flash_fwd, 2, 2,
                                 512, 32, None, parity_layers=1),
-            lambda: phase_serve(env["card"], lcfg, lreqs, flash_fwd, LK, LB,
-                                LS0, 32, 2e-2, parity_layers=4,
+            lambda: phase_serve(env["card"], lcfg.replace(n_layers=8), lreqs,
+                                flash_fwd, LK, LB, LS0, 32, 2e-2,
+                                parity_layers=4,
                                 prefix=_random_prefix(lcfg, LB, 0)),
             lambda: phase_train(env["card"], ltcfg, flash, LTK, LTB, LTS, 3,
                                 2e-2, check=lcheck),
-            lambda: phase_serve(env["card"], gcfg, greqs, flash_fwd, GK, GB,
+            lambda: phase_serve(env["card"], gtcfg, greqs, flash_fwd, GK, GB,
                                 GS0, 32, None,
                                 prefix=_random_prefix(gcfg, GB, 0)),
             lambda: phase_train(env["card"], gtcfg, flash, GTK, GTB, GTS, 3,
@@ -4512,7 +5056,8 @@ def main() -> int:
             lambda: phase_sharded_train(env["card"], scfg, 4, HB, HS),
             lambda: phase_sharded_train(env["card"], scfg, 3, HB, HS),
             lambda: phase_vision_mesh(env["card"]),
-            lambda: phase_tooling(env["card"], cfg, tcfg, TK, TB, TS)):
+            lambda: phase_tooling(env["card"], cfg, tcfg, TK, TB, TS),
+            lambda: phase_data_model(env["card"], scfg)):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4531,7 +5076,8 @@ def main() -> int:
           "single-model training + decode, VisionNet DP-DML + robust + "
           "attack experiments, the full-width privacy fleet, the reduced "
           "privacy fleet, qwen3-4b sharded DML at K = 4 and K = 3, "
-          "VisionNet on a client mesh, the quickstart and serve_lm examples): "
+          "VisionNet on a client mesh, the quickstart and serve_lm examples, "
+          "qwen3-4b train + DML + SparseDML on a (data 2, model 2) mesh): "
           + json.dumps(paths))
     for row in kernels:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)

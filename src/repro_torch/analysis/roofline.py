@@ -27,9 +27,10 @@ from typing import Dict, List, Optional
 
 from repro_torch.launch.mesh import H100, HardwareSpec
 
-# the dry-run's mesh kinds (``launch.dryrun.MESHES``): one card, and one
-# client a card over the client mesh
-MESH_KINDS = ("single", "clients")
+# the dry-run's mesh kinds: one card, one client a card over the client
+# mesh, and the data x model production meshes (data 16 x model 16, and
+# pod 2 x 16 x 16)
+MESH_KINDS = ("single", "clients", "pod", "multi")
 
 
 def roofline_terms(flops: float, hbm_bytes: float, coll_bytes: float = 0.0,

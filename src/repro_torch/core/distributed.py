@@ -28,6 +28,7 @@ cross-entry tensor is the gathered public logits of the Eq.-2 term.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict
 
 import torch
@@ -42,7 +43,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                client_norms)
-from repro_torch.sharding import map_entries
+from repro_torch.sharding import axes_map, axis_rules, constrain, map_entries
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Any
@@ -64,6 +65,11 @@ def stacked_adamw_init(stacked_params: Params) -> Dict:
     return adamw_init(stacked_params)
 
 
+def stacked_logical_axes(cfg: ModelConfig) -> Params:
+    """``tfm.logical_axes`` behind the ``client`` axis of a stacked tree."""
+    return axes_map(lambda t: ("client",) + t, tfm.logical_axes(cfg))
+
+
 # ---------------------------------------------------------------------------
 # losses
 
@@ -83,6 +89,31 @@ def _public_ce_and_logits(sparams, cfg: ModelConfig, tokens, prefix,
     logits = tfm.loss_logits(sparams, cfg, x)
     ce = tfm.next_token_ce(logits, tokens, prefixed)
     return ce, logits[:, :, 1:] if prefixed else logits
+
+
+def _flat_public(fwd):
+    """The public logits (K, B, S, V) as the Eq.-2 term's (K, B*S, V),
+    held on the client and vocab axes (``repro/core/distributed.py:163``)."""
+    K, B, S, V = fwd.shape
+    return constrain(fwd.reshape(K, B * S, V), "client", None, "vocab")
+
+
+def _client_axis_step(spmd_client_axis):
+    """Decorates a step so that it runs with the client dim of every
+    client-stacked tensor it constrains held on the mesh axis
+    ``spmd_client_axis`` (JAX's ``vmap(..., spmd_axis_name=...)``); the
+    step as it is when that is None.  The port has no ``vmap``: the client
+    dim is the first of every ``constrain`` in the model."""
+    def wrap(step):
+        if spmd_client_axis is None:
+            return step
+
+        @functools.wraps(step)
+        def held(*args, **kw):
+            with axis_rules({"client": spmd_client_axis}):
+                return step(*args, **kw)
+        return held
+    return wrap
 
 
 def _mutual_term(flat, temperature: float, sparse_k: int, part_mask,
@@ -124,9 +155,8 @@ def mutual_total_loss(sparams, cfg: ModelConfig, public_tokens,
     ``public_prefix`` (B_pub, P, pd) is shared by the clients."""
     ce_pub, fwd = _public_ce_and_logits(sparams, cfg, public_tokens,
                                         public_prefix, remat, impl)
-    K, B, S, V = fwd.shape
-    kl = _mutual_term(fwd.reshape(K, B * S, V), temperature, sparse_k,
-                      part_mask, None, impl)
+    kl = _mutual_term(_flat_public(fwd), temperature, sparse_k, part_mask,
+                      None, impl)
     w = _mask(part_mask, kl.device)
     total = ce_weight * torch.sum(ce_pub * w) + kl_weight * torch.sum(kl)
     return total, {"public_ce": ce_pub.detach(), "kld_avg": kl.detach()}
@@ -148,9 +178,8 @@ def dml_total_loss(sparams, cfg: ModelConfig, tokens, public_tokens,
                                   impl=impl)
     ce_pub, fwd = _public_ce_and_logits(sparams, cfg, public_tokens,
                                         public_prefix, remat, impl)
-    K, B, S, V = fwd.shape
-    kl = _mutual_term(fwd.reshape(K, B * S, V), temperature, sparse_k,
-                      part_mask, received, impl)
+    kl = _mutual_term(_flat_public(fwd), temperature, sparse_k, part_mask,
+                      received, impl)
     w = _mask(part_mask, kl.device)
     total = (torch.sum(priv * w) + torch.sum(ce_pub * w)
              + kl_weight * torch.sum(kl))
@@ -219,11 +248,14 @@ def _update(params, opt, grads, opt_cfg: AdamWConfig, part_mask):
 # steps
 
 def make_local_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                          remat: bool = True, *, impl: str):
+                          remat: bool = True, spmd_client_axis=None, *,
+                          impl: str):
     """Per-client private-shard CE step: ``step(params, opt, tokens
     (K, B, S), prefix=None, part_mask=None)``, ``prefix`` (K, B, P, pd)
     for a prefix-token arch.  Absentees' params and moments ride through
-    unchanged."""
+    unchanged.  On a data x model mesh, ``spmd_client_axis`` names the
+    mesh axis that holds the client dim of every client-stacked tensor."""
+    @_client_axis_step(spmd_client_axis)
     def step(stacked_params, opt_state, tokens, prefix=None, part_mask=None):
         _, metrics, grads = value_and_grad(
             local_total_loss, stacked_params, cfg, tokens, part_mask, prefix,
@@ -238,11 +270,14 @@ def make_local_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 def make_mutual_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                      kl_weight: float = 1.0, temperature: float = 1.0,
                      remat: bool = True, ce_weight: float = 1.0,
-                     sparse_k: int = 0, *, impl: str):
+                     sparse_k: int = 0, spmd_client_axis=None, *,
+                     impl: str):
     """Eq. 1 on the public batch: ``step(params, opt, public_tokens
     (B_pub, S), public_prefix=None, part_mask=None)``.  Absentees are
     masked out of the Eq.-2 average and their params and moments pass
-    through unchanged."""
+    through unchanged.  ``spmd_client_axis`` as in
+    ``make_local_train_step``."""
+    @_client_axis_step(spmd_client_axis)
     def step(stacked_params, opt_state, public_tokens, public_prefix=None,
              part_mask=None):
         _, metrics, grads = value_and_grad(
@@ -257,15 +292,17 @@ def make_mutual_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
 def make_dml_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                         kl_weight: float = 1.0, temperature: float = 1.0,
-                        remat: bool = True, sparse_k: int = 0, *,
-                        impl: str):
+                        remat: bool = True, sparse_k: int = 0,
+                        spmd_client_axis=None, *, impl: str):
     """One fused DML round-step: private CE + Eq. 1 on the public batch in
     one AdamW update with one global-norm clip over the stacked tree.
     ``step(params, opt, tokens (K, B, S), public_tokens (B_pub, S),
     prefix=None, public_prefix=None, part_mask=None)``, the prefixes as in
     ``dml_total_loss``.  ``impl`` is the kernel impl the population
     resolved: it runs the attention forward and backward and the Eq.-2
-    term, which is SparseDML's with ``sparse_k`` > 0."""
+    term, which is SparseDML's with ``sparse_k`` > 0.  ``spmd_client_axis``
+    as in ``make_local_train_step``."""
+    @_client_axis_step(spmd_client_axis)
     def step(stacked_params, opt_state, tokens, public_tokens, prefix=None,
              public_prefix=None, part_mask=None):
         _, metrics, grads = value_and_grad(

@@ -29,8 +29,11 @@ kernel in either package: plain PyTorch at every impl.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops, ref
+from repro_torch.sharding import constrain, current_mesh, get_rules
+from repro_torch.sharding.local import local_call
 
 
 def _pair_mask(K: int, part_mask, device=None) -> torch.Tensor:
@@ -72,7 +75,7 @@ def mutual_kl_terms(live_logits, fixed_logits, temperature: float = 1.0,
     """
     K = live_logits.shape[0]
     pair_w = _pair_mask(K, part_mask, live_logits.device)
-    if impl != "ref":
+    if impl != "ref" or isinstance(live_logits, DTensor):
         return ops.mutual_kl_pair(live_logits, fixed_logits, pair_w,
                                   temperature=temperature, impl=impl)
     return mutual_kl_terms_vs(live_logits, fixed_logits, pair_w,
@@ -161,12 +164,59 @@ def _topk_lax_order(x, k: int):
     return vals[..., :k], torch.gather(idx, -1, order)[..., :k]
 
 
+def _vocab_dim(logp):
+    """The mesh dim that shards the vocabulary of the DTensor ``logp``
+    (the one the "vocab" rule names), or None."""
+    mesh = current_mesh()
+    name = get_rules().get("vocab")
+    if mesh is None or not isinstance(logp, DTensor) or \
+            not isinstance(name, str) or name not in mesh.mesh_dim_names:
+        return None
+    i = mesh.mesh_dim_names.index(name)
+    p = logp.placements[i]
+    return i if isinstance(p, Shard) and p.dim == logp.dim() - 1 else None
+
+
+def _distributed_topk(logp, k: int):
+    """Two-stage top-k that never gathers the vocab axis
+    (``repro/core/mutual.py:130-170``): on a mesh whose vocab dim shards
+    ``logp``, each rank takes the top-k of its vocab shard in ``lax.top_k``
+    order, offsets the indices by the shard's start, all-gathers only the
+    k candidates of every shard over the vocab's mesh dim, and takes the
+    top-k of those.  A shard's candidates come in shard order and within a
+    shard in index order among ties, so the result equals ``lax.top_k`` on
+    the whole row, ties included.  Otherwise the plain top-k."""
+    dim = _vocab_dim(logp)
+    if dim is None:
+        return _topk_lax_order(logp, k)
+    import torch.distributed._functional_collectives as funcol
+    mesh = logp.device_mesh
+    place = [p if isinstance(p, Shard) and p.dim < logp.dim() - 1
+             else Replicate() for p in logp.placements]
+    place[dim] = Shard(logp.dim() - 1)
+    out = [Replicate() if i == dim else p for i, p in enumerate(place)]
+
+    def local(lp):
+        v, i = _topk_lax_order(lp, min(k, lp.shape[-1]))
+        i = i + mesh.get_local_rank(dim) * lp.shape[-1]
+        vg = funcol.all_gather_tensor(v.contiguous(), v.dim() - 1,
+                                      (mesh, dim))
+        ig = funcol.all_gather_tensor(i.contiguous(), i.dim() - 1,
+                                      (mesh, dim))
+        vv, sel = _topk_lax_order(vg, k)
+        return vv, torch.gather(ig, -1, sel)
+    return local_call(local, (out, out), (place,), mesh, logp)
+
+
 def topk_predictions(logits, k: int, temperature: float = 1.0):
     """What a client publishes: (indices (..., k) int32, log-probs
-    (..., k) fp32) of its top-k tokens, in ``lax.top_k``'s order."""
+    (..., k) fp32) of its top-k tokens, in ``lax.top_k``'s order (on a
+    mesh through the vocab-sharded ``_distributed_topk``)."""
     logp = _log_softmax(logits.float() / temperature)
-    vals, idx = _topk_lax_order(logp, k)
-    return idx.to(torch.int32), vals
+    vals, idx = _distributed_topk(logp, k)
+    tail = (None,) * (logits.dim() - 1)
+    return (constrain(idx.to(torch.int32), "client", *tail),
+            constrain(vals, "client", *tail))
 
 
 def sparse_mutual_kl_loss(live_logits, idx, logp_top,
@@ -197,10 +247,16 @@ def sparse_mutual_kl_loss(live_logits, idx, logp_top,
     residual = torch.clamp(1.0 - torch.sum(torch.exp(logp_top), dim=-1),
                            1e-9, 1.0)                            # (K,B)
     c = torch.log(residual / max(V - k, 1))                      # (K,B)
-    # one (K, B, k) gather per sender j: no (K, K, B, V) operand
-    p_at = torch.stack([torch.gather(p_live, -1, idx[j].long()[None]
-                                     .expand(K, B, k))
-                        for j in range(K)], dim=1)               # (i,j,B,k)
+    # one (K, B, k) gather per sender j: no (K, K, B, V) operand; on a
+    # mesh each stays on the client axis (``repro/core/mutual.py:226-234``)
+    p_ats = []
+    for j in range(K):
+        idx_j = constrain(idx[j].long()[None].expand(K, B, k), "client",
+                          None, None)
+        p_ats.append(constrain(torch.gather(p_live, -1, idx_j), "client",
+                               None, None))
+    p_at = constrain(torch.stack(p_ats, dim=1), "client", None, None,
+                     None)                                       # (i,j,B,k)
     s = torch.sum(p_at, dim=-1)                                  # (i,j,B)
     cross_top = torch.sum(p_at * logp_top[None], dim=-1)         # (i,j,B)
     kl = neg_h[:, None, :] - c[None] * (1.0 - s) - cross_top

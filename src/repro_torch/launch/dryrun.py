@@ -8,6 +8,10 @@ dispatches, for the roofline report (the port of ``repro/launch/dryrun.py``).
       --out build/dryrun/single.jsonl
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch dbrx-132b \
       --shape train_4k --mesh clients --method dml
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh pod \
+      --out build/dryrun/pod.jsonl
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b \
+      --shape train_4k --mesh multi --method dml      # clients = pods
   PYTHONPATH=src python -m repro_torch.analysis.roofline build/dryrun/*.jsonl
 
 It runs on any machine: the meta device has shapes and dtypes but no
@@ -33,10 +37,12 @@ How the counts differ from the JAX dry-run's:
   - Every kernel runs through its plain version (impl "ref"), as the JAX
     baseline runs at its default impl: the hand-written kernels' own work
     is not counted yet.
-  - Collectives are computed from shapes, not parsed: the public logits
-    the clients exchange (``distributed.comm_bytes``; SparseDML's top-k
-    sets by ``mutual.sparse_share_bytes``) for ``dml`` and ``mutual``, the
-    parameter average for ``fedavg_sync``, none for ``standard``.
+  - On the ``single`` and ``clients`` meshes collectives are computed
+    from shapes: the public logits the clients exchange
+    (``distributed.comm_bytes``; SparseDML's top-k sets by
+    ``mutual.sparse_share_bytes``) for ``dml`` and ``mutual``, the
+    parameter average for ``fedavg_sync``, none for ``standard``.  On the
+    ``pod`` and ``multi`` meshes they are counted: see below.
 
 Meshes: ``single`` is one card (every client of a client method on it, so
 nothing crosses a link: ``collectives["total"]`` is 0 and
@@ -44,16 +50,38 @@ nothing crosses a link: ``collectives["total"]`` is 0 and
 on each card, as the client mesh (``sharding.ClientMesh``) runs
 ``make_sharded_dml_step``: the clients' work is alike, so a card's counts
 are the program's over the client count, and ``t_collective`` is a card's
-share of the exchanged bytes at the link rate.  The JAX ``multi`` mesh (two
-256-chip pods) and the data x model production mesh are not ported.
+share of the exchanged bytes at the link rate.
+
+``pod`` and ``multi`` are JAX's production meshes (its ``single`` and
+``multi``; the port's ``single`` is one card): data 16 x model 16 = 256
+cards, and pod 2 x 16 x 16 = 512.  Each case runs in this one process on
+PyTorch's fake process group of that world size, as rank 0 of a named
+DeviceMesh (``launch.mesh.make_production_mesh``): its arguments are
+DTensors of meta shards placed by their logical axes (``_shardings``;
+``launch.specs``' ``*_axes``), and the step runs under
+``sharding.use_mesh`` with ``run_case``'s axis rules, as JAX's
+``jax.jit(step, in_shardings=...)`` under ``use_mesh``.  ``count(sharded=
+True)`` then counts one card: it defers every DTensor-level op (returns
+``NotImplemented``, so DTensor propagates the sharding), counts the local
+aten ops that DTensor runs on the rank's shards (FLOPs by
+``torch.utils.flop_counter``'s registry at the local shapes, bytes and
+live memory as above), skips the ``FakeTensor`` ops of DTensor's sharding
+propagation, and sums the bytes each ``_c10d_functional`` collective
+writes, by kind and by mesh axis: ``collectives`` holds ``all-gather``,
+``all-reduce``, ``reduce-scatter``, ``all-to-all``, ``count``, ``total``,
+``cross_pod`` and ``pod_axis`` as JAX's ``collective_stats`` reports
+them, and ``by_axis`` (each mesh axis's, or flattened run of axes', bytes
+by kind and count).  The DML cases put the client axis on ``pod``
+(``spmd_client_axis="pod"``), as JAX's do.
 
 Not ported, and why: ``collective_stats``, ``_parse_groups``,
-``_pod_class``, ``_type_bytes`` and ``cost_dict`` parse HLO;
-``depth_corrected_costs`` corrects XLA's once-counted scan body, and eager
-dispatch counts every layer; ``_shardings`` maps logical axes, which the
-port does not have.  Of the variants, ``flash`` (the ``xla_flash`` impl) is
-out by design, and ``attn_dp``, ``no_fsdp`` and ``seqpar`` are axis rules
-of the data x model mesh; all four are refused.
+``_pod_class``, ``_type_bytes`` and ``cost_dict`` parse HLO (the
+collectives are counted at dispatch instead); ``depth_corrected_costs``
+corrects XLA's once-counted scan body, and eager dispatch counts every
+layer.  Of the variants, ``flash`` (the ``xla_flash`` impl) is out by
+design and refused; ``attn_dp``, ``no_fsdp`` and ``seqpar`` are axis
+rules, which change the ``pod`` and ``multi`` programs and nothing on one
+card.
 """
 from __future__ import annotations
 
@@ -68,10 +96,12 @@ from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves as _pytree_leaves
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
+from repro_torch import sharding as shd
 from repro_torch.analysis.roofline import MESH_KINDS, roofline_terms
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
 from repro_torch.core import distributed as dml
@@ -84,14 +114,18 @@ from repro_torch.optim import AdamWConfig
 METHODS = ("standard", "dml", "mutual", "fedavg_sync")
 N_CLIENTS = 2
 SPARSE_K = 64
-VARIANTS = ("baseline", "chunked_ce", "noremat", "slotremat", "sparse")
+VARIANTS = ("baseline", "chunked_ce", "noremat", "slotremat", "sparse",
+            "attn_dp", "no_fsdp", "seqpar")
 REFUSED = {
     "flash": "the xla_flash impl is not ported (by design): the port's "
              "flash attention is the hand-written kernel, impl 'cuda'",
-    **{v: f"{v} is an axis rule of the data x model production mesh, "
-          "which is not ported yet (the data x model slice)"
-       for v in ("attn_dp", "no_fsdp", "seqpar")},
 }
+# the data x model meshes: world size and multi_pod
+PRODUCTION = {"pod": (256, False), "multi": (512, True)}
+COLLECTIVE_KINDS = {"all_gather_into_tensor": "all-gather",
+                    "all_reduce": "all-reduce",
+                    "reduce_scatter_tensor": "reduce-scatter",
+                    "all_to_all_single": "all-to-all"}
 
 
 # ---------------------------------------------------------------------------
@@ -106,10 +140,16 @@ class Counts:
     argument_bytes: int = 0
     output_bytes: int = 0
     temp_bytes: int = 0
+    collectives: Dict[str, Any] = None
 
     @property
     def peak_bytes(self) -> int:
         return self.argument_bytes + self.output_bytes + self.temp_bytes
+
+
+def _fake(ts) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return any(isinstance(t, FakeTensor) for t in ts)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -121,9 +161,11 @@ class _Counter(TorchDispatchMode):
     its storage dies (a ``weakref.finalize`` on the storage, whose Python
     object lives as long as the storage does)."""
 
-    def __init__(self, counts: Counts):
+    def __init__(self, counts: Counts, axis_of=None):
         super().__init__()
         self.counts = counts
+        # sharded: {process group name: mesh axis name}; None on one card
+        self.axis_of = axis_of
         # live storages by key (a key is reused once its storage dies, so
         # each leaves its dict when it dies): read but not made here, and
         # made here
@@ -154,6 +196,13 @@ class _Counter(TorchDispatchMode):
         kwargs = kwargs or {}
         ins = [t for t in _pytree_leaves((args, kwargs))
                if isinstance(t, torch.Tensor)]
+        if self.axis_of is not None:
+            if any(isinstance(t, DTensor) for t in ins):
+                return NotImplemented        # DTensor runs the local ops
+            if _fake(ins) or (ins and not any(t.is_meta for t in ins)):
+                # sharding propagation, and DTensor's own host
+                # bookkeeping (shard offsets): no card runs these
+                return func(*args, **kwargs)
         for t in ins:
             self._check(func, t)
             if t.is_meta:
@@ -165,10 +214,15 @@ class _Counter(TorchDispatchMode):
                     weakref.finalize(storage, self._release_arg, key)
         out = func(*args, **kwargs)
         outs = [t for t in _pytree_leaves(out) if isinstance(t, torch.Tensor)]
+        if self.axis_of is not None and (_fake(outs) or (
+                not ins and not any(t.is_meta for t in outs))):
+            return out                      # as above
         for t in outs:
             self._check(func, t)
         if not func.is_view:
             self.counts.bytes += sum(_nbytes(t) for t in ins + outs)
+        if self.axis_of is not None:
+            self._sharded(func, args, kwargs, outs)
         for t in outs:
             if not t.is_meta:
                 continue
@@ -182,26 +236,73 @@ class _Counter(TorchDispatchMode):
             weakref.finalize(storage, self._release, key)
         return out
 
+    def _sharded(self, func, args, kwargs, outs) -> None:
+        """FLOPs of a local op at its local shapes, and a collective's
+        bytes (the tensor it writes, as XLA's result type) by kind and
+        mesh axis."""
+        packet = func._overloadpacket
+        if packet in flop_registry:
+            self.counts.flops += flop_registry[packet](*args, **kwargs,
+                                                       out_val=outs[0])
+        ns = func.namespace if hasattr(func, "namespace") else ""
+        kind = COLLECTIVE_KINDS.get(packet.__name__)
+        if ns != "_c10d_functional" or kind is None:
+            return
+        c = self.counts.collectives
+        b = sum(_nbytes(t) for t in outs)
+        axis = self.axis_of.get(args[-1], str(args[-1]))
+        c[kind] += b
+        c["count"] += 1
+        per = c["by_axis"].setdefault(axis, {"count": 0})
+        per[kind] = per.get(kind, 0) + b
+        per["count"] += 1
+        if "pod" in axis.split("_"):      # its groups span the pods
+            c["cross_pod"] += b
+            if axis == "pod":               # ... and vary in pod alone
+                c["pod_axis"] += b
+
     def finish(self) -> None:
         c = self.counts
         c.argument_bytes = self.arg_bytes
         c.output_bytes = self.now
         c.temp_bytes = self.peak - self.now
+        if c.collectives is not None:
+            c.collectives["total"] = sum(c.collectives[k] for k in
+                                         COLLECTIVE_KINDS.values())
+
+
+def _collectives0() -> Dict[str, Any]:
+    return {**{k: 0 for k in COLLECTIVE_KINDS.values()}, "count": 0,
+            "total": 0, "cross_pod": 0, "pod_axis": 0, "by_axis": {}}
 
 
 @contextlib.contextmanager
-def count():
+def count(mesh=None):
     """Count the ops run inside: ``with count() as c: step(*args)``, then
     ``c.flops``, ``c.bytes`` and the byte fields.  FLOPs are those of a
     ``FlopCounterMode`` over the same ops.  Raises if an op sees a tensor
     that is not on the meta device (0-d and empty CPU tensors aside): a
-    dry-run never computes by accident."""
+    dry-run never computes by accident.
+
+    With a DeviceMesh the program is sharded and one card is counted (the
+    module docstring): the local ops' FLOPs, bytes and memory, and
+    ``c.collectives``."""
     counts = Counts()
-    counter = _Counter(counts)
-    flops = FlopCounterMode(display=False)
-    with counter, flops:
-        yield counts
-    counts.flops = flops.get_total_flops()
+    if mesh is None:
+        counter = _Counter(counts)
+        flops = FlopCounterMode(display=False)
+        with counter, flops:
+            yield counts
+        counts.flops = flops.get_total_flops()
+    else:
+        from repro_torch.launch.mesh import flat_dims
+        names = list(mesh.mesh_dim_names)
+        names += ["_".join(d) for d in flat_dims(mesh)]
+        counts.collectives = _collectives0()
+        counter = _Counter(counts, {mesh[n].get_group().group_name: n
+                                    for n in names})
+        with counter:
+            yield counts
     counter.finish()
 
 
@@ -251,20 +352,21 @@ def public_batch(shape, n_clients: int = N_CLIENTS) -> int:
 
 def dml_case(cfg, n_clients: int, batch: int, public: int, seq: int, *,
              fused: bool = True, sparse_k: int = 0, opt_cfg=None,
-             kl_weight: float = 1.0, device=S.META):
+             kl_weight: float = 1.0, device=S.META, spmd_client_axis=None):
     """(fn, args) of one client-stacked DML step (``fused``: private CE +
     Eq. 1, ``make_dml_train_step``; else Eq. 1 alone, ``make_mutual_step``)
     of ``n_clients`` clients, ``batch`` private and ``public`` shared
     sequences of ``seq`` tokens, at impl "ref".  On the meta device
     nothing is drawn; elsewhere the params are drawn from seed 0 and the
-    tokens are zeros, so that the same program runs on a card."""
+    tokens are zeros, so that the same program runs on a card.
+    ``spmd_client_axis`` as in the step factories (a data x model mesh)."""
     opt_cfg = opt_cfg or AdamWConfig()
+    kw = dict(kl_weight=kl_weight, sparse_k=sparse_k, impl="ref",
+              spmd_client_axis=spmd_client_axis)
     if fused:
-        step = dml.make_dml_train_step(cfg, opt_cfg, kl_weight=kl_weight,
-                                       sparse_k=sparse_k, impl="ref")
+        step = dml.make_dml_train_step(cfg, opt_cfg, **kw)
     else:
-        step = dml.make_mutual_step(cfg, opt_cfg, kl_weight=kl_weight,
-                                    sparse_k=sparse_k, impl="ref")
+        step = dml.make_mutual_step(cfg, opt_cfg, **kw)
     params = dml.stacked_init(0, cfg, n_clients, device=device)
     opt = _host_step(dml.stacked_adamw_init(params))
 
@@ -281,14 +383,15 @@ def dml_case(cfg, n_clients: int, batch: int, public: int, seq: int, *,
     return step, (params, opt, tokens, pub_tokens, prefix, pub_prefix)
 
 
-def _case_dml(cfg, shape, fused=True, sparse_k=0):
+def _case_dml(cfg, shape, fused=True, sparse_k=0, spmd_client_axis=None):
     """The paper's technique: N_CLIENTS clients share the global batch."""
     if shape.global_batch % N_CLIENTS:
         raise ValueError(f"global batch {shape.global_batch} does not split "
                          f"over {N_CLIENTS} clients")
     return dml_case(cfg, N_CLIENTS, shape.global_batch // N_CLIENTS,
                     public_batch(shape), S.token_len(cfg, shape),
-                    fused=fused, sparse_k=sparse_k)
+                    fused=fused, sparse_k=sparse_k,
+                    spmd_client_axis=spmd_client_axis)
 
 
 def _case_fedavg_sync(cfg):
@@ -311,8 +414,7 @@ def check_variant(variant: str) -> Tuple[str, ...]:
 def check_mesh(mesh_kind: str, method: str) -> None:
     if mesh_kind not in MESH_KINDS:
         raise ValueError(f"unknown mesh {mesh_kind!r}; the port has "
-                         f"{MESH_KINDS} (JAX's multi-pod and data x model "
-                         "meshes are not ported)")
+                         f"{MESH_KINDS}")
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; known: {METHODS}")
     if mesh_kind == "clients" and method == "standard":
@@ -337,8 +439,95 @@ def build_case(cfg, shape, mesh_kind: str, method: str,
         return _case_decode(cfg, shape)
     sparse_k = SPARSE_K if "sparse" in parts else 0
     if method in ("dml", "mutual"):
-        return _case_dml(cfg, shape, fused=method == "dml", sparse_k=sparse_k)
+        # JAX's DML cases hold the client axis on the pod axis of a data x
+        # model mesh (a no-op where there is none)
+        axis = "pod" if mesh_kind in PRODUCTION else None
+        return _case_dml(cfg, shape, fused=method == "dml", sparse_k=sparse_k,
+                         spmd_client_axis=axis)
     return _case_fedavg_sync(cfg)
+
+
+def case_axes(cfg, shape, method: str) -> tuple:
+    """The logical axes of ``build_case``'s arguments, in their order
+    (None for an argument that is not a tensor): the JAX dry-run's
+    in_shardings before ``_shardings`` maps them."""
+    if method == "fedavg_sync":
+        return (S.model_state_axes(cfg, N_CLIENTS),)
+    if method in ("dml", "mutual"):
+        p = S.model_state_axes(cfg, N_CLIENTS)
+        b, pub = S.batch_axes(cfg, N_CLIENTS), S.public_axes(cfg)
+        head = (p, S.opt_logical_axes(p))
+        if method == "mutual":
+            return head + (pub["public_tokens"], pub.get("public_prefix"))
+        return head + (b["tokens"], pub["public_tokens"], b.get("prefix"),
+                       pub.get("public_prefix"))
+    p = S.model_state_axes(cfg)
+    b = S.batch_axes(cfg)
+    if shape.kind == "decode":
+        return (p, ("batch", None), S.cache_axes(cfg), None)
+    lead = (p, S.opt_logical_axes(p)) if shape.kind == "train" else (p,)
+    return lead + (b["tokens"],) + ((b["prefix"],) if cfg.prefix_tokens
+                                    else ())
+
+
+def _shardings(args, axes, mesh) -> tuple:
+    """``args`` as DTensors of meta shards placed by ``axes`` on ``mesh``
+    (JAX's ``_shardings`` and ``in_shardings`` in one): a tree whose leaf
+    is not a tensor (the host step, a position) passes through."""
+    return tuple(a if ax is None or a is None else
+                 shd.distribute_tree(a, ax, mesh)
+                 for a, ax in zip(args, axes))
+
+
+def mesh_rules(method: str, variant: str = "baseline") -> Dict[str, Any]:
+    """``run_case``'s axis rules (``repro/launch/dryrun.py:375-385``): the
+    client methods give the pod axis to the clients, and the variants
+    remap attention's batch, the params' FSDP axis and the residual
+    stream's sequence."""
+    rules: Dict[str, Any] = ({"batch": ("data",), "attn_batch": ("data",)}
+                             if method in ("dml", "mutual", "fedavg_sync")
+                             else {})
+    parts = check_variant(variant)
+    if "attn_dp" in parts:
+        rules["attn_batch"] = (rules.get("attn_batch", ("pod", "data"))
+                               + ("model",))
+    if "no_fsdp" in parts:
+        rules["embed"] = None
+    if "seqpar" in parts:
+        rules["res_seq"] = "model"
+    return rules
+
+
+def fake_world(n: int) -> None:
+    """This process as rank 0 of PyTorch's fake process group of ``n``
+    ranks (collectives do nothing; meta tensors carry the shapes)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if dist.get_world_size() == n:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+
+
+def production_mesh(mesh_kind: str):
+    """The ``pod`` or ``multi`` DeviceMesh on the fake process group."""
+    from repro_torch.launch.mesh import make_production_mesh
+    n, multi = PRODUCTION[mesh_kind]
+    fake_world(n)
+    return make_production_mesh(multi_pod=multi, device_type="cpu")
+
+
+def count_sharded(fn, args, axes, mesh, rules=None) -> Counts:
+    """One card's counts of ``fn(*args)`` with ``args`` placed by ``axes``
+    on ``mesh`` and the step run under ``use_mesh`` and ``rules``."""
+    with shd.axis_rules(rules or {}):
+        dargs = _shardings(args, axes, mesh)
+        del args
+        with shd.use_mesh(mesh), count(mesh) as c:
+            out = fn(*dargs)       # alive at the count's end: the outputs
+        del out, dargs
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -393,7 +582,9 @@ def run_case(arch: str, shape_name: str, mesh_kind: str,
              variant: str = "baseline") -> Dict[str, Any]:
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
-    n_chips = N_CLIENTS if mesh_kind == "clients" else 1
+    sharded = mesh_kind in PRODUCTION
+    n_chips = (PRODUCTION[mesh_kind][0] if sharded
+               else N_CLIENTS if mesh_kind == "clients" else 1)
     t0 = time.time()
     rec: Dict[str, Any] = {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind,
@@ -402,17 +593,25 @@ def run_case(arch: str, shape_name: str, mesh_kind: str,
     }
     try:
         fn, args = build_case(cfg, shape, mesh_kind, method, variant)
-        with count() as c:
-            out = fn(*args)        # alive at the count's end: the outputs
-        del fn, args, out
-        # one client a card on the clients mesh: a card's share
+        if sharded:
+            c = count_sharded(fn, args, case_axes(cfg, shape, method),
+                              production_mesh(mesh_kind),
+                              mesh_rules(method, variant))
+            del fn, args
+            share = 1                  # one card counted
+        else:
+            with count() as c:
+                out = fn(*args)    # alive at the count's end: the outputs
+            del fn, args, out
+            # one client a card on the clients mesh: a card's share
+            share = n_chips
         for key in ("argument_bytes", "output_bytes", "temp_bytes",
                     "peak_bytes"):
-            rec[key] = getattr(c, key) / n_chips
-        rec["flops_per_device"] = c.flops / n_chips
-        rec["bytes_per_device"] = c.bytes / n_chips
-        rec["collectives"] = collectives(cfg, shape, mesh_kind, method,
-                                         variant)
+            rec[key] = getattr(c, key) / share
+        rec["flops_per_device"] = c.flops / share
+        rec["bytes_per_device"] = c.bytes / share
+        rec["collectives"] = (c.collectives if sharded else collectives(
+            cfg, shape, mesh_kind, method, variant))
         rl = roofline_terms(rec["flops_per_device"], rec["bytes_per_device"],
                             rec["collectives"]["total"])
         rec.update({k: rl[k] for k in ("t_compute", "t_memory",

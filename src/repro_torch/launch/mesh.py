@@ -1,19 +1,85 @@
-"""The client mesh of a run (``repro/launch/mesh.py``'s
-``make_client_mesh`` and ``parse_mesh_spec``) and the card's constants for
-the roofline (``HardwareSpec``, ``H100``).
+"""The meshes of a run (``repro/launch/mesh.py``) and the card's
+constants for the roofline (``HardwareSpec``, ``H100``).
 
-The JAX module's production meshes describe a TPU pod and are not ported
-yet (the data x model slice); its ``V5E`` numbers are a TPU's and are not
-carried over.
+  - ``make_production_mesh``: the data x model mesh, (data 16, model 16)
+    or (pod 2, data 16, model 16), as a ``torch.distributed`` DeviceMesh
+    with named dims over the current process group (one rank a card, or
+    the dry-run's fake process group of that world size);
+  - ``make_cpu_mesh`` / ``make_card_mesh``: a small data x model mesh of
+    CPU ranks (the tests' gloo ranks) or of card ranks;
+  - ``make_client_mesh`` and ``parse_mesh_spec``: the client mesh
+    (``sharding.ClientMesh``, one process).
+
+Each DeviceMesh builder raises when no process group of the mesh's size
+is initialised, rather than building a smaller mesh.  The JAX module's
+``V5E`` numbers are a TPU's and are not carried over.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops
 from repro_torch.sharding import CLIENT_AXIS, ClientMesh
+
+
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def _device_mesh(shape, axes, device_type: str):
+    """A DeviceMesh of ``shape`` with dims named ``axes`` over the default
+    process group, which must hold exactly prod(shape) ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        raise RuntimeError(f"a {dict(zip(axes, shape))} mesh needs a "
+                           f"process group of {n} ranks; none is "
+                           "initialised")
+    if dist.get_world_size() != n:
+        raise ValueError(f"a {dict(zip(axes, shape))} mesh needs {n} ranks, "
+                         f"the process group has {dist.get_world_size()}")
+    mesh = init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+    for dims in flat_dims(mesh):
+        mesh[dims]._flatten("_".join(dims))
+    return mesh
+
+
+def flat_dims(mesh) -> list:
+    """The runs of two or more adjacent mesh dims, each flattened into a
+    dim of its own ("pod_data", "data_model", ...): DTensor then reduces a
+    partial sum over several dims in one collective over their union, as
+    XLA does, rather than one dim after another."""
+    names = tuple(mesh.mesh_dim_names)
+    return [names[i:j] for i in range(len(names))
+            for j in range(i + 2, len(names) + 1)]
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """single-pod: (data=16, model=16) = 256 ranks; multi-pod: (pod=2,
+    data=16, model=16) = 512 ranks.  ``device_type`` "cpu" serves the
+    dry-run's fake process group, whose tensors are on the meta device."""
+    shape, axes = PRODUCTION[multi_pod]
+    return _device_mesh(shape, axes, device_type)
+
+
+def make_cpu_mesh(shape=(2, 2), axes=("data", "model")):
+    """Small data x model mesh of CPU ranks (gloo) for tests."""
+    return _device_mesh(shape, axes, "cpu")
+
+
+def make_card_mesh(shape=(2, 2), axes=("data", "model")):
+    """Small data x model mesh of ranks on the cards: NCCL, one card a
+    rank.  Over gloo (ranks sharing one card, which NCCL refuses) DTensor's
+    functional collectives of CUDA tensors crash in ``wait_tensor``; a
+    caller that shares a card routes them through gloo's eager
+    collectives first, as ``chip_smoke.py`` does."""
+    return _device_mesh(shape, axes, "cuda")
 
 
 def make_client_mesh(n_devices: int = 0, device=None) -> ClientMesh:

@@ -8,9 +8,12 @@ and nothing drawn.  Modality frontends are stubs: VLM/audio archs get a
 precomputed embedding prefix of the configured size, with the token count
 reduced so that the total sequence length equals the assigned shape.
 
-The JAX module also returns each tree's logical axes (the ``*_logical_axes``
-helpers): they name the TPU mesh's axes and are not ported, so these
-functions return the tensors alone.
+The JAX module returns each tree with its logical axes; here each
+function returns the tensors alone, and a companion ``*_axes`` returns the
+tree of logical-axis tuples of the same structure (``batch_axes``,
+``public_axes``, ``model_state_axes``, ``opt_logical_axes``,
+``cache_axes``), which ``sharding.distribute_tree`` places on a data x
+model mesh.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.distributed import stacked_logical_axes
 from repro_torch.launch.steps import decode_window
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw_init
@@ -59,6 +63,15 @@ def batch_inputs(cfg: ModelConfig, shape: ShapeConfig,
     return specs
 
 
+def batch_axes(cfg: ModelConfig, n_clients: int = 0) -> Dict[str, Any]:
+    """Logical axes of ``batch_inputs``'s tensors."""
+    lead = ("client",) if n_clients else ()
+    axes = {"tokens": lead + ("batch", "seq")}
+    if cfg.prefix_tokens:
+        axes["prefix"] = lead + ("batch", "seq", None)
+    return axes
+
+
 def public_inputs(cfg: ModelConfig, shape: ShapeConfig,
                   public_batch: int) -> Dict[str, Any]:
     """The public mutual-learning batch, shared by all clients:
@@ -73,10 +86,27 @@ def public_inputs(cfg: ModelConfig, shape: ShapeConfig,
     return specs
 
 
+def public_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical axes of ``public_inputs``'s tensors: replicated over the
+    client axis, sharded over the batch's."""
+    axes = {"public_tokens": ("batch", "seq")}
+    if cfg.prefix_tokens:
+        axes["public_prefix"] = ("batch", "seq", None)
+    return axes
+
+
 def model_state_specs(cfg: ModelConfig, n_clients: int = 0):
     """The param tree on the meta device (``n_clients`` > 0 stacks a client
     axis, as ``distributed.stacked_init`` does)."""
     return tfm.init_model(0, cfg, n_clients=n_clients, device=META)
+
+
+def model_state_axes(cfg: ModelConfig, n_clients: int = 0):
+    """Logical axes of ``model_state_specs``'s tree (``client`` in front
+    of every leaf of a stacked one)."""
+    if n_clients:
+        return stacked_logical_axes(cfg)
+    return tfm.logical_axes(cfg)
 
 
 def opt_state_specs(param_specs):
@@ -85,8 +115,18 @@ def opt_state_specs(param_specs):
     return adamw_init(param_specs)
 
 
+def opt_logical_axes(param_axes):
+    """Logical axes of the AdamW state over params of ``param_axes``."""
+    return {"mu": param_axes, "nu": param_axes, "step": ()}
+
+
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig):
     """The decode cache of one model for ``shape``, at the shape's window
     (``decode_window``)."""
     return tfm.init_cache(cfg, shape.global_batch, shape.seq_len,
                           window=decode_window(cfg, shape), device=META)
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical axes of ``cache_specs``'s tree."""
+    return tfm.cache_logical_axes(cfg)

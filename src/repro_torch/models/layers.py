@@ -10,6 +10,10 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding import constrain
+from repro_torch.sharding.local import replicated, sharded_matmul
 
 
 # ---------------------------------------------------------------------------
@@ -72,7 +76,11 @@ def embed_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(K, ..., d) @ (K, d, f) -> (K, ..., f): one batched product over the
-    client axis.  Mixed dtypes promote, as ``jnp`` einsum/matmul do."""
+    client axis.  Mixed dtypes promote, as ``jnp`` einsum/matmul do.  On a
+    mesh, a rank's product on its shards (``sharding.local.sharded_matmul``)."""
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        mesh = (x if isinstance(x, DTensor) else w).device_mesh
+        return sharded_matmul(replicated(x, mesh), replicated(w, mesh))
     dt = torch.promote_types(x.dtype, w.dtype)
     K = x.shape[0]
     out = torch.matmul(x.reshape(K, -1, x.shape[-1]).to(dt), w.to(dt))
@@ -138,7 +146,16 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
     }
 
 
+def mlp_logical_axes():
+    return {
+        "w_gate": ("embed", "ff"),
+        "w_up": ("embed", "ff"),
+        "w_down": ("ff", "embed"),
+    }
+
+
 def apply_mlp(params, x):
     """x (K, ..., d) with per-client weights (K, d, d_ff) / (K, d_ff, d)."""
     h = F.silu(matmul(x, params["w_gate"])) * matmul(x, params["w_up"])
+    h = constrain(h, "client", "batch", "seq", "ff")
     return matmul(h, params["w_down"])

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_mlp, dense_init, init_mlp
+from repro_torch.sharding import constrain
 
 GROUP_SIZE = 256
 
@@ -56,6 +57,21 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig,
     if m.n_shared_experts:
         p["shared"] = init_mlp(gen, d, m.n_shared_experts * de, pd, lead)
     return p
+
+
+def moe_logical_axes(cfg: ModelConfig):
+    """Logical axes of ``init_moe``'s leaves
+    (``repro/models/moe.py:49-59``)."""
+    ax = {
+        "router": ("embed", None),
+        "w_gate": ("expert", "embed", "ff"),
+        "w_up": ("expert", "embed", "ff"),
+        "w_down": ("expert", "ff", "embed"),
+    }
+    if cfg.moe.n_shared_experts:
+        ax["shared"] = {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+                        "w_down": ("ff", "embed")}
+    return ax
 
 
 def group_size(S: int) -> int:
@@ -125,9 +141,13 @@ def apply_moe(params, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
         w = params[name]
         return torch.stack([torch.bmm(h[c], w[c].to(dt)) for c in range(K)])
 
-    xe = xe.to(dt)
+    # JAX's constraints (``repro/models/moe.py:95-100``) on the port's
+    # buffers (K, E, N*C, .): the group-major rows keep the batch sharding
+    xe = constrain(xe.to(dt), "client", "expert", "batch", None)
     h = F.silu(project(xe, "w_gate")) * project(xe, "w_up")
-    ye = project(h, "w_down").view(rows, d)
+    h = constrain(h, "client", "expert", "batch", "ff")
+    ye = constrain(project(h, "w_down"), "client", "expert", "batch", None)
+    ye = ye.reshape(rows, d)
     picked = ye.index_select(0, torch.where(keep, slot, 0)).float()
     w = (gates.reshape(-1) * keep).unsqueeze(-1)             # fp32
     y = (picked * w).view(K * N * G, k, d).sum(1)

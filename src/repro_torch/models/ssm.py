@@ -7,10 +7,11 @@ RMSNorm, out_proj.  Activations are (K, B, S, ...) and weights (K, ...),
 the JAX package's layouts behind a client axis.  ``A_log``, ``D`` and
 ``dt_bias`` are fp32 leaves in a tree of the param dtype, as in JAX.
 
-For the scan the K clients become heads: x (K, B, S, H, P) is laid out as
-(B, S, K*H, P) and B/C as (B, S, K*G, N), so head k*H + h reads group
-k*G + h // (H/G) and A (K*H,) carries each client's own decay rates; one
-kernel launch then serves the whole population.  Decode carries (conv
+For the scan the K clients become heads (``ops.ssd_clients``): x
+(K, B, S, H, P) is laid out as (B, S, K*H, P) and B/C as (B, S, K*G, N),
+so head k*H + h reads group k*G + h // (H/G) and A (K*H,) carries each
+client's own decay rates; one kernel launch then serves the whole
+population.  Decode carries (conv
 state, ssm state) -- constant size -- and updates the cache IN PLACE.
 """
 from __future__ import annotations
@@ -25,6 +26,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (dense_init, gated_rms_norm, matmul,
                                        per_client)
+from repro_torch.sharding import constrain
+from repro_torch.sharding.local import elementwise
 
 
 def _dims(cfg: ModelConfig):
@@ -66,6 +69,21 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
+def mamba_logical_axes(cfg: ModelConfig):
+    """Logical axes of ``init_mamba``'s leaves
+    (``repro/models/ssm.py:50-60``)."""
+    return {
+        "in_proj": ("embed", "ff"),
+        "conv_w": ("conv", None),
+        "conv_b": (None,),
+        "A_log": (None,),
+        "D": (None,),
+        "dt_bias": (None,),
+        "norm": ("ff",),
+        "out_proj": ("ff", "embed"),
+    }
+
+
 def _split_proj(cfg: ModelConfig, zxbcdt):
     s, di, nh, _ = _dims(cfg)
     gn = s.n_groups * s.d_state
@@ -86,18 +104,6 @@ def _causal_conv(xBC, w, b):
     return out + per_client(b, xBC)
 
 
-def _heads(t):
-    """(K, B, S, H, ...) -> (B, S, K*H, ...): the clients become heads."""
-    t = t.movedim(0, 2)
-    return t.reshape(*t.shape[:2], -1, *t.shape[4:])
-
-
-def _clients(t, K: int, dim: int):
-    """Undo ``_heads`` along ``dim``: (..., K*H, ...) -> K leading."""
-    t = t.unflatten(dim, (K, -1))
-    return t.movedim(dim, 0)
-
-
 def mamba_forward(params, cfg: ModelConfig, u, return_state: bool = False,
                   *, impl: str):
     """u: (K, B, S, d) -> y (K, B, S, d) [, (conv_state (K, B, d_conv-1,
@@ -105,19 +111,22 @@ def mamba_forward(params, cfg: ModelConfig, u, return_state: bool = False,
     kernel impl the caller resolved (``kernels.ops``)."""
     s, di, nh, conv_ch = _dims(cfg)
     K, B, S, _ = u.shape
-    zxbcdt = matmul(u, params["in_proj"])
+    zxbcdt = constrain(matmul(u, params["in_proj"]), "client", "batch",
+                       "seq", "ff")
     z, xBC, dt = _split_proj(cfg, zxbcdt)
     xBC_act = F.silu(_causal_conv(xBC, params["conv_w"], params["conv_b"]))
     gn = s.n_groups * s.d_state
     x = xBC_act[..., :di].reshape(K, B, S, nh, s.head_dim)
     Bm = xBC_act[..., di: di + gn].reshape(K, B, S, s.n_groups, s.d_state)
     Cm = xBC_act[..., di + gn:].reshape(K, B, S, s.n_groups, s.d_state)
-    dt = F.softplus(dt.float() + per_client(params["dt_bias"], dt))
+    # x stays head-sharded; the small B/C group projections replicate
+    Bm = constrain(Bm, "client", "batch", "seq", None, None)
+    Cm = constrain(Cm, "client", "batch", "seq", None, None)
+    dt = elementwise(F.softplus,
+                         dt.float() + per_client(params["dt_bias"], dt))
     A = -torch.exp(params["A_log"])
-    y, state = ops.ssd(_heads(x).contiguous(), _heads(dt).contiguous(),
-                       A.reshape(-1), _heads(Bm).contiguous(),
-                       _heads(Cm).contiguous(), chunk=s.chunk, impl=impl)
-    y = _clients(y, K, 2)
+    x = constrain(x, "client", "batch", "seq", "heads", None)
+    y, state = ops.ssd_clients(x, dt, A, Bm, Cm, chunk=s.chunk, impl=impl)
     y = y + params["D"].to(y.dtype)[:, None, None, :, None] * x
     y = y.reshape(K, B, S, di)
     y = gated_rms_norm(y, z, per_client(params["norm"], y), cfg.rms_eps)
@@ -126,7 +135,7 @@ def mamba_forward(params, cfg: ModelConfig, u, return_state: bool = False,
         return out
     conv_state = xBC[:, :, S - (s.d_conv - 1):] if S >= s.d_conv - 1 else \
         F.pad(xBC, (0, 0, s.d_conv - 1 - S, 0))
-    return out, (conv_state.to(cfg.cdtype()), _clients(state, K, 1))
+    return out, (conv_state.to(cfg.cdtype()), state)
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +153,11 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=None, *,
         "ssm": torch.zeros(lead + (batch, nh, s.head_dim, s.d_state),
                            dtype=torch.float32, device=device),
     }
+
+
+def mamba_cache_logical_axes():
+    return {"conv": ("batch", None, "ff"),
+            "ssm": ("batch", "heads", None, "state")}
 
 
 def mamba_decode(params, cfg: ModelConfig, u, cache):

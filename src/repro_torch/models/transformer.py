@@ -30,6 +30,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -38,8 +39,11 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
-                                       init_mlp, make_generator, per_client,
-                                       rms_norm)
+                                       init_mlp, make_generator, matmul,
+                                       mlp_logical_axes, per_client, rms_norm)
+from repro_torch.sharding import (axes_map, checkpoint_context, constrain,
+                                  distribute_tree)
+from repro_torch.sharding.local import keep_shards, local_call, replicated
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
@@ -126,6 +130,40 @@ def init_model(seed: int, cfg: ModelConfig, *, n_clients: int = 0,
     return params
 
 
+def _slot_logical_axes(cfg: ModelConfig, spec):
+    ax: Params = {"norm1": ("embed_act",)}
+    if spec.mixer == "attn":
+        ax["mixer"] = attn_mod.attention_logical_axes(cfg)
+    else:
+        ax["mixer"] = ssm_mod.mamba_logical_axes(cfg)
+    if spec.ffn != "none":
+        ax["norm2"] = ("embed_act",)
+        ax["ffn"] = (mlp_logical_axes() if spec.ffn == "mlp"
+                     else moe_mod.moe_logical_axes(cfg))
+    return ax
+
+
+def _layered(ax):
+    """The stacked layer axis in front of every leaf of a slot tree."""
+    return axes_map(lambda t: ("layers",) + t, ax)
+
+
+def logical_axes(cfg: ModelConfig) -> Params:
+    """Tree of logical-axis tuples parallel to ``init_model``'s output of
+    one model (``repro/models/transformer.py:91-109``)."""
+    ax: Params = {
+        "embed": ("vocab", "embed"),
+        "final_norm": ("embed_act",),
+        "periods": {f"slot{i}": _layered(_slot_logical_axes(cfg, spec))
+                    for i, spec in enumerate(cfg.period)},
+    }
+    if not cfg.tie_embeddings:
+        ax["lm_head"] = ("embed", "vocab")
+    if cfg.prefix_tokens:
+        ax["projector"] = {"w": (None, "embed"), "b": ("embed_act",)}
+    return ax
+
+
 # ---------------------------------------------------------------------------
 # forward
 
@@ -147,10 +185,45 @@ def _embed_tokens(params, cfg: ModelConfig, tokens):
     Gathering before the cast equals the JAX cast-then-gather bitwise and
     never casts the whole table."""
     table = params["embed"]
+    if isinstance(table, DTensor):
+        return _embed_local(table, tokens).to(cfg.cdtype())
     if tokens.dim() == 3:
         clients = torch.arange(table.shape[0], device=tokens.device)
         return table[clients[:, None, None], tokens].to(cfg.cdtype())
     return table[:, tokens].to(cfg.cdtype())
+
+
+def _embed_local(table, tokens):
+    """``_embed_tokens``'s gather from a DTensor table (K, V, d) on each
+    rank: the table whole but for its client shard, the tokens' batch
+    shard looked up locally (PyTorch 2.11's DTensor has no rule for this
+    indexing's backward).  The table's gradient is each rank's rows'
+    sum, a partial sum over the mesh dims that split the batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = replicated(tokens, mesh)
+    b = tokens.dim() - 2                      # the tokens' batch dim
+    tp, wp, op, gp = [], [], [], []
+    for p, q, n in zip(table.placements, tokens.placements, mesh.shape):
+        client = isinstance(p, Shard) and p.dim == 0
+        batch = (not client and isinstance(q, Shard) and q.dim == b
+                 and tokens.shape[b] % n == 0)
+        wp.append(Shard(0) if client else Replicate())
+        tp.append(Shard(0) if client and b else
+                  Shard(b) if batch else Replicate())
+        op.append(Shard(0) if client else Shard(1) if batch
+                  else Replicate())
+        gp.append(Shard(0) if client else Partial() if batch
+                  else Replicate())
+
+    def gather(w, t):
+        if t.dim() == 3:
+            rows = torch.arange(w.shape[0], device=t.device)
+            return w[rows[:, None, None], t]
+        return w[:, t]
+    return local_call(gather, op, (wp, tp), mesh, table, tokens,
+                      grad_placements=(gp, tp))
 
 
 def _embed(params, cfg: ModelConfig, tokens, prefix_emb=None):
@@ -161,7 +234,7 @@ def _embed(params, cfg: ModelConfig, tokens, prefix_emb=None):
     136-142``).  Archs without a prefix ignore it, as JAX does."""
     x = _embed_tokens(params, cfg, tokens)
     if not cfg.prefix_tokens:
-        return x
+        return constrain(x, "client", "batch", "res_seq", "embed_act")
     if prefix_emb is None:
         raise ValueError(f"{cfg.name} needs a (B, {cfg.prefix_tokens}, "
                          f"{cfg.prefix_dim}) prefix embedding")
@@ -172,16 +245,15 @@ def _embed(params, cfg: ModelConfig, tokens, prefix_emb=None):
     proj = torch.matmul(pe.reshape(lead, -1, pe.shape[-1]).to(dt), w.to(dt))
     proj = proj + b[:, None].to(dt)
     proj = proj.reshape(w.shape[0], *pe.shape[-3:-1], -1).to(x.dtype)
-    return torch.cat([proj, x], dim=2)
+    return constrain(torch.cat([proj, x], dim=2), "client", "batch",
+                     "res_seq", "embed_act")
 
 
 def _unembed(params, cfg: ModelConfig, x):
     """Final norm, then the head cast to the activations' dtype."""
     x = rms_norm(x, per_client(params["final_norm"], x), cfg.rms_eps)
-    head = _head(params, cfg)
-    K, d = x.shape[0], x.shape[-1]
-    logits = torch.matmul(x.reshape(K, -1, d), head.to(x.dtype))
-    return logits.reshape(*x.shape[:-1], head.shape[-1])
+    logits = matmul(x, _head(params, cfg).to(x.dtype))
+    return constrain(logits, "client", "batch", "seq", "vocab")
 
 
 def _slot(sp, cfg: ModelConfig, i: int, x, positions,
@@ -196,6 +268,7 @@ def _slot(sp, cfg: ModelConfig, i: int, x, positions,
     else:
         h = ssm_mod.mamba_forward(sp["mixer"], cfg, h, impl=impl)
     x, aux = _ffn(sp, cfg, spec, x + h)
+    x = constrain(x, "client", "batch", "res_seq", "embed_act")
     if aux is None:
         zero = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
         return x, zero, zero
@@ -215,7 +288,8 @@ def _period(sparams_period, cfg: ModelConfig, x, positions,
         sp = sparams_period[f"slot{i}"]
         if slot_remat:
             x, slb, srz = checkpoint(_slot, sp, cfg, i, x, positions, window,
-                                     impl, use_reentrant=False)
+                                     impl, use_reentrant=False,
+                                     context_fn=checkpoint_context)
         else:
             x, slb, srz = _slot(sp, cfg, i, x, positions, window, impl)
         lb, rz = lb + slb, rz + srz
@@ -248,7 +322,8 @@ def forward_hidden_clients(sparams, cfg: ModelConfig, tokens,
     for period in _layers(sparams["periods"], cfg.n_periods):
         if remat:
             x, plb, prz = checkpoint(_period, period, cfg, x, positions,
-                                     window, impl, use_reentrant=False)
+                                     window, impl, use_reentrant=False,
+                                     context_fn=checkpoint_context)
         else:
             x, plb, prz = _period(period, cfg, x, positions, window, impl,
                                   slot_remat)
@@ -321,7 +396,8 @@ def chunked_ce(x, head, labels, n_chunks: int = 16):
             break
         if torch.is_grad_enabled():
             m, se, lab = checkpoint(body, m, se, lab, w, i * c,
-                                    use_reentrant=False)
+                                    use_reentrant=False,
+                                    context_fn=checkpoint_context)
         else:
             m, se, lab = body(m, se, lab, w, i * c)
     return (m + torch.log(se) - lab).mean(dim=-1)
@@ -355,9 +431,27 @@ def next_token_ce(logits, tokens, prefixed: bool = False):
     softmax in fp32, on tokens (B, S) shared or (K, B, S) per client: every
     row but the last predicts a token, tokens[1:] (S' = S), or behind a
     prefix tokens[0:] (S' = S + 1)."""
-    logp = torch.log_softmax(logits[:, :, :-1].float(), dim=-1)
     labels = _labels(tokens, logits.shape[0], prefixed)
+    if isinstance(logits, DTensor):
+        return _rows_ce(logits, labels).mean(dim=(1, 2))
+    logp = torch.log_softmax(logits[:, :, :-1].float(), dim=-1)
     return -torch.gather(logp, -1, labels[..., None])[..., 0].mean(dim=(1, 2))
+
+
+def _rows_ce(logits, labels):
+    """Each row's CE (K, B, S'-1) of DTensor logits (K, B, S', V) on each
+    rank's (client, batch) shard, the vocabulary gathered whole: DTensor's
+    own gather and slice backward would make a whole-vocab zero gradient
+    of the global shape on every rank.  The same arithmetic, row by row."""
+    place = keep_shards(logits, {0, 1})
+
+    def ce(lg, lab):
+        logp = torch.log_softmax(lg[:, :, :-1].float(), dim=-1)
+        return -torch.gather(logp, -1, lab[..., None])[..., 0]
+    if not isinstance(labels, DTensor):
+        labels = replicated(labels, logits.device_mesh)
+    return local_call(ce, place, (place, place), logits.device_mesh,
+                      logits, labels)
 
 
 def loss_fn_clients(sparams, cfg: ModelConfig, tokens, prefix_emb=None, *,
@@ -417,6 +511,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
         for i, spec in enumerate(cfg.period)}
 
 
+def cache_logical_axes(cfg: ModelConfig) -> Params:
+    """Logical axes of ``init_cache``'s leaves of one model."""
+    return {f"slot{i}": _layered(
+        attn_mod.kv_cache_logical_axes() if spec.mixer == "attn"
+        else ssm_mod.mamba_cache_logical_axes())
+        for i, spec in enumerate(cfg.period)}
+
+
 def prefill_clients(sparams, cfg: ModelConfig, tokens, prefix_emb=None, *,
                     max_seq: int, window: Optional[int] = None, impl: str
                     ) -> Tuple[torch.Tensor, Params]:
@@ -432,6 +534,10 @@ def prefill_clients(sparams, cfg: ModelConfig, tokens, prefix_emb=None, *,
     x = _embed(sparams, cfg, tokens, prefix_emb)
     K, B = x.shape[:2]
     cache = init_cache(cfg, B, max_seq, window, n_models=K, device=x.device)
+    if isinstance(x, DTensor):          # on a mesh: the ring's shards
+        cache = distribute_tree(cache, axes_map(
+            lambda t: ("client",) + t, cache_logical_axes(cfg)),
+            x.device_mesh)
     for idx in range(cfg.n_periods):
         period = _layer(sparams["periods"], idx)
         layer_cache = _layer(cache, idx)
@@ -448,6 +554,7 @@ def prefill_clients(sparams, cfg: ModelConfig, tokens, prefix_emb=None, *,
                 c["conv"].copy_(conv)
                 c["ssm"].copy_(ssm_state)
             x, _ = _ffn(sp, cfg, spec, x + out)
+            x = constrain(x, "client", "batch", "res_seq", "embed_act")
     return _unembed(sparams, cfg, x[:, :, -1:])[:, :, 0], cache
 
 

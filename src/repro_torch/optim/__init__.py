@@ -10,6 +10,10 @@ leaf in runs of ``CHUNK`` elements, so its fp32 temporaries are at most
 full-depth musicgen-medium clients) instead of the whole tree's.
 ``sgd_update`` takes a client-stacked tree and clips each client by its
 own global norm, as the JAX package's ``sgd_update`` does under ``vmap``.
+
+On a data x model mesh the trees are DTensors: the global norm reduces
+over every rank's shards (one norm for the whole tree, as unsharded), and
+each leaf's update runs on the rank's shards in place, in the same runs.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -73,10 +78,44 @@ def _client_runs(scale, *ts):
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32 (a 0-d tensor)."""
-    sq = [torch.sum(torch.square(r.float())) for x in tree_leaves(tree)
-          for (r,) in _runs(x)]
+    """sqrt of the sum of squares of every leaf, in fp32 (a 0-d tensor).
+    DTensor leaves add their ranks' shards once each: a rank's sum of
+    squares is a partial sum over the mesh dims that shard the leaf, and
+    one all-reduce a pattern of such dims completes it."""
+    sq, parts = [], {}
+    for x in tree_leaves(tree):
+        if isinstance(x, DTensor):
+            x = _unpartial(x)
+            key = (x.device_mesh,
+                   tuple(isinstance(p, Shard) for p in x.placements))
+            parts.setdefault(key, []).extend(
+                torch.sum(torch.square(r.float()))
+                for (r,) in _runs(x.to_local()))
+        else:
+            sq.extend(torch.sum(torch.square(r.float())) for (r,) in _runs(x))
+    for (mesh, sharded), local in parts.items():
+        sq.append(DTensor.from_local(
+            torch.sum(torch.stack(local)), mesh,
+            [Partial() if s else Replicate() for s in sharded]).full_tensor())
     return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def _unpartial(x):
+    """A DTensor's partial sums reduced (a gradient may hold one)."""
+    if not any(isinstance(p, Partial) for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if isinstance(p, Partial) else p for p in x.placements])
+
+
+def _shards(p, g, mu, nu):
+    """A DTensor param's update as its rank's shards: the gradient placed
+    as the param first (the moments are); plain tensors as they are."""
+    if not isinstance(p, DTensor):
+        return p, g, mu, nu
+    if tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    return tuple(t.to_local() for t in (p, g, mu, nu))
 
 
 def clip_by_global_norm(grads, max_norm: float) -> Tuple[dict, torch.Tensor]:
@@ -107,12 +146,17 @@ class AdamWConfig:
         return constant_schedule(self.lr)
 
 
+def _zeros32(p: torch.Tensor) -> torch.Tensor:
+    """fp32 zeros shaped (and, for a DTensor, placed) like ``p``."""
+    return torch.zeros_like(p, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
+
+
 def adamw_init(params) -> dict:
     """fp32 zero moments shaped like ``params`` and a 0-d int32 step."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
     step_device = tree_leaves(params)[0].device
-    return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+    return {"mu": tree_map(_zeros32, params),
+            "nu": tree_map(_zeros32, params),
             "step": torch.zeros((), dtype=torch.int32, device=step_device)}
 
 
@@ -172,9 +216,9 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
     bc2 = 1 - b2 ** step
     for path, leaf in _leaves_with_path(params):
         decay = cfg.weight_decay and _wd_mask(path)
-        for (p, g, mu, nu), s in _client_runs(
-                scale, leaf, _at(grads, path), _at(state["mu"], path),
-                _at(state["nu"], path)):
+        for (p, g, mu, nu), s in _client_runs(scale, *_shards(
+                leaf, _at(grads, path), _at(state["mu"], path),
+                _at(state["nu"], path))):
             g = g.float()
             if s is not None:
                 g = g * s                    # never scales the caller's grads

@@ -258,25 +258,29 @@ def test_collectives_from_shapes():
 
 
 def test_refused_variants_and_meshes(capsys):
+    """``flash`` stays refused; the data x model variants are axis rules
+    (``mesh_rules``) that change nothing on one card; the production
+    meshes are known mesh kinds."""
     cfg = get_reduced("qwen3-4b")
-    for variant in ("flash", "attn_dp", "no_fsdp", "seqpar",
-                    "chunked_ce+flash"):
+    for variant in ("flash", "chunked_ce+flash"):
         with pytest.raises(ValueError, match="refused"):
             D.build_case(cfg, SMALL["train"], "single", "standard", variant)
-    with pytest.raises(ValueError, match="data x model"):
-        D.check_variant("seqpar")
+    assert D.check_variant("seqpar+no_fsdp+attn_dp") == ("seqpar", "no_fsdp",
+                                                         "attn_dp")
     with pytest.raises(ValueError, match="unknown variant"):
         D.check_variant("bogus")
     with pytest.raises(ValueError, match="no clients"):
         D.build_case(cfg, SMALL["train"], "clients", "standard")
-    with pytest.raises(ValueError, match="not ported"):
-        D.check_mesh("multi", "dml")
+    D.check_mesh("multi", "dml")
+    D.check_mesh("pod", "standard")
+    with pytest.raises(ValueError, match="unknown mesh"):
+        D.check_mesh("galaxy", "dml")
     rec = D.run_case("qwen3-4b", "train_4k", "single", variant="flash",
                      verbose=False)
     assert rec["status"] == "FAIL" and "xla_flash" in rec["error"]
     with pytest.raises(SystemExit):
         D.main(["--arch", "qwen3-4b", "--shape", "train_4k", "--variant",
-                "no_fsdp"])
+                "flash"])
     assert "refused" in capsys.readouterr().err
 
 

@@ -343,6 +343,7 @@ TRAINING_MODULES = (
     "repro_torch.privacy.dp", "repro_torch.privacy.accountant",
     "repro_torch.privacy.attacks", "repro_torch.core.strategies.dp",
     "repro_torch.core.strategies.robust", "repro_torch.sharding",
+    "repro_torch.sharding.local",
     "repro_torch.launch.mesh", "repro_torch.launch.specs",
     "repro_torch.launch.dryrun", "repro_torch.analysis",
     "repro_torch.analysis.roofline", "repro_torch.launch.quickstart",
