@@ -47,10 +47,10 @@ Phases, each fatal on failure:
      reads out Eq. 2 of the final public logits through ``mutual_kl``, and
      round 1 and each client's gradient are held against the same round at
      ``impl="ref"``;
-  5. phase 3 for K=2 full-width mamba2-780m clients at 12 of its 48
+  5. phase 3 for K=2 full-width mamba2-780m clients at 6 of its 48
      layers (for time) on 1024-token prompts, through the SSD forward
      kernel;
-  6. phase 4 for K=3 full-width mamba2-780m clients at 6 of its 48
+  6. phase 4 for K=3 full-width mamba2-780m clients at 3 of its 48
      layers (for time), seq 1024 (18,432 trained tokens a round), through
      the SSD
      forward and backward kernels and the square pair-KL kernels;
@@ -99,7 +99,7 @@ Phases, each fatal on failure:
      products at their widest; the prefill parity on a copy of the first
      layer of both clients;
   13. phase 3 for K=2 llava-next-mistral-7b clients at full width (d 4096,
-     32/8 heads of 128, d_ff 14,336, vocab 32,000), 8 of its 32 layers
+     32/8 heads of 128, d_ff 14,336, vocab 32,000), 4 of its 32 layers
      (for time; at 32 layers 7.24 B params a client, 29 GB for
      two): each prompt of 1536 tokens
      stands behind its own 2880-position image prefix of dim 1024 (seeded
@@ -119,10 +119,10 @@ Phases, each fatal on failure:
      still biting: the plain attention's fp32 scores for the population's
      18 sequences would be ~40 GB a layer;
   15. phase 3 for K=2 musicgen-medium clients at full width (d 1536, 24/24
-     heads of 64, vocab 2048), 6 of its 48 layers (for time),
+     heads of 64, vocab 2048), 3 of its 48 layers (for time),
      behind a 64-position conditioning prefix of dim 768; the prefill
      parity on the whole population;
-  16. phase 4 for K=3 musicgen-medium clients at full width, 6 of its 48
+  16. phase 4 for K=3 musicgen-medium clients at full width, 3 of its 48
      layers (for time), batch 4, public 2,
      seq 512, round 1
      and the gradients held on the whole population;
@@ -190,25 +190,33 @@ Phases, each fatal on failure:
      MFU); then ``launch.quickstart`` and ``launch.serve_lm`` on the card
      (the flash, square Eq.-2 and SSD kernels launched).
   25. the data x model mesh (``sharding.use_mesh``, DTensor programs):
-     four ranks as a (data 2, model 2) DeviceMesh, sharing the card over
-     gloo (which collectives gloo takes on CUDA tensors is checked and
-     printed; the functional ones DTensor calls go through gloo's eager
-     ones, ``_gloo_cuda_collectives``), or a card each over
-     NCCL with ``--cards 4``; full-width qwen3-4b at 2 layers, params drawn
-     from seed 0 and kept as shards by their logical axes: 3
-     ``make_train_step`` steps, one fused DML round (K = 2) and one
-     SparseDML round (k = 64, the vocab-sharded top-k), all at impl "cuda"
-     (the flash kernels on each rank's (batch, heads) shard, the square
-     Eq.-2 and sparse-KL kernels on the vocab-gathered logits), each held
-     against the same program run unsharded on the card by rank 0: metrics
-     within relative 2e-2, and leaf by leaf each update (after - before)
-     and first moment within
-     ``DM_UPDATE_LIMIT`` and ``DM_MU_LIMIT``, limits that the same program
-     on half of every batch (the control) must exceed on every leaf;
-     per-rank peak memory, the walls and ``CommDebugMode``'s
-     collective counts printed; then the ``pod``-mesh dry-run (data 16 x
-     model 16, the fake process group) of phase 4's round and phase 19's
-     step in a subprocess, their per-card counts printed;
+     four ranks as a (data 2, model 2) and a (pod 2, data 1, model 2)
+     DeviceMesh, sharing the card over gloo (which collectives gloo takes
+     on CUDA tensors is checked and printed; the functional ones DTensor
+     calls run card to card through CUDA IPC,
+     ``_shared_card_collectives``), or a card each over NCCL with
+     ``--cards 4``; params drawn from seed 0 and
+     kept as shards by their logical axes; full-width qwen3-4b at 2
+     layers: 2 ``make_train_step`` steps, one fused DML round (K = 2) and
+     one SparseDML round (k = 64, the vocab-sharded top-k); M1 full-width
+     qwen2-moe-a2.7b at 1 layer in fp32 (TF32 off), a train step (the MoE
+     FFN on each rank's shards, the experts split over model); M2 the same
+     in bf16, a DML round; M3 full-width mamba2-780m at 2 layers, a train
+     step (the SSD scan on each rank's (batch, heads) shard); M4 the
+     qwen3-4b DML round with the clients on the pod axis (the rectangular
+     pair kernels, one live client against both); all at impl "cuda",
+     each held against the same program run unsharded on the card by
+     rank 0: metrics within relative 2e-2, and (but M2) leaf by leaf each
+     update (after - before) and first moment within ``DM_UPDATE_LIMIT``
+     and ``DM_MU_LIMIT``, limits that the same program on half of every
+     batch (the control) must exceed on every leaf; the shards reach rank
+     0 through CUDA IPC; per-rank peak memory, the walls,
+     ``CommDebugMode``'s collective counts, the bytes by mesh dim, M1's
+     and M2's route flips printed; the pair kernels and the SSD scan
+     timed at the local shapes M4 and M3 gave them; then the
+     ``pod``-mesh dry-run (data 16 x model 16, the fake process group) of
+     phase 4's round and phase 19's step in a subprocess, their per-card
+     counts printed;
 With ``--cards N`` only phases 22 (K = 4), 23 and 25 run, over N distinct
 cards.
 jamba-1.5-large-398b does not run on the card: one full-width period (8
@@ -1540,26 +1548,8 @@ def phase_ssd(train_shapes, serve_shapes) -> list:
     rows = []
     for shape, name in ((train_shapes[0], "training"),
                         (serve_shapes[0], "prefill")):
-        ins = _ssd_inputs(*shape, BF16, gen)
-        y, fin, states = ssd_scan._forward(*ins, 256)
-        dy = torch.randn(y.shape, device="cuda", generator=gen).to(BF16)
-        fwd_ms = time_ms(lambda: ssd_scan._forward(*ins, 256), iters=10)
-        bwd_ms = time_ms(lambda: ssd_scan._backward(*ins, states, dy, None,
-                                                    256), iters=10)
-        leaves = [t.detach().requires_grad_(True) for t in ins]
-
-        def plain_f():
-            with torch.no_grad():
-                ref.ssd(*leaves, chunk=256)
-
-        def plain_fb():
-            torch.autograd.grad(ref.ssd(*leaves, chunk=256)[0], leaves, dy)
-        plain_fwd = time_ms(plain_f, iters=3, warmup=1)
-        plain_bwd = time_ms(plain_fb, iters=3, warmup=1) - plain_fwd
-        fb = _bound(_ssd_ops(*shape, 256, False),
-                    _ssd_bytes(*shape, 256, BF16, False), BF16)
-        bb = _bound(_ssd_ops(*shape, 256, True),
-                    _ssd_bytes(*shape, 256, BF16, True), BF16)
+        fwd_ms, bwd_ms, plain_fwd, plain_bwd, fb, bb = _ssd_times(shape,
+                                                                  gen)
         print(f"SSD forward at the {name} shape (B, S, H, P, G, N) = {shape} "
               f"bf16 chunk 256: {fwd_ms:.4f} ms, plain {plain_fwd:.4f} ms, "
               f"no single library call; bound {fb[0]:.4f} ms by {fb[1]} "
@@ -1584,9 +1574,38 @@ def phase_ssd(train_shapes, serve_shapes) -> list:
                  "replaces": "src/repro/kernels/ssd_scan.py:154",
                  "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": plain_bwd,
                  "bound_ms": bb[0], "bound_by": bb[1]}]
-        del ins, y, fin, states, dy, leaves
-        torch.cuda.empty_cache()
     return rows
+
+
+def _ssd_times(shape, gen) -> tuple:
+    """The bf16 SSD kernels at ``shape`` (B, S, H, P, G, N), chunk 256, on
+    fresh draws: (forward ms, backward ms, the plain version's forward
+    and backward ms (autograd of ``ref.ssd``, fwd+bwd - fwd), the forward's
+    and the backward's (bound ms, bound by))."""
+    from repro_torch.kernels import ref, ssd_scan
+    ins = _ssd_inputs(*shape, BF16, gen)
+    y, fin, states = ssd_scan._forward(*ins, 256)
+    dy = torch.randn(y.shape, device="cuda", generator=gen).to(BF16)
+    fwd_ms = time_ms(lambda: ssd_scan._forward(*ins, 256), iters=10)
+    bwd_ms = time_ms(lambda: ssd_scan._backward(*ins, states, dy, None, 256),
+                     iters=10)
+    leaves = [t.detach().requires_grad_(True) for t in ins]
+
+    def plain_f():
+        with torch.no_grad():
+            ref.ssd(*leaves, chunk=256)
+
+    def plain_fb():
+        torch.autograd.grad(ref.ssd(*leaves, chunk=256)[0], leaves, dy)
+    plain_fwd = time_ms(plain_f, iters=3, warmup=1)
+    plain_bwd = time_ms(plain_fb, iters=3, warmup=1) - plain_fwd
+    fb = _bound(_ssd_ops(*shape, 256, False),
+                _ssd_bytes(*shape, 256, BF16, False), BF16)
+    bb = _bound(_ssd_ops(*shape, 256, True),
+                _ssd_bytes(*shape, 256, BF16, True), BF16)
+    del ins, y, fin, states, dy, leaves
+    torch.cuda.empty_cache()
+    return fwd_ms, bwd_ms, plain_fwd, plain_bwd, fb, bb
 
 
 # ---------------------------------------------------------------------------
@@ -3743,7 +3762,7 @@ def phase_kl_sharded(B: int, V: int, n_dev: int = 2, checked=(3, 4),
     needs: the Kl live ones and the fixed columns some row weights
     nonzero, read by the forward; the backward reads them and writes
     dlive (Kl more).  Returns the pair kernels' rows at the timed call."""
-    from repro_torch.kernels import kl_mutual, ops, ref
+    from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(11)
     errs = {}
     for K in checked:
@@ -3798,35 +3817,15 @@ def phase_kl_sharded(B: int, V: int, n_dev: int = 2, checked=(3, 4),
         .to(BF16)
     live = fleet[gids.cuda()]
     gbar = torch.randn(k_loc, B, device="cuda", generator=gen)
-    out, zl, zf, name = kl_mutual._forward(live, fleet, w, 1.0)
-    if name != kl_mutual.PAIR:
-        raise AssertionError(f"the sharded call left the pair kernel: "
-                             f"{name}")
-    ms_f = time_ms(lambda: kl_mutual._forward(live, fleet, w, 1.0))
-    ms_b = time_ms(lambda: kl_mutual._backward(live, fleet, w, out, zl, zf,
-                                               gbar, 1.0, False))
-    a = live.detach().requires_grad_(True)
-
-    def plain_f():
-        with torch.no_grad():
-            ref.mutual_kl_pair(a, fleet, w)
-
-    def plain_fb():
-        torch.autograd.grad(ref.mutual_kl_pair(a, fleet, w), a, gbar)
-    plain_fwd = time_ms(plain_f, iters=5)
-    plain_bwd = time_ms(plain_fb, iters=5) - plain_fwd
-    plane = B * V * 2
-    fb = _bound(_kl_ops(k_loc, used, B, V), (k_loc + used) * plane,
-                torch.float32)
-    bb = _bound(_kl_bwd_ops(k_loc, used, B, V), (2 * k_loc + used) * plane,
-                torch.float32)
+    ms_f, ms_b, plain_fwd, plain_bwd, fb, bb = _pair_times(live, fleet, w,
+                                                           gbar)
     for what, ms, plain, (bound, by) in (("forward", ms_f, plain_fwd, fb),
                                          ("backward", ms_b, plain_bwd, bb)):
         print(f"KL pair {what} at K = {timed}, Kl={k_loc} against J={k_pad}"
               f" ({used} columns weighted) at (B={B}, V={V}) bf16: "
               f"{ms:.4f} ms, plain {plain:.4f} ms; bound {bound:.4f} ms by "
               f"{by} ({bound / ms:.0%} of it)")
-    del fleet, live, a, out, zl, zf, gbar
+    del fleet, live, gbar
     torch.cuda.empty_cache()
     src = "src/repro_torch/kernels/csrc/kl_mutual_pair.cu"
     row = dict(route="cuda", source=src, launches=None, library_ms=None)
@@ -3840,6 +3839,43 @@ def phase_kl_sharded(B: int, V: int, n_dev: int = 2, checked=(3, 4),
          "max_abs_err": errs[BF16][1], "ms": ms_b, "plain_ms": plain_bwd,
          "bound_ms": bb[0], "bound_by": bb[1]},
     ]
+
+
+def _pair_times(live, fixed, w, gbar) -> tuple:
+    """The pair kernels on live (Kl, B, V) against fixed (J, B, V) with
+    (Kl, J) weights ``w`` and cotangent ``gbar``: (forward ms, backward
+    ms, the plain version's forward and backward ms (autograd of
+    ``ref.mutual_kl_pair``, fwd+bwd - fwd), the forward's and the
+    backward's (bound ms, bound by)).  The bounds count the planes the
+    function needs: the live ones and the fixed columns some row weights
+    nonzero, read by the forward; the backward reads them and writes
+    dlive.  Raises if the call leaves the pair kernel."""
+    from repro_torch.kernels import kl_mutual, ref
+    k_loc, B, V = live.shape
+    used = int((w != 0).any(0).sum())
+    out, zl, zf, name = kl_mutual._forward(live, fixed, w, 1.0)
+    if name != kl_mutual.PAIR:
+        raise AssertionError(f"the call left the pair kernel: {name}")
+    ms_f = time_ms(lambda: kl_mutual._forward(live, fixed, w, 1.0))
+    ms_b = time_ms(lambda: kl_mutual._backward(live, fixed, w, out, zl, zf,
+                                               gbar, 1.0, False))
+    a = live.detach().requires_grad_(True)
+
+    def plain_f():
+        with torch.no_grad():
+            ref.mutual_kl_pair(a, fixed, w)
+
+    def plain_fb():
+        torch.autograd.grad(ref.mutual_kl_pair(a, fixed, w), a, gbar)
+    plain_fwd = time_ms(plain_f, iters=5)
+    plain_bwd = time_ms(plain_fb, iters=5) - plain_fwd
+    plane = B * V * live.element_size()
+    fb = _bound(_kl_ops(k_loc, used, B, V), (k_loc + used) * plane,
+                torch.float32)
+    bb = _bound(_kl_bwd_ops(k_loc, used, B, V), (2 * k_loc + used) * plane,
+                torch.float32)
+    del out, zl, zf, a
+    return ms_f, ms_b, plain_fwd, plain_bwd, fb, bb
 
 
 def _sync_all() -> None:
@@ -4404,16 +4440,37 @@ def _full(v):
 
 
 def _dm_paths(cfg, K: int, B: int, S: int, sparse_k: int, steps: int):
-    """The three programs of phase 25 as (name, build, run): ``build(dev,
-    mesh)`` draws the params (seed 0, on the card) and, with a mesh,
-    distributes them by their logical axes; ``run(params, dev, mesh,
-    half=False)`` steps them from zero moments and returns (params,
-    optimizer state, metrics per step, step walls).  ``half`` runs the
-    program on the first half of every batch: the control that the
-    comparison must reject (a gradient that misses half the rows, as a
-    partial sum left unreduced over the data axis would)."""
+    """The programs of phase 25, each a dict: ``name``; ``mesh``, the mesh
+    it runs on ("data_model", (data 2, model 2), or "pod", (pod 2, data
+    1, model 2)); ``rules``, the axis rules it is placed and run under;
+    ``build(dev, mesh)``, which draws the params (seed 0, on the card)
+    and, with a mesh, distributes them by their logical axes; ``run(params,
+    dev, mesh, half=False)``, which steps them from zero moments and
+    returns (params, optimizer state, metrics per step as the step returns
+    them, step walls); ``held``: its leaves are held to the limits and a
+    half-batch control must fail every leaf (else the readings are
+    printed only, with no control run); ``routes``: its MoE routes are
+    logged sharded and unsharded; ``need``: the kernels it must launch.
+    ``half`` runs the program on the first half of every batch: the
+    control that the comparison must reject (a gradient that misses half
+    the rows, as a partial sum left unreduced over the data axis would).
+
+    qwen3-4b (``cfg``, full width, bf16): ``steps`` train steps of B x S,
+    a fused DML round and a SparseDML round (k = ``sparse_k``) of K
+    clients (private B, public B // 2).  Then (all full width, impl
+    "cuda", one step each): M1 qwen2-moe-a2.7b at 1 layer (its period) in
+    fp32, a train step (the flash fp32 path; with TF32 off the sharded and
+    unsharded routes should agree); M2 the same at bf16, a DML round of K
+    clients (printed, not held: a bf16 route flip moves a whole expert's
+    gradient); M3 mamba2-780m at 2 layers, a train step (the SSD scan on
+    each rank's (batch, heads) shard); M4 qwen3-4b's DML round with the
+    clients on the pod axis (``spmd_client_axis="pod"``, the dry-run's DML
+    rules), whose Eq.-2 term runs the rectangular pair kernels, one live
+    client against both."""
     from repro_torch import sharding as shd
+    from repro_torch.configs import get_config
     from repro_torch.core import distributed as D
+    from repro_torch.launch import dryrun
     from repro_torch.launch import steps as st
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -4421,25 +4478,30 @@ def _dm_paths(cfg, K: int, B: int, S: int, sparse_k: int, steps: int):
     # LMClients' optimiser and DML()'s Eq.-1 weight, as phase 24's
     opt_cfg = AdamWConfig(lr=1e-3, warmup=5, total_steps=3)
     pub = max(1, B // 2)
-    gen = torch.Generator().manual_seed(25)
-    V = cfg.vocab_size
-    data = {"train": [torch.randint(0, V, (B, S), generator=gen)
-                      for _ in range(steps)],
-            "tokens": torch.randint(0, V, (K, B, S), generator=gen),
-            "public": torch.randint(0, V, (pub, S), generator=gen)}
+    moe32 = get_config("qwen2-moe-a2.7b").replace(
+        n_layers=1, param_dtype="float32", compute_dtype="float32")
+    moe16 = get_config("qwen2-moe-a2.7b").replace(n_layers=1)
+    ssm = get_config("mamba2-780m").replace(n_layers=2)
+
+    def draw(V, seed, n_train):
+        gen = torch.Generator().manual_seed(seed)
+        return {"train": [torch.randint(0, V, (B, S), generator=gen)
+                          for _ in range(n_train)],
+                "tokens": torch.randint(0, V, (K, B, S), generator=gen),
+                "public": torch.randint(0, V, (pub, S), generator=gen)}
 
     def put(t, axes, dev, mesh):
         t = t.to(dev, torch.int32)
         return shd.distribute(t, axes, mesh) if mesh is not None else t
 
-    def build(stacked):
+    def build(c, stacked):
         def fn(dev, mesh):
             if stacked:
-                params = D.stacked_init(0, cfg, K, device=dev)
-                axes = D.stacked_logical_axes(cfg)
+                params = D.stacked_init(0, c, K, device=dev)
+                axes = D.stacked_logical_axes(c)
             else:
-                params = tfm.init_model(0, cfg, device=dev)
-                axes = tfm.logical_axes(cfg)
+                params = tfm.init_model(0, c, device=dev)
+                axes = tfm.logical_axes(c)
             if mesh is not None:
                 params = shd.distribute_tree(params, axes, mesh)
             return params
@@ -4452,22 +4514,24 @@ def _dm_paths(cfg, K: int, B: int, S: int, sparse_k: int, steps: int):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    def train(params, dev, mesh, half=False):
-        step = st.make_train_step(cfg, opt_cfg, impl="cuda")
-        opt = adamw_init(params)
-        ms, walls = [], []
-        for toks in data["train"]:
-            x = put(toks[:B // 2] if half else toks, ("batch", "seq"), dev,
-                    mesh)
-            (params, opt, m), secs = timed(lambda: step(params, opt, x))
-            ms.append({"ce": _full(m["ce"]), "grad_norm":
-                       _full(m["grad_norm"])})
-            walls.append(secs)
-        return params, opt, ms, walls
-
-    def dml(sk):
+    def train(c, data):
         def run(params, dev, mesh, half=False):
-            step = D.make_dml_train_step(cfg, opt_cfg, sparse_k=sk,
+            step = st.make_train_step(c, opt_cfg, impl="cuda")
+            opt = adamw_init(params)
+            ms, walls = [], []
+            for toks in data["train"]:
+                x = put(toks[:B // 2] if half else toks, ("batch", "seq"),
+                        dev, mesh)
+                (params, opt, m), secs = timed(lambda: step(params, opt, x))
+                ms.append({k: v for k, v in m.items() if k != "lr"})
+                walls.append(secs)
+            return params, opt, ms, walls
+        return run
+
+    def dml(c, data, sk, client_axis=None):
+        def run(params, dev, mesh, half=False):
+            step = D.make_dml_train_step(c, opt_cfg, sparse_k=sk,
+                                         spmd_client_axis=client_axis,
                                          impl="cuda")
             opt = adamw_init(params)
             toks, public = data["tokens"], data["public"]
@@ -4476,64 +4540,189 @@ def _dm_paths(cfg, K: int, B: int, S: int, sparse_k: int, steps: int):
             x = put(toks, ("client", "batch", "seq"), dev, mesh)
             p = put(public, ("batch", "seq"), dev, mesh)
             (params, opt, m), secs = timed(lambda: step(params, opt, x, p))
-            return params, opt, [{k: _full(m[k]) for k in (
+            return params, opt, [{k: m[k] for k in (
                 "private_loss", "public_ce", "kld_avg", "grad_norm")}], [secs]
         return run
 
-    return [("train", build(False), train),
-            ("dml", build(True), dml(0)),
-            ("sparse_dml", build(True), dml(sparse_k))]
+    qwen = draw(cfg.vocab_size, 25, steps)
+    flash = ("flash_attention_fwd", "flash_attention_bwd")
+    square = flash + ("kl_mutual_square_fwd", "kl_mutual_square_bwd")
+    one = dict(mesh="data_model", rules={}, held=True, routes=False,
+               need=flash)
+    return [
+        dict(one, name="train", cfg=cfg, build=build(cfg, False),
+             run=train(cfg, qwen)),
+        dict(one, name="dml", cfg=cfg, build=build(cfg, True),
+             run=dml(cfg, qwen, 0), need=square),
+        dict(one, name="sparse_dml", cfg=cfg, build=build(cfg, True),
+             run=dml(cfg, qwen, sparse_k),
+             need=flash + ("sparse_kl_fwd", "sparse_kl_bwd")),
+        dict(one, name="M1 moe_train", cfg=moe32, routes=True,
+             build=build(moe32, False),
+             run=train(moe32, draw(moe32.vocab_size, 27, 1))),
+        dict(one, name="M2 moe_dml", cfg=moe16, routes=True, held=False,
+             build=build(moe16, True),
+             run=dml(moe16, draw(moe16.vocab_size, 28, 0), 0), need=square),
+        dict(one, name="M3 ssd_train", cfg=ssm, build=build(ssm, False),
+             run=train(ssm, draw(ssm.vocab_size, 29, 1)),
+             need=("ssd_scan_fwd", "ssd_scan_bwd")),
+        dict(one, name="M4 pod_dml", cfg=cfg, mesh="pod",
+             rules=dryrun.mesh_rules("dml"), build=build(cfg, True),
+             run=dml(cfg, qwen, 0, client_axis="pod"),
+             need=flash + ("kl_mutual_pair_fwd", "kl_mutual_pair_bwd")),
+    ]
 
 
-# the library that routes the functional collectives of CUDA tensors
-# through gloo's eager collectives (``_gloo_cuda_collectives``), once
-_GLOO_CUDA = []
+class _AxisBytes:
+    """Bytes of the functional collectives run inside, by mesh dim and
+    kind (the tensor each writes, as the dry-run counts them): a dispatch
+    mode that
+    names each op's process group by ``mesh``'s dims, the flattened ones
+    included, and passes every op through."""
+
+    def __init__(self, mesh):
+        from repro_torch.launch.mesh import flat_dims
+        names = list(mesh.mesh_dim_names)
+        names += ["_".join(d) for d in flat_dims(mesh)]
+        self.axis_of = {mesh[n].get_group().group_name: n for n in names}
+        self.bytes: dict = {}
+
+    def __enter__(self):
+        from torch.distributed.tensor import DTensor
+        from torch.utils._python_dispatch import TorchDispatchMode
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                if any(isinstance(a, DTensor) for a in args):
+                    return NotImplemented   # DTensor runs the local ops
+                out = func(*args, **kwargs)
+                kind = func._overloadpacket.__name__
+                if getattr(func, "namespace", "") == "_c10d_functional" \
+                        and kind in DM_COLLECTIVES:
+                    axis = outer.axis_of.get(args[-1], str(args[-1]))
+                    per = outer.bytes.setdefault(axis, {})
+                    per[kind] = per.get(kind, 0) \
+                        + out.numel() * out.element_size()
+                return out
+
+        self.mode = Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
 
 
-def _gloo_cuda_collectives() -> None:
+def _record_calls(module, attr: str, log: list):
+    """Wraps ``module.attr`` so that each call appends its tensor
+    arguments' shapes and dtypes to ``log``; returns the undo."""
+    fn = getattr(module, attr)
+
+    def wrapped(*args, **kw):
+        log.append([(tuple(a.shape), str(a.dtype)[6:]) for a in args
+                    if isinstance(a, torch.Tensor)])
+        return fn(*args, **kw)
+    setattr(module, attr, wrapped)
+    return lambda: setattr(module, attr, fn)
+
+
+# the library that runs the functional collectives of CUDA tensors on a
+# card the ranks share (``_shared_card_collectives``), once
+_SHARED_CARD = []
+
+
+def _ipc_copy(x):
+    """A contiguous copy of the CUDA tensor ``x`` in memory that CUDA IPC
+    can share (expandable segments off for the allocation)."""
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    try:
+        return x.detach().contiguous().clone()
+    finally:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+
+
+def _shared_card_collectives() -> None:
     """DTensor moves data with ``torch.distributed``'s functional
     collectives (``_c10d_functional.*`` and ``wait_tensor``); over gloo on
-    CUDA tensors their ``wait_tensor`` crashes the process, while gloo's
-    eager collectives take CUDA tensors (staging them through the host).
-    So for CUDA tensors each functional collective is written here from
-    the eager one of the same name, run synchronously on the group the op
-    names (an average as a sum over the group's size: gloo has no AVG),
-    and ``wait_tensor`` returns its input.  The data never leaves the
-    card but through gloo's own staging."""
-    if _GLOO_CUDA:
+    CUDA tensors their ``wait_tensor`` crashes the process, and gloo's
+    eager collectives stage every byte through the host.  Where the ranks
+    share one card, each functional collective is written here card to
+    card: every rank shares a copy of its input through CUDA IPC (the
+    handles cross the op's gloo group), reads the others' copies, and
+    combines them in group-rank order, so every rank computes the same
+    bits (an average as a sum over the group's size); a barrier keeps
+    each copy alive until every rank has read it.  ``wait_tensor``
+    returns its input."""
+    if _SHARED_CARD:
         return
     import torch.distributed as dist
     from torch.distributed.distributed_c10d import _resolve_process_group
+    from torch.multiprocessing.reductions import reduce_tensor
 
-    ops = {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.SUM,
-           "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
-           "product": dist.ReduceOp.PRODUCT}
+    def parts(x, group, meta=None):
+        """The group's inputs in group-rank order (this rank's own copy
+        and IPC views of the others'), each rank's ``meta``, this rank's
+        place in the group, and a done() that waits for the reads, then
+        for every rank's, and drops the views."""
+        pg = _resolve_process_group(group)
+        keep = [_ipc_copy(x)]
+        shared = [None] * pg.size()
+        dist.all_gather_object(shared, (reduce_tensor(keep[0]), meta),
+                               group=pg)
+        me = dist.get_group_rank(pg, dist.get_rank())
+        got = [keep[0] if i == me else h[0](*h[1])
+               for i, (h, _) in enumerate(shared)]
+
+        def done():
+            torch.cuda.current_stream().synchronize()
+            got.clear()
+            dist.barrier(group=pg)
+            keep.clear()
+            torch.cuda.ipc_collect()
+        return got, [m for _, m in shared], me, done
+
+    def reduce(xs, op):
+        out = xs[0].clone()
+        for t in xs[1:]:
+            if op in ("sum", "avg"):
+                out += t
+            elif op == "max":
+                torch.maximum(out, t, out=out)
+            elif op == "min":
+                torch.minimum(out, t, out=out)
+            else:
+                out *= t
+        return out / len(xs) if op == "avg" else out
 
     def all_reduce(x, op, group):
-        pg = _resolve_process_group(group)
-        y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, op=ops[op.lower()], group=pg)
-        return y / pg.size() if op.lower() == "avg" else y
+        xs, _, _, done = parts(x, group)
+        out = reduce(xs, op.lower())
+        done()
+        return out
 
     def all_gather_into_tensor(x, size, group):
-        out = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
-        dist.all_gather_into_tensor(out, x.contiguous(),
-                                    group=_resolve_process_group(group))
+        xs, _, _, done = parts(x, group)
+        out = torch.cat(xs)
+        done()
         return out
 
     def reduce_scatter_tensor(x, op, size, group):
-        pg = _resolve_process_group(group)
-        out = x.new_empty((x.shape[0] // size,) + tuple(x.shape[1:]))
-        dist.reduce_scatter_tensor(out, x.contiguous(), op=ops[op.lower()],
-                                   group=pg)
-        return out / size if op.lower() == "avg" else out
+        xs, _, me, done = parts(x, group)
+        rows = x.shape[0] // size
+        out = reduce([t[me * rows:(me + 1) * rows] for t in xs], op.lower())
+        done()
+        return out
 
     def all_to_all_single(x, out_sizes, in_sizes, group):
-        pg = _resolve_process_group(group)
-        rows = sum(out_sizes) if out_sizes else x.shape[0]
-        out = x.new_empty((rows,) + tuple(x.shape[1:]))
-        dist.all_to_all_single(out, x.contiguous(), out_sizes or None,
-                               in_sizes or None, group=pg)
+        n = _resolve_process_group(group).size()
+        splits = list(in_sizes) or [x.shape[0] // n] * n
+        xs, sizes, me, done = parts(x, group, splits)
+        # rank i sends this rank the chunk ``me`` of its input
+        out = torch.cat([t[sum(s[:me]):sum(s[:me + 1])]
+                         for t, s in zip(xs, sizes)])
+        done()
         return out
 
     lib = torch.library.Library("_c10d_functional", "IMPL")
@@ -4541,42 +4730,49 @@ def _gloo_cuda_collectives() -> None:
                all_to_all_single):
         lib.impl(fn.__name__, fn, "CUDA")
     lib.impl("wait_tensor", lambda t: t, "CUDA")
-    _GLOO_CUDA.append(lib)
+    _SHARED_CARD.append(lib)
 
 
-
-
-def _on_rank0(t, group, dtype=None):
-    """The DTensor ``t`` whole on rank 0 (None on the others), cast to
-    ``dtype`` if given: each rank's shard goes to rank 0 once, through the
-    host over ``group`` (gloo), a quarter of the traffic of
-    ``full_tensor``'s all-gather."""
+def _on_rank0(t, group):
+    """The DTensor ``t`` whole on rank 0's card (None on the others): each
+    rank shares a copy of its shard with rank 0 through CUDA IPC (only the
+    handle crosses ``group``), and rank 0 copies the shards into place
+    card to card, so no shard is staged through the host.  Each sender
+    keeps its copy until rank 0 has read every shard (a barrier)."""
     import torch.distributed as dist
+    from torch.multiprocessing.reductions import reduce_tensor
 
     from repro_torch.sharding import local_offset
     mesh = t.device_mesh
-    local = t.to_local().detach()
-    local = (local if dtype is None else local.to(dtype)).cpu().contiguous()
+    local = _ipc_copy(t.to_local())
     first = dist.get_rank() == 0
-    parts = ([torch.empty_like(local) for _ in range(dist.get_world_size())]
-             if first else None)
-    dist.gather(local, parts, dst=0, group=group)
-    if not first:
-        return None
-    full = torch.empty(t.shape, dtype=local.dtype)
-    for r, part in enumerate(parts):
-        coord = [int(c) for c in (mesh.mesh == r).nonzero()[0]]
-        full[tuple(slice(o, o + n) for o, n in
-                   zip(local_offset(t, coord), part.shape))] = part
+    handles = [None] * dist.get_world_size() if first else None
+    dist.gather_object(None if first else reduce_tensor(local), handles,
+                       dst=0, group=group)
+    full = None
+    if first:
+        full = torch.empty(t.shape, dtype=local.dtype, device=local.device)
+        for r, shared in enumerate(handles):
+            part = local if r == 0 else shared[0](*shared[1])
+            coord = [int(c) for c in (mesh.mesh == r).nonzero()[0]]
+            full[tuple(slice(o, o + n) for o, n in
+                       zip(local_offset(t, coord), part.shape))] = part
+            del part
+        torch.cuda.synchronize()
+    dist.barrier(group=group)
+    del local
+    torch.cuda.ipc_collect()
     return full
 
 
 def _dm_rank(rank: int, world: int, store: str, out_dir: str, backend: str,
              cfg, K: int, B: int, S: int, sparse_k: int, steps: int) -> None:
-    """One rank of phase 25: the three programs on the (data 2, model 2)
-    mesh at impl "cuda" under ``CommDebugMode``, each program's launches
-    counted from 0 and read right after it; then rank 0 runs each again
-    unsharded on its card from the same seeded draw, and once more on half
+    """One rank of phase 25: the programs of ``_dm_paths`` on their meshes
+    at impl "cuda" under ``CommDebugMode`` (and ``_AxisBytes``), each
+    program's launches counted from 0 and read right after it (M1 and M2
+    also log their routes, M3 and M4 the local shapes of their SSD and
+    pair-KL calls); then rank 0 runs each again unsharded on its card
+    from the same seeded draw, and (for a held program) once more on half
     of every batch (the control), and compares leaf by leaf: each leaf's
     update (after - before) and first moment (the clipped gradients'
     average), the sharded leaf sent to rank 0 whole.  Writes its record to
@@ -4589,7 +4785,9 @@ def _dm_rank(rank: int, world: int, store: str, out_dir: str, backend: str,
 
     from repro_torch import sharding as shd
     from repro_torch.checkpoint import flatten
+    from repro_torch.kernels import kl_mutual, ssd_scan
     from repro_torch.launch.mesh import make_card_mesh
+    from repro_torch.models import moe
 
     faulthandler.enable()           # a crashing rank says where
 
@@ -4600,28 +4798,50 @@ def _dm_rank(rank: int, world: int, store: str, out_dir: str, backend: str,
     dev = torch.device("cuda", rank % torch.cuda.device_count())
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dist.init_process_group(backend, store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
         rec = {"rank": rank, "device": str(dev), "backend": backend,
                "collectives": _dm_collectives(dev)}
         if backend == "gloo":
-            _gloo_cuda_collectives()
-        mesh = make_card_mesh((2, 2), ("data", "model"))
+            _shared_card_collectives()
+        meshes = {"data_model": make_card_mesh((2, 2), ("data", "model")),
+                  "pod": make_card_mesh((2, 1, 2), ("pod", "data", "model"))}
         host = dist.new_group(backend="gloo")   # the comparison's sends
-        for name, build, run in _dm_paths(cfg, K, B, S, sparse_k, steps):
-            params = build(dev, mesh)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            _kernel_counts(zero=True)
-            with shd.use_mesh(mesh), CommDebugMode() as comm:
-                params, opt, gms, walls = run(params, dev, mesh)
+        for path in _dm_paths(cfg, K, B, S, sparse_k, steps):
+            name, build, run = path["name"], path["build"], path["run"]
+            mesh = meshes[path["mesh"]]
+            calls: dict = {"ssd": [], "pair": []}
+            undo = [_record_calls(ssd_scan, "ssd_scan", calls["ssd"]),
+                    _record_calls(kl_mutual, "kl_mutual_pair",
+                                  calls["pair"])]
+            with shd.axis_rules(path["rules"]):
+                params = build(dev, mesh)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                _kernel_counts(zero=True)
+                moe.route_log = [] if path["routes"] else None
+                try:
+                    with shd.use_mesh(mesh), CommDebugMode() as comm, \
+                            _AxisBytes(mesh) as axis_bytes:
+                        params, opt, gms, walls = run(params, dev, mesh)
+                    routes = moe.route_log
+                    # read after the counts: a metric's gather is no part
+                    # of the program
+                    gms = [{k: _full(v) for k, v in m.items()} for m in gms]
+                finally:
+                    moe.route_log = None
+                    for u in undo:
+                        u()
             launches = {n: c for n, c in _kernel_counts().items() if c}
             rec[name] = {
                 "walls": walls, "launches": launches,
                 "peak_bytes": torch.cuda.max_memory_allocated(dev),
                 "comm": {str(k).split(".")[-1]: v
                          for k, v in comm.get_comm_counts().items()},
+                "axis_bytes": axis_bytes.bytes,
+                "local_calls": {k: v[:1] for k, v in calls.items() if v},
                 "metrics": [{k: v.tolist() for k, v in m.items()}
                             for m in gms]}
             mu = opt["mu"]
@@ -4634,38 +4854,52 @@ def _dm_rank(rank: int, world: int, store: str, out_dir: str, backend: str,
             dist.barrier()
             if rank == 0:
                 before = flatten(build(dev, None))
-                want, w_opt, ms, ref_walls = run(build(dev, None), dev, None)
+                ref_routes = [] if path["routes"] else None
+                moe.route_log = ref_routes
+                try:
+                    want, w_opt, ms, ref_walls = run(build(dev, None), dev,
+                                                     None)
+                finally:
+                    moe.route_log = None
+                ms = [{k: _full(v) for k, v in m.items()} for m in ms]
                 rec[name].update(ref_walls=ref_walls, metric_rel={
                     k: max(float(((g[k] - w[k]).abs()
                                   / w[k].abs().clamp(min=1e-6)).max())
                            for g, w in zip(gms, ms)) for k in ms[0]})
+                if routes is not None:
+                    E = path["cfg"].moe.n_experts
+                    rec[name]["route_flips"] = _route_flips(routes,
+                                                            ref_routes, E)
+                    rec[name]["routed_tokens"] = [int(i.shape[0] * i.shape[1])
+                                                  for i, _ in routes]
+                del routes, ref_routes
                 want, w_mu = flatten(want), flatten(w_opt["mu"])
                 del w_opt
                 gc.collect()
                 torch.cuda.empty_cache()  # the reference's activations
-                c_p, c_opt, _, _ = run(build(dev, None), dev, None,
-                                       half=True)
-                c_p, c_mu = flatten(c_p), flatten(c_opt["mu"])
-                del c_opt
-                rec[name]["control"] = {
-                    "update": {k: _rel(c_p[k].float() - before[k],
+                if path["held"]:
+                    c_p, c_opt, _, _ = run(build(dev, None), dev, None,
+                                           half=True)
+                    c_p, c_mu = flatten(c_p), flatten(c_opt["mu"])
+                    del c_opt
+                    rec[name]["control"] = {
+                        "update": {k: _rel(c_p[k].float() - before[k],
                                            want[k].float() - before[k])
-                               for k in want},
-                    "mu": {k: _rel(c_mu[k], w_mu[k]) for k in w_mu}}
-                del c_p, c_mu
+                                   for k in want},
+                        "mu": {k: _rel(c_mu[k], w_mu[k]) for k in w_mu}}
+                    del c_p, c_mu
                 gc.collect()
                 torch.cuda.empty_cache()
+            else:
+                del routes
             dist.barrier()
             t_cmp = time.perf_counter()
             upd, mus = {}, {}
             got_mu = flatten(mu)
             for k, t in flatten(params).items():
                 p = _on_rank0(t, host)
-                # the moments cross in bf16, half the bytes: the rounding
-                # moves a reading by at most 2**-8 of the moment's norm
-                m = _on_rank0(got_mu[k], host, torch.bfloat16)
+                m = _on_rank0(got_mu[k], host)
                 if rank == 0:
-                    p, m = p.to(dev), m.to(dev)
                     w, b = want[k].float(), before[k].float()
                     upd[k] = _rel(p.float() - b, w - b)
                     mus[k] = _rel(m, w_mu[k])
@@ -4685,31 +4919,39 @@ def _dm_rank(rank: int, world: int, store: str, out_dir: str, backend: str,
 
 
 def phase_data_model(card: str, cfg, K: int = 2, B: int = 4, S: int = 512,
-                     sparse_k: int = 64, steps: int = 3,
-                     world: int = 4) -> dict:
+                     sparse_k: int = 64, steps: int = 2,
+                     world: int = 4) -> tuple:
     """Phase 25: the data x model mesh.  Four ranks form a (data 2, model
-    2) DeviceMesh (``launch.mesh.make_card_mesh``): over NCCL when each
-    rank has its own card, else over gloo with the ranks sharing the one
-    card (NCCL refuses two ranks on one device); which collectives gloo
-    takes on CUDA tensors is checked first and printed.  Each rank draws
-    ``cfg``'s params from seed 0 on its card and keeps its shards by the
-    logical axes (``sharding.distribute_tree``); under
-    ``sharding.use_mesh`` it runs ``steps`` ``launch.steps.make_train_step``
-    steps of B x S, one fused DML round of K clients
-    (``core.distributed.make_dml_train_step``: private B, public B // 2)
-    and one SparseDML round at k = ``sparse_k`` (its top-k through the
-    vocab-sharded two-stage ``_distributed_topk``), all at impl "cuda":
-    the flash kernels on each rank's (batch, heads) shard, the square
-    Eq.-2 and sparse-KL kernels on the vocab-gathered logits.  Rank 0 then
-    runs each program unsharded on its card from the same seeded state;
-    the limits: metrics within relative 2e-2, and on every leaf (the
-    gathered shards against the unsharded tree) the relative norm error
-    of the update (after - before) within ``DM_UPDATE_LIMIT`` and of the
-    first moment within ``DM_MU_LIMIT``; the control (rank 0's run on half
-    of every batch) must exceed both on every leaf.  Prints each rank's peak memory,
-    the walls of both and the collectives ``CommDebugMode`` counted; then
-    the ``pod``-mesh dry-run of phase 4's round and phase 19's step in a
-    subprocess.  Returns the launches summed over the ranks."""
+    2) DeviceMesh (``launch.mesh.make_card_mesh``) and a (pod 2, data 1,
+    model 2) one: over NCCL when each rank has its own card, else over
+    gloo with the ranks sharing the one card (NCCL refuses two ranks on
+    one device); which collectives gloo takes on CUDA tensors is checked
+    first and printed.  Each rank draws each program's params from seed 0
+    on its card and keeps its shards by the logical axes
+    (``sharding.distribute_tree``); under ``sharding.use_mesh`` it runs
+    the programs of ``_dm_paths`` at impl "cuda": on ``cfg`` (qwen3-4b)
+    ``steps`` ``launch.steps.make_train_step`` steps of B x S, one fused
+    DML round of K clients (private B, public B // 2) and one SparseDML
+    round at k = ``sparse_k`` (the flash kernels on each rank's (batch,
+    heads) shard, the square Eq.-2 and sparse-KL kernels on the
+    vocab-gathered logits, the top-k through the vocab-sharded two-stage
+    ``_distributed_topk``); then M1-M4 (the MoE FFN on each rank's shards
+    in fp32 and in a bf16 DML round, the SSD scan sharded over (batch,
+    heads), the clients on the pod axis through the rectangular pair
+    kernels).  Rank 0 then runs each program unsharded on its card from
+    the same seeded state; the limits: metrics within relative 2e-2, and
+    for a held program on every leaf (the gathered shards against the
+    unsharded tree) the relative norm error of the update (after -
+    before) within ``DM_UPDATE_LIMIT`` and of the first moment within
+    ``DM_MU_LIMIT``, and the control (rank 0's run on half of every batch)
+    must exceed both on every leaf.  M2's leaves are printed, not held.
+    Prints each rank's peak memory, the walls of both, the collectives
+    ``CommDebugMode`` counted, the MoE programs' route flips against the
+    unsharded run, and the bytes M4 moved over each mesh dim; then times
+    the pair kernels and the SSD scan at the local shapes M4 and M3 gave
+    them; then the ``pod``-mesh dry-run of phase 4's round and phase 19's
+    step in a subprocess.  Returns (the launches summed over the ranks,
+    the timed rows by kernel name)."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -4731,56 +4973,146 @@ def phase_data_model(card: str, cfg, K: int = 2, B: int = 4, S: int = 512,
             recs = [json.loads(Path(tmp, f"rank{r}.json").read_text())
                     for r in range(world)]
         r0 = recs[0]
-        print(f"phase 25 on {card}: {world} ranks as (data 2, model 2) over "
-              f"{backend} on {min(n_cards, world)} card(s), {secs:.1f} s with "
-              f"the spawns; {cfg.name} at {cfg.n_layers} of its layers, full "
-              f"width; collectives on CUDA tensors: {r0['collectives']}")
+        print(f"phase 25 on {card}: {world} ranks as (data 2, model 2) and "
+              f"(pod 2, data 1, model 2) over {backend} on "
+              f"{min(n_cards, world)} card(s), {secs:.1f} s with the spawns;"
+              f" full width; collectives on CUDA tensors: "
+              f"{r0['collectives']}")
         launches: dict = {}
         bad = []
-        for name in ("train", "dml", "sparse_dml"):
+        for path in _dm_paths(cfg, K, B, S, sparse_k, steps):
+            name, c = path["name"], path["cfg"]
             row = r0[name]
             for r in recs:
                 for k, v in r[name]["launches"].items():
                     launches[k] = launches.get(k, 0) + v
             peaks = [f"{r[name]['peak_bytes'] / 1e9:.2f}" for r in recs]
-            print(f"  {name}: walls sharded {_fmt(row['walls'], '.3f')} s, "
-                  f"unsharded {_fmt(row['ref_walls'], '.3f')} s; peak GB per "
-                  f"rank {peaks}; collectives (rank 0) {row['comm']}; "
-                  f"launches (rank 0) {row['launches']}; metrics "
-                  f"{row['metrics'][-1]}; relative errors "
-                  f"{row['metric_rel']}; rank 0's seconds {row['secs']}")
+            print(f"  {name}: {c.name} at {c.n_layers} layer(s), "
+                  f"{c.param_dtype}, on {path['mesh']}; walls sharded "
+                  f"{_fmt(row['walls'], '.3f')} s, unsharded "
+                  f"{_fmt(row['ref_walls'], '.3f')} s; peak GB per rank "
+                  f"{peaks}; collectives (rank 0) {row['comm']}; bytes by "
+                  f"mesh dim (rank 0) {row['axis_bytes']}; launches (rank "
+                  f"0) {row['launches']}; metrics {row['metrics'][-1]}; "
+                  f"relative errors {row['metric_rel']}; rank 0's seconds "
+                  f"{row['secs']}")
+            short = [n for n in path["need"] if not row["launches"].get(n)]
+            if short:
+                bad.append(f"{name} did not run through {short}")
+            if "route_flips" in row:
+                print(f"    routes sharded vs unsharded, per apply_moe call "
+                      f"(forward and recompute): tokens whose kept experts "
+                      f"differ {row['route_flips']} of "
+                      f"{row['routed_tokens']}")
+            if name == "M4 pod_dml":
+                pub, V = max(1, B // 2), c.vocab_size
+                print(f"    bytes over pod: {row['axis_bytes'].get('pod', {})}"
+                      f" (expected: the public logits all-gathered, K x "
+                      f"B_pub*S x V = {K} x {pub * S} x {V} at 2 bytes = "
+                      f"{K * pub * S * V * 2} (4 bytes: "
+                      f"{K * pub * S * V * 4}), + the (K,) term {4 * K}; "
+                      f"one scalar all-reduce, 4)")
             bad += [f"{name} {k}" for k, v in row["metric_rel"].items()
                     if not v <= 2e-2]
             for what, limit in (("update", DM_UPDATE_LIMIT),
                                 ("mu", DM_MU_LIMIT)):
-                got, ctl = row[f"{what}_rel"], row["control"][what]
-                worst, easiest = max(got, key=got.get), min(ctl, key=ctl.get)
-                print(f"    {what} by leaf (limit {limit:g}): sharded max "
-                      f"{got[worst]:.3e} ({worst}), half-batch control min "
-                      f"{ctl[easiest]:.3e} ({easiest}); sharded "
-                      + json.dumps({k: float(f"{v:.3e}")
-                                    for k, v in got.items()})
-                      + "; control "
-                      + json.dumps({k: float(f"{v:.3e}")
-                                    for k, v in ctl.items()}))
-                bad += [f"{name} {what} {k}" for k, v in got.items()
-                        if not v <= limit]
-                bad += [f"{name} control {what} {k} passed" for k, v in
-                        ctl.items() if not v > limit]
+                got = row[f"{what}_rel"]
+                worst = max(got, key=got.get)
+                line = (f"    {what} by leaf (limit {limit:g}"
+                        f"{'' if path['held'] else ', not held'}): sharded "
+                        f"max {got[worst]:.3e} ({worst})")
+                if path["held"]:
+                    ctl = row["control"][what]
+                    easiest = min(ctl, key=ctl.get)
+                    line += (f", half-batch control min {ctl[easiest]:.3e} "
+                             f"({easiest})")
+                    bad += [f"{name} {what} {k}" for k, v in got.items()
+                            if not v <= limit]
+                    bad += [f"{name} control {what} {k} passed"
+                            for k, v in ctl.items() if not v > limit]
+                line += "; sharded " + json.dumps(
+                    {k: float(f"{v:.3e}") for k, v in got.items()})
+                if path["held"]:
+                    line += "; control " + json.dumps(
+                        {k: float(f"{v:.3e}") for k, v in ctl.items()})
+                print(line)
         if bad:
             raise AssertionError(f"phase 25: {bad}")
-        need = ("flash_attention_fwd", "flash_attention_bwd",
-                "kl_mutual_square_fwd", "kl_mutual_square_bwd",
-                "sparse_kl_fwd", "sparse_kl_bwd")
-        short = [n for n in need if not launches.get(n)]
-        if short:
-            raise AssertionError(f"phase 25 did not run through {short}")
+        timed = _dm_local_kernels(r0["M4 pod_dml"]["local_calls"]["pair"][0],
+                                  r0["M3 ssd_train"]["local_calls"]["ssd"][0])
         _pod_dryrun(card, pod)
-        return launches
+        return launches, timed
     finally:
         if pod.poll() is None:           # a failure before its read
             pod.kill()
             pod.wait()
+
+
+def _dm_local_kernels(pair_call, ssd_call) -> dict:
+    """The rectangular pair kernels and the SSD scan at the local shapes
+    phase 25's M4 and M3 gave them (``pair_call``: live, fixed and the
+    weights' (shape, dtype); ``ssd_call``: x, dt, A, B, C's), on fresh
+    draws: each checked against its plain version, then timed with CUDA
+    events beside its bound and the plain version's time
+    (``_pair_times``, ``_ssd_times``).  Returns {kernel name: {"call",
+    "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err"}}."""
+    from repro_torch.kernels import kl_mutual, ref, ssd_scan
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    out = {}
+    (live_s, dt), (fixed_s, _), (w_s, _) = pair_call
+    dtype = getattr(torch, dt)
+    k_loc, Bp, V = live_s
+    fixed = (2 * torch.randn(fixed_s, device="cuda", generator=gen)).to(dtype)
+    live = (2 * torch.randn(live_s, device="cuda", generator=gen)).to(dtype)
+    # a rank's rows of the pair mask: zero on its own client's column
+    w = torch.ones(w_s, device="cuda") / max(1, w_s[1] - 1)
+    w[:, :k_loc] = 0.0
+    gbar = torch.randn(k_loc, Bp, device="cuda", generator=gen)
+    res, zl, zf, _ = kl_mutual._forward(live, fixed, w, 1.0)
+    dl = kl_mutual._backward(live, fixed, w, res, zl, zf, gbar, 1.0,
+                             False)[0].float()
+    a = live.detach().requires_grad_(True)
+    want = ref.mutual_kl_pair(a, fixed, w)
+    (want_dl,) = torch.autograd.grad(want, a, gbar)
+    want, want_dl = want.detach(), want_dl.float()
+    errs = ((res - want).abs().max().item(), (dl - want_dl).abs().max().item())
+    rel = ((dl - want_dl).norm() / want_dl.norm()).item()
+    if not (torch.allclose(res, want, atol=1e-3, rtol=1e-4) and rel <= 2e-2):
+        raise AssertionError(f"the pair kernels at M4's local call disagree:"
+                             f" forward {errs[0]:.3g}, dlive relative "
+                             f"{rel:.3g}")
+    del res, zl, zf, dl, a, want, want_dl
+    ms_f, ms_b, plain_fwd, plain_bwd, fb, bb = _pair_times(live, fixed, w,
+                                                           gbar)
+    call = (f"phase 25 M4, a rank's call: live {tuple(live_s)} against "
+            f"fixed {tuple(fixed_s)} {dt}")
+    rows = (("kl_mutual_pair_fwd", ms_f, plain_fwd, fb, errs[0], ""),
+            ("kl_mutual_pair_bwd", ms_b, plain_bwd, bb, errs[1], ""))
+    del live, fixed, gbar
+    torch.cuda.empty_cache()
+
+    (x_s, xdt), _, _, (b_s, _), _ = ssd_call
+    shape = tuple(x_s) + tuple(b_s[2:])      # (B, S, H, P, G, N)
+    ins = _ssd_inputs(*shape, getattr(torch, xdt), gen)
+    y_err, g_err, rel = _ssd_check((ssd_scan.ssd_scan, ref.ssd), ins, 256,
+                                   2e-2, f"phase 25 M3's call {shape}",
+                                   True, gen, False)
+    del ins
+    fwd_ms, bwd_ms, splain_f, splain_b, sfb, sbb = _ssd_times(shape, gen)
+    note = (f"; worst relative error of y, state and the gradients "
+            f"{rel:.3g}")
+    for kname, ms, plain, (bound, by), err, extra in rows + (
+            ("ssd_scan_fwd", fwd_ms, splain_f, sfb, y_err, note),
+            ("ssd_scan_bwd", bwd_ms, splain_b, sbb, g_err, note)):
+        where = call if kname.startswith("kl") else (
+            f"phase 25 M3, a rank's call: (B, S, H, P, G, N) = {shape} "
+            f"{xdt}")
+        out[kname] = {"call": where, "ms": ms, "plain_ms": plain,
+                      "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+        print(f"  {kname} at {where}: {ms:.4f} ms, plain {plain:.4f} ms; "
+              f"bound {bound:.4f} ms by {by} ({bound / ms:.0%} of it)"
+              f"{extra}")
+    return out
 
 
 def pod_dryrun() -> int:
@@ -4855,13 +5187,14 @@ def run_cards(card: str, n: int) -> int:
     for phase in (lambda: phase_sharded_train(card, scfg, 4, 4, 512,
                                               devices=devices),
                   lambda: phase_vision_mesh(card, devices=devices),
-                  lambda: phase_data_model(card, scfg)):
+                  lambda: phase_data_model(card, scfg)[0]):
         gc.collect()
         torch.cuda.empty_cache()
         _reset_peaks(devices)
         paths.append(phase())
     print(f"launches on each path (qwen3-4b sharded DML at K = 4, "
-          f"VisionNet, qwen3-4b on a (data 2, model 2) mesh) over {n} cards: "
+          f"VisionNet, phase 25's programs on the (data 2, model 2) and "
+          f"(pod 2, data 1, model 2) meshes) over {n} cards: "
           + json.dumps(paths))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4899,8 +5232,8 @@ def main() -> int:
     mcfg = get_config("mamba2-780m")   # full width and depth
     MK, MB, MS0 = 2, 2, 1024           # mamba2 serving: 4 chunks a prompt
     MTK, MTB, MTS = 3, 4, 1024         # the mamba2 training run,
-    mtcfg = mcfg.replace(n_layers=6)   # at 6 of 48 layers (time)
-    mscfg = mcfg.replace(n_layers=12)  # serving at 12 of 48 (time)
+    mtcfg = mcfg.replace(n_layers=3)   # at 3 of 48 layers (time)
+    mscfg = mcfg.replace(n_layers=6)   # serving at 6 of 48 (time)
     mreqs = make_requests(mcfg)
     qcfg = get_config("qwen2-moe-a2.7b")   # full width and depth: serving
     QK, QB, QS0 = 2, 2, 512
@@ -4910,7 +5243,7 @@ def main() -> int:
     # dbrx: two clients of 4 of its 40 layers hold 57 GB in bf16
     dcfg = get_config("dbrx-132b").replace(n_layers=4)
     dreqs = make_requests(dcfg)
-    # llava-next: serving at full width, 8 of 32 layers (time), on prompts
+    # llava-next: serving at full width, 4 of 32 layers (time), on prompts
     # of 1536 behind the 2880-position image prefix, past the 4096 window;
     # training at 4 of 32 layers (K = 3), seq 1280: P + S = 4160 > 4096
     lcfg = get_config("llava-next-mistral-7b")
@@ -4920,11 +5253,11 @@ def main() -> int:
     lcheck = (1, 2, 1)                 # its round-1 parity: 1 layer, K 2, B 1
     lreqs = make_requests(lcfg)
     # musicgen-medium: full width, serving (K = 2) and training (K = 3) at
-    # 6 of 48 layers (time), behind the 64-position conditioning prefix
+    # 3 of 48 layers (time), behind the 64-position conditioning prefix
     gcfg = get_config("musicgen-medium")
     GK, GB, GS0 = 2, 2, 512
     GTK, GTB, GTS = 3, 4, 512
-    gtcfg = gcfg.replace(n_layers=6)
+    gtcfg = gcfg.replace(n_layers=3)
     greqs = make_requests(gcfg)
     # phase 22's sharded fleet and phase 25's mesh: full width at 2 of 36
     # layers, so that four clients' params, moments, one entry's gradients
@@ -5012,6 +5345,14 @@ def main() -> int:
                                TK)
     flash = ("flash_attention_fwd", "flash_attention_bwd", fa)
     flash_fwd = ("flash_attention_fwd", fa)
+    local: dict = {}
+
+    def data_model(card, c):
+        # phase 25: its launches, and the rows it timed at its ranks'
+        # local calls (the rectangular pair kernels, the sharded SSD scan)
+        launches, timed = phase_data_model(card, c)
+        local.update(timed)
+        return launches
     paths = []
     for phase in (
             lambda: phase_serve(env["card"], cfg, reqs, flash_fwd, K, B, S0),
@@ -5036,7 +5377,7 @@ def main() -> int:
                                 None),
             lambda: phase_serve(env["card"], dcfg, dreqs, flash_fwd, 2, 2,
                                 512, 32, None, parity_layers=1),
-            lambda: phase_serve(env["card"], lcfg.replace(n_layers=8), lreqs,
+            lambda: phase_serve(env["card"], lcfg.replace(n_layers=4), lreqs,
                                 flash_fwd, LK, LB, LS0, 32, 2e-2,
                                 parity_layers=4,
                                 prefix=_random_prefix(lcfg, LB, 0)),
@@ -5057,7 +5398,7 @@ def main() -> int:
             lambda: phase_sharded_train(env["card"], scfg, 3, HB, HS),
             lambda: phase_vision_mesh(env["card"]),
             lambda: phase_tooling(env["card"], cfg, tcfg, TK, TB, TS),
-            lambda: phase_data_model(env["card"], scfg)):
+            lambda: data_model(env["card"], scfg)):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -5077,10 +5418,14 @@ def main() -> int:
           "attack experiments, the full-width privacy fleet, the reduced "
           "privacy fleet, qwen3-4b sharded DML at K = 4 and K = 3, "
           "VisionNet on a client mesh, the quickstart and serve_lm examples, "
-          "qwen3-4b train + DML + SparseDML on a (data 2, model 2) mesh): "
+          "qwen3-4b train + DML + SparseDML and M1-M4 (qwen2-moe-a2.7b "
+          "train in fp32 and DML, mamba2-780m train, qwen3-4b DML with the "
+          "clients on pod) on the data x model meshes): "
           + json.dumps(paths))
     for row in kernels:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)
+        if row["name"] in local:
+            row["phase25"] = local[row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

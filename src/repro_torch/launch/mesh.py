@@ -77,8 +77,8 @@ def make_card_mesh(shape=(2, 2), axes=("data", "model")):
     """Small data x model mesh of ranks on the cards: NCCL, one card a
     rank.  Over gloo (ranks sharing one card, which NCCL refuses) DTensor's
     functional collectives of CUDA tensors crash in ``wait_tensor``; a
-    caller that shares a card routes them through gloo's eager
-    collectives first, as ``chip_smoke.py`` does."""
+    caller that shares a card runs them itself first, as ``chip_smoke.py``
+    does (card to card through CUDA IPC)."""
     return _device_mesh(shape, axes, "cuda")
 
 

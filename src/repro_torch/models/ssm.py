@@ -21,13 +21,15 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (dense_init, gated_rms_norm, matmul,
                                        per_client)
 from repro_torch.sharding import constrain
-from repro_torch.sharding.local import elementwise
+from repro_torch.sharding.local import (elementwise, keep_shards, local_call,
+                                        replicated)
 
 
 def _dims(cfg: ModelConfig):
@@ -95,13 +97,34 @@ def _split_proj(cfg: ModelConfig, zxbcdt):
 
 def _causal_conv(xBC, w, b):
     """Depthwise causal conv in xBC's dtype, the JAX package's shifted sum
-    term by term.  xBC: (K, B, S, C); w: (K, d_conv, C); b: (K, C)."""
+    term by term.  xBC: (K, B, S, C); w: (K, d_conv, C); b: (K, C).  A
+    DTensor xBC runs on each rank's (client, batch) shard
+    (``_conv_local``)."""
+    if isinstance(xBC, DTensor):
+        return _conv_local(xBC, w, b)
     Kc, S = w.shape[1], xBC.shape[2]
     pad = F.pad(xBC, (0, 0, Kc - 1, 0))
     out = pad[:, :, 0:S] * per_client(w[:, 0], xBC)
     for i in range(1, Kc):
         out = out + pad[:, :, i:i + S] * per_client(w[:, i], xBC)
     return out + per_client(b, xBC)
+
+
+def _conv_local(xBC, w, b):
+    """``_causal_conv`` of a DTensor xBC on each rank's (client, batch)
+    shard, the sequence and the channels whole (PyTorch 2.11's DTensor
+    fails to redistribute the input of its ``pad`` rule here).  The conv
+    weights are read whole but for their client shard; their gradients
+    are partial sums over a batch split."""
+    mesh = xBC.device_mesh
+    w, b = replicated(w, mesh), replicated(b, mesh)
+    xp = keep_shards(xBC, {0, 1})
+    wp = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in xp]
+    wg = [Partial() if isinstance(p, Shard) and p.dim == 1 else q
+          for p, q in zip(xp, wp)]
+    return local_call(_causal_conv, xp, (xp, wp, wp), mesh, xBC, w, b,
+                      grad_placements=(xp, wg, wg))
 
 
 def mamba_forward(params, cfg: ModelConfig, u, return_state: bool = False,

@@ -4,7 +4,7 @@ dry-run (``repro_torch.launch.dryrun``) on PyTorch's fake process group of
 machinery of the ``multi`` mesh without its 512 ranks.  Prints one JSON
 object a case.  Run through the test only:
 
-    python tests/_torch_dryrun_pod.py matmul qwen3-4b:dml:train ...
+    python tests/_torch_dryrun_pod.py matmul moe qwen3-4b:dml:train ...
 """
 import json
 import sys
@@ -34,10 +34,36 @@ def record(c) -> dict:
             "collectives": c.collectives}
 
 
+def moe_case(mesh) -> dict:
+    """Reduced qwen2-moe-a2.7b's MoE FFN forward alone (one client, 8
+    sequences of 32, fp32) with its logical axes: the batch over (pod,
+    data), the experts over model, the router and experts FSDP over data."""
+    from repro_torch import sharding as shd
+    from repro_torch.models import moe
+    from repro_torch.models.layers import make_generator
+    cfg = get_reduced("qwen2-moe-a2.7b")
+    meta = torch.device("meta")
+    params = moe.init_moe(make_generator(0, meta), cfg, (1,))
+    axes = shd.axes_map(lambda ax: ("client",) + ax,
+                        moe.moe_logical_axes(cfg))
+    x = torch.empty((1, 8, 32, cfg.d_model), dtype=torch.float32,
+                    device=meta)
+    c = DR.count_sharded(lambda p, h: moe.apply_moe(p, cfg, h), (params, x),
+                         (axes, ("client", "batch", "seq", "embed_act")),
+                         mesh)
+    m = cfg.moe
+    return {"case": "moe", "d": cfg.d_model, "experts": m.n_experts,
+            "top_k": m.top_k, "d_expert": m.d_expert,
+            "shared": m.n_shared_experts, "capacity_factor":
+            m.capacity_factor, **record(c)}
+
+
 def case(spec: str) -> dict:
-    """"matmul", or "<arch>:<method>:<kind>[:<variant>]" at its reduced
-    config cut to one period, 8 sequences of 32."""
+    """"matmul", "moe", or "<arch>:<method>:<kind>[:<variant>]" at its
+    reduced config cut to one period, 8 sequences of 32."""
     mesh = small_mesh()
+    if spec == "moe":
+        return moe_case(mesh)
     if spec == "matmul":
         x = torch.empty((8, 64), dtype=torch.bfloat16, device="meta")
         w = torch.empty((64, 32), dtype=torch.bfloat16, device="meta")

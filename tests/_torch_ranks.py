@@ -156,6 +156,107 @@ def mesh_steps(rank, n, params, sparams, mparams, train_tokens, tokens,
     return out
 
 
+def moe_steps(rank, n, params, params6, sparams, qparams, train_tokens,
+              tokens, public, opt):
+    """The MoE FFN and the client-on-pod round as DTensor programs at impl
+    "ref": reduced qwen2-moe-a2.7b (4 experts, 1 shared) on a (data 2,
+    model 2) mesh, where the experts are split, one ``make_train_step``
+    step of ``params`` and one fused DML round of the client-stacked
+    ``sparams``; the train step of ``params6`` (6 experts) on a (data 1,
+    model 4) mesh, where ``ff`` is split; and one fused DML round of
+    reduced qwen3-4b's ``qparams`` on a (pod 2, data 1, model 2) mesh with
+    the clients on ``pod`` (``spmd_client_axis="pod"``, the dry-run's DML
+    rules), whose Eq.-2 term takes ``ops._pair_local``'s rectangular
+    branch.  Each MoE case logs its routes (``moe.route_log``) sharded on
+    every rank and unsharded on rank 0, from the same params."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import interop
+    from repro_torch import sharding as shd
+    from repro_torch.checkpoint import flatten
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ref
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_cpu_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    torch.set_num_threads(1)
+    cfg = get_reduced("qwen2-moe-a2.7b")
+    cfg6 = cfg.replace(moe=dataclasses.replace(cfg.moe, n_experts=6))
+    opt_cfg = AdamWConfig(**opt)
+    meshes = {"2x2": make_cpu_mesh((2, 2)), "1x4": make_cpu_mesh((1, 4)),
+              "pod": make_cpu_mesh((2, 1, 2), ("pod", "data", "model"))}
+    out = {}
+
+    def put(a, axes, mesh):
+        t = torch.as_tensor(a)
+        return t if mesh is None else shd.distribute(t, axes, mesh)
+
+    def run(name, c, flat, mesh, stacked, rules=None, client_axis=None):
+        """The step on ``mesh`` (None: unsharded) from ``flat``: metrics,
+        params and first moments gathered, and the routes."""
+        with shd.axis_rules(rules or {}):
+            p = interop.params_from_numpy(flat, device="cpu")
+            axes = (D.stacked_logical_axes(c) if stacked
+                    else tfm.logical_axes(c))
+            if mesh is not None:
+                p = shd.distribute_tree(p, axes, mesh)
+            o = adamw_init(p)
+            moe.route_log = [] if c.moe else None
+            try:
+                with shd.use_mesh(mesh):
+                    if stacked:
+                        step = D.make_dml_train_step(
+                            c, opt_cfg, impl="ref",
+                            spmd_client_axis=client_axis)
+                        p, o, m = step(
+                            p, o, put(tokens, ("client", "batch", "seq"),
+                                      mesh),
+                            put(public, ("batch", "seq"), mesh))
+                    else:
+                        step = steps.make_train_step(c, opt_cfg, impl="ref")
+                        p, o, m = step(p, o, put(train_tokens,
+                                                 ("batch", "seq"), mesh))
+                routes = [(i.numpy(), k.numpy())
+                          for i, k in moe.route_log or []]
+            finally:
+                moe.route_log = None
+        rec = {"metrics": {k: _np(v) for k, v in m.items() if k != "lr"},
+               "params": _gathered(p), "mu": _gathered(o["mu"]),
+               "routes": routes}
+        if mesh is not None:
+            rec["placements"] = {k: str(v.placements)
+                                 for k, v in flatten(p).items()}
+        out[name] = rec
+
+    for name, c, flat, tag, stacked in (
+            ("moe_train", cfg, params, "2x2", False),
+            ("moe_dml", cfg, sparams, "2x2", True),
+            ("moe_train_ff", cfg6, params6, "1x4", False)):
+        run(name, c, flat, meshes[tag], stacked)
+        if rank == 0:
+            run(name + "_unsharded", c, flat, None, stacked)
+    # the Eq.-2 calls' local (live, fixed) shapes on the pod mesh
+    pair, shapes = ref.mutual_kl_pair, []
+
+    def logged(live, fixed, *a, **kw):
+        shapes.append((tuple(live.shape), tuple(fixed.shape)))
+        return pair(live, fixed, *a, **kw)
+    ref.mutual_kl_pair = logged
+    try:
+        run("pod_dml", get_reduced("qwen3-4b"), qparams, meshes["pod"],
+            True, rules=dryrun.mesh_rules("dml"), client_axis="pod")
+    finally:
+        ref.mutual_kl_pair = pair
+    out["pod_dml"]["pair_shapes"] = shapes
+    return out
+
+
 def _main(name: str, rank: int, n: int, tmp: str) -> None:
     import torch.distributed as dist
     tmp = Path(tmp)
