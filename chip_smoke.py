@@ -217,6 +217,22 @@ Phases, each fatal on failure:
      ``pod``-mesh dry-run (data 16 x model 16, the fake process group) of
      phase 4's round and phase 19's step in a subprocess, their per-card
      counts printed;
+  26. the legacy facades and the top-level surface, as a user calls them
+     (``repro_torch.Federation``, ``repro_torch.VisionClients`` ...,
+     ``device=None``, impl "cuda"): ``core.federated.FederatedTrainer`` at
+     phase 9's sizes, 2 rounds each of dml, fedavg and async, bit for bit
+     against ``Federation(VisionClients(...), cfg.strategy())`` (also on
+     ``ClientMesh((cuda:0, cuda:0))``, and across a checkpoint restored
+     into a fresh ``Federation``), ``evaluate`` on the unseen set;
+     ``core.hetero.HeteroTrainer`` over phase 17's full-width fleet (2 DML
+     rounds against phase 17's first two: comm bytes exact, losses within
+     relative 1e-5; M pair launches each way a round) and with
+     ``sparse_k=64`` (the sparse kernels only), then over
+     ``HeteroConfig``'s default archs, reduced (2 DML rounds through the
+     flash, SSD and pair kernels against phase 18's); ``resolve_impl``
+     with ``REPRO_KERNEL_IMPL`` set (explicit > the variable > the
+     device).  The script refuses to start with ``REPRO_KERNEL_IMPL`` set
+     to anything but "cuda".
 With ``--cards N`` only phases 22 (K = 4), 23 and 25 run, over N distinct
 cards.
 jamba-1.5-large-398b does not run on the card: one full-width period (8
@@ -2800,9 +2816,13 @@ def phase_hetero(card: str, cfgs, B: int = 4, S: int = 512, pub: int = 2,
 
     fed = Federation(pop, DML())
     first = None
+    # the DML rounds' logs and the fleet's settings, for phase 26
+    MEASURED["phase 17"] = dict(logs=[], rounds=rounds, B=B, S=S, pub=pub,
+                                fold=fold)
     for r in range(dml_rounds):
         prof = r == dml_rounds - 1
         rl, wall, ran, by_name, busy = run_round(fed, r, prof)
+        MEASURED["phase 17"]["logs"].append(rl)
         if r == 0:
             first = rl
         if not prof:
@@ -2989,6 +3009,9 @@ def phase_hetero_small(card: str, tcfg, B: int = 4, S: int = 64,
             counts = {n: c for n, c in _kernel_counts().items() if c}
         del fed, pop
     (logs, params), (ref_logs, ref_params) = runs["cuda"], runs["ref"]
+    # the kernel path's logs and the fleet's settings, for phase 26
+    MEASURED["phase 18"] = dict(logs=logs, archs=archs, rounds=rounds, B=B,
+                                S=S, V=512, fold=8)
     worst = max(abs(a - b) / abs(b) for g, w in zip(logs, ref_logs)
                 for f in ("client_loss", "public_ce", "kl_loss")
                 for a, b in zip(getattr(g, f), getattr(w, f)))
@@ -5172,6 +5195,293 @@ def _pod_dryrun(card: str, proc) -> None:
         print(f"  pod dry-run on {card}'s host: {line}")
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the legacy facades and the top-level surface
+
+def _states_equal(a: dict, b: dict) -> bool:
+    """Two state_dicts, leaf by leaf, bit for bit."""
+    from repro_torch.checkpoint import flatten
+    fa, fb = flatten(a), flatten(b)
+    return sorted(fa) == sorted(fb) and all(
+        torch.equal(torch.as_tensor(fa[k]), torch.as_tensor(fb[k]))
+        for k in fa)
+
+
+def _logs_rel(got, want) -> float:
+    """The largest relative difference of two lists of round logs'
+    client_loss, kl_loss and public_ce."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        for f in ("client_loss", "kl_loss", "public_ce"):
+            for a, b in zip(getattr(g, f) or (), getattr(w, f) or ()):
+                if a != b:
+                    worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+    return worst
+
+
+def _check_impl_variable() -> None:
+    """(d) ``resolve_impl``'s order with ``REPRO_KERNEL_IMPL`` set: the
+    explicit value first, then the variable, then the device's default."""
+    from repro_torch.kernels import ops
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    old = os.environ.get("REPRO_KERNEL_IMPL")
+    try:
+        os.environ.pop("REPRO_KERNEL_IMPL", None)
+        got = {"unset": (ops.resolve_impl(None, cuda),
+                         ops.resolve_impl("auto", cuda))}
+        for value in ("ref", "cuda"):
+            os.environ["REPRO_KERNEL_IMPL"] = value
+            got[value] = (ops.resolve_impl(None, cuda),
+                          ops.resolve_impl("auto", cuda),
+                          ops.resolve_impl("ref", cuda))
+        os.environ["REPRO_KERNEL_IMPL"] = "interpret"
+        try:
+            ops.resolve_impl(None, cuda)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_KERNEL_IMPL", None)
+        else:
+            os.environ["REPRO_KERNEL_IMPL"] = old
+    want = {"unset": ("cuda", "cuda"), "ref": ("ref", "ref", "ref"),
+            "cuda": ("cuda", "cuda", "ref")}
+    print(f"resolve_impl on {cuda} by REPRO_KERNEL_IMPL (None, 'auto', "
+          f"'ref'): {got}; 'interpret' refused: {refused}")
+    if got != want or not refused or "unknown kernel impl" not in refused:
+        raise AssertionError("resolve_impl does not follow explicit > "
+                             "REPRO_KERNEL_IMPL > the device")
+
+
+def phase_facades(card: str, hcfgs, K: int = 5, rounds: int = 12,
+                  epochs: int = 3, B: int = 16, lr: float = 0.05,
+                  n_train: int = 3833, n_test: int = 5988) -> dict:
+    """The legacy facades on the card, reached as a user reaches them (the
+    top level ``repro_torch.Federation`` etc., ``device=None``, impl
+    resolved to "cuda").  (a) ``FederatedTrainer`` at phase 9's sizes
+    (VisionNet at full width, K = 5, Table I's image sets, 3 local epochs
+    of batch 16, lr 0.05), 2 rounds each of dml, fedavg and async, each
+    bit for bit against ``Federation(VisionClients(...),
+    cfg.strategy())`` from the same seed (round logs, state, dispatch
+    log), on cuDNN's deterministic algorithms; a DML run on
+    ``ClientMesh((cuda:0, cuda:0))`` against the same mesh through
+    ``Federation``; a checkpoint after round 1 restored into a fresh
+    ``Federation``, whose round 2 equals the uninterrupted one; evaluate
+    on the unseen set; no kernel launch.  (b) ``HeteroTrainer`` over
+    phase 17's full-width fleet, ``HeteroConfig(archs=hcfgs, ...)`` with
+    phase 17's settings and pool: 2 DML rounds against phase 17's first
+    two (comm bytes exact, losses within relative 1e-5), M pair launches
+    each way a round and no square or sparse launch; then 1 round of a
+    fresh ``sparse_k=64`` fleet through the sparse kernels only, comm
+    bytes ``sparse_share_bytes``.  (c) ``HeteroTrainer`` over
+    ``HeteroConfig``'s default archs at ``reduced=True`` with phase 18's
+    settings: 2 DML rounds through the flash, SSD and pair kernels
+    against phase 18's.  (d) ``resolve_impl`` with ``REPRO_KERNEL_IMPL``
+    set.  Returns the kernels' launch counts over the phase."""
+    import tempfile
+
+    import repro_torch
+    from repro_torch.configs.visionnet import CONFIG
+    from repro_torch.core.federated import FederatedConfig, FederatedTrainer
+    from repro_torch.core.hetero import (HeteroConfig, HeteroTrainer,
+                                         make_lm_pool)
+    from repro_torch.core.mutual import sparse_share_bytes
+
+    t_phase = time.perf_counter()
+    _kernel_counts(zero=True)                     # the main path starts here
+    _check_impl_variable()
+
+    # (a) the VisionNet facade
+    (tx, ty), (ex, ey) = _paper_datasets(CONFIG.image_size, n_train, n_test)
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(n_clients=K, rounds=rounds, local_epochs=epochs, batch_size=B,
+              lr=lr)
+
+    def session(fc, mesh=None):
+        pop = repro_torch.VisionClients(
+            CONFIG, tx, ty, n_clients=fc.n_clients, rounds=fc.rounds,
+            local_epochs=fc.local_epochs, batch_size=fc.batch_size,
+            lr=fc.lr, momentum=fc.momentum, clip_norm=fc.clip_norm,
+            non_iid_alpha=fc.non_iid_alpha, seed=fc.seed,
+            eval_batch=fc.eval_batch, mesh=mesh)
+        return repro_torch.Federation(pop, fc.strategy(),
+                                      participation=fc.participation)
+
+    def same(tr, fed) -> bool:
+        return (tr.history.rounds == fed.history.rounds
+                and tr.history.total_comm_bytes
+                == fed.history.total_comm_bytes
+                and tr.dispatch_log == fed.dispatch_log
+                and _states_equal(tr.session.population.state_dict(),
+                                  fed.population.state_dict()))
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        results, walls = {}, {}
+        for method in ("dml", "fedavg", "async"):
+            fc = FederatedConfig(method=method, **kw)
+            tr = FederatedTrainer(CONFIG, fc, tx, ty)
+            _, walls[method] = _timed(lambda: tr.run(until=2))
+            fed = session(fc)
+            fed.run(until=2)
+            results[method] = same(tr, fed)
+            if method == "dml":
+                dml = tr
+            del fed
+        mesh = repro_torch.sharding.ClientMesh(("cuda:0", "cuda:0"))
+        fc = FederatedConfig(method="dml", **kw)
+        tr = FederatedTrainer(CONFIG, fc, tx, ty, mesh=mesh)
+        _, walls["dml on the mesh"] = _timed(lambda: tr.run(until=2))
+        fed = session(fc, mesh)
+        fed.run(until=2)
+        results["dml on the mesh"] = same(tr, fed) and tr.mesh is mesh
+        del tr, fed
+        half = FederatedTrainer(CONFIG, fc, tx, ty)
+        half.run(until=1)
+        fed = session(fc)
+        with tempfile.TemporaryDirectory() as tmp:
+            half.save_state(os.path.join(tmp, "state"))
+            saved = sorted(os.listdir(tmp))
+            fed.restore_state(os.path.join(tmp, "state"))
+        fed.run(until=2)
+        results["checkpoint"] = (
+            saved == ["state.json", "state.npz"] and fed.round == 2
+            and fed.history.rounds == dml.history.rounds
+            and _states_equal(dml.session.population.state_dict(),
+                              fed.population.state_dict()))
+        del half, fed
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    h, eval_secs = _timed(lambda: dml.evaluate(ex, ey))
+    accs = h.client_test_acc + [h.global_test_acc]
+    vision_counts = {n: c for n, c in _kernel_counts().items() if c}
+    print(f"FederatedTrainer at phase 9's sizes ({K} x VisionNet "
+          f"{CONFIG.image_size}px, {len(tx)} train images), 2 rounds "
+          f"each, bit for bit against Federation(VisionClients(...), "
+          f"cfg.strategy()): {results}; walls (2 rounds) "
+          f"{ {k: round(v, 3) for k, v in walls.items()} } s; evaluate on "
+          f"{len(ex)} unseen images {eval_secs:.3f} s, accuracies "
+          f"{_fmt(accs, '.4f')}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{vision_counts}")
+    if not all(results.values()) or vision_counts or len(accs) != K + 1 \
+            or not all(0.0 <= a <= 1.0 for a in accs):
+        raise AssertionError("the VisionNet facade disagrees with its "
+                             "Federation")
+    del dml, h
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the full-width fleet of phase 17
+    m17 = MEASURED["phase 17"]
+    Kh, V = len(hcfgs), hcfgs[0].vocab_size
+    pool, labels = make_lm_pool(((1 + Kh) * m17["rounds"] + 1)
+                                * m17["fold"], m17["S"], V, seed=0)
+    hkw = dict(archs=tuple(hcfgs), rounds=m17["rounds"],
+               batch_size=m17["B"], public_batch=m17["pub"], seed=0)
+
+    def run_rounds(tr, n_rounds, what, want_logs, launches):
+        """Run ``n_rounds`` rounds, each against ``want_logs`` (comm bytes
+        exact, losses within relative 1e-5) and its launches: ``launches(M)``
+        gives the counts a round must add and the kernels it must not
+        launch."""
+        out = []
+        for r in range(n_rounds):
+            before = _kernel_counts()
+            torch.cuda.reset_peak_memory_stats()
+            _, wall = _timed(lambda: tr.run(until=r + 1))
+            ran = _delta(before, _kernel_counts())
+            rl = tr.history.rounds[-1]
+            M = len(rl.participants)
+            rel = _logs_rel([rl], want_logs[r:r + 1]) if want_logs else None
+            comm = want_logs[r].comm_bytes if want_logs else None
+            print(f"{what} round {r}: {wall:.3f} s wall; local loss "
+                  f"{_fmt(rl.client_loss)} public_ce {_fmt(rl.public_ce)} "
+                  f"kl {_fmt(rl.kl_loss)}; comm_bytes {rl.comm_bytes}; "
+                  f"largest relative difference from the Federation "
+                  f"phase's round: {rel}; launches {ran}; peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+            need, none = launches(M)
+            if (want_logs and (rl.comm_bytes != comm or rel > 1e-5)) or \
+                    any(ran.get(name) != c for name, c in need.items()) or \
+                    any(ran.get(name) for name in none) or \
+                    not all(np.isfinite(x).all() for x in (
+                        rl.client_loss, rl.public_ce, rl.kl_loss)):
+                raise AssertionError(f"{what} round {r} disagrees with the "
+                                     "Federation phase or left its kernels")
+            out.append(rl)
+        return out
+
+    square = ("kl_mutual_square_fwd", "kl_mutual_square_bwd")
+    pair = ("kl_mutual_pair_fwd", "kl_mutual_pair_bwd")
+    sparse = ("sparse_kl_fwd", "sparse_kl_bwd")
+
+    tr, secs = _timed(lambda: HeteroTrainer(HeteroConfig(**hkw), pool,
+                                            labels))
+    names = ", ".join(c.name for c in hcfgs)
+    print(f"HeteroTrainer over phase 17's fleet ({names}; {tr.n_params} "
+          f"params) built in {secs:.1f} s, kernels impl="
+          f"{tr.session.population.impl}")
+    before = _kernel_counts()
+    run_rounds(tr, 2, "HeteroTrainer (phase 17's fleet) DML", m17["logs"],
+               lambda M: ({"kl_mutual_pair_fwd": M,
+                           "kl_mutual_pair_bwd": M}, square + sparse))
+    ran = _delta(before, _kernel_counts())
+    if not all(ran.get(n) for n in ("flash_attention_fwd",
+                                     "flash_attention_bwd")):
+        raise AssertionError(f"the fleet's rounds left the flash kernels: "
+                             f"{ran}")
+    n_pub = tr.session.population._pub_n * m17["S"]
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    k = 64
+    tr = HeteroTrainer(HeteroConfig(**hkw, sparse_k=k), pool, labels)
+    (rl,) = run_rounds(tr, 1, f"HeteroTrainer (phase 17's fleet) "
+                       f"sparse_k={k}", None,
+                       lambda M: ({"sparse_kl_fwd": M, "sparse_kl_bwd": M},
+                                  square + pair))
+    want = sparse_share_bytes(Kh, n_pub, k)
+    print(f"  comm_bytes {rl.comm_bytes} (sparse_share_bytes {want})")
+    if rl.comm_bytes != want or tr.session.strategy.name != "sparse-dml":
+        raise AssertionError("the sparse HeteroTrainer's bytes")
+    del tr, pool, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) HeteroConfig's default archs, reduced, with phase 18's settings
+    m18 = MEASURED["phase 18"]
+    cfg = HeteroConfig(rounds=m18["rounds"], batch_size=m18["B"],
+                       public_batch=2, seed=0)
+    if cfg.archs != m18["archs"]:
+        raise AssertionError(f"HeteroConfig's archs {cfg.archs} are not "
+                             f"phase 18's {m18['archs']}")
+    pool, labels = make_lm_pool(((1 + cfg.n_clients) * cfg.rounds + 1)
+                                * m18["fold"], m18["S"], m18["V"], seed=0)
+    tr = HeteroTrainer(cfg, pool, labels, reduced=True)
+    before = _kernel_counts()
+    run_rounds(tr, cfg.rounds, "HeteroTrainer (reduced default archs) DML",
+               m18["logs"], lambda M: ({"kl_mutual_pair_fwd": M,
+                                        "kl_mutual_pair_bwd": M},
+                                       square + sparse))
+    ran = _delta(before, _kernel_counts())
+    if not all(ran.get(n) for n in ("flash_attention_fwd",
+                                     "flash_attention_bwd", "ssd_scan_fwd",
+                                     "ssd_scan_bwd")):
+        raise AssertionError(f"the reduced fleet left the flash or SSD "
+                             f"kernels: {ran}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = _kernel_counts()                     # ... and ends here
+    print(f"phase 26 on {card}: {time.perf_counter() - t_phase:.1f} s; "
+          f"launches "
+          f"{ {n: c for n, c in counts.items() if c} }")
+    return counts
+
+
 def run_cards(card: str, n: int) -> int:
     """``--cards N``: phases 22 and 23 alone over a client mesh of N
     distinct cards (``launch.mesh.make_client_mesh``, one entry a card):
@@ -5211,6 +5521,12 @@ def main() -> int:
     ap.add_argument("--pod-dryrun", action="store_true",
                     help=argparse.SUPPRESS)   # phase 25's subprocess
     args = ap.parse_args()
+    impl = os.environ.get("REPRO_KERNEL_IMPL")
+    if impl and impl != "cuda":
+        print(f"chip_smoke: REPRO_KERNEL_IMPL={impl!r} would send every "
+              "entry point that resolves its impl to that path; unset it "
+              "(or set it to 'cuda') to run the kernels", file=sys.stderr)
+        raise SystemExit(2)
     check_cuda()
     if args.pod_dryrun:
         return pod_dryrun()
@@ -5398,7 +5714,8 @@ def main() -> int:
             lambda: phase_sharded_train(env["card"], scfg, 3, HB, HS),
             lambda: phase_vision_mesh(env["card"]),
             lambda: phase_tooling(env["card"], cfg, tcfg, TK, TB, TS),
-            lambda: data_model(env["card"], scfg)):
+            lambda: data_model(env["card"], scfg),
+            lambda: phase_facades(env["card"], hcfgs)):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -5420,7 +5737,9 @@ def main() -> int:
           "VisionNet on a client mesh, the quickstart and serve_lm examples, "
           "qwen3-4b train + DML + SparseDML and M1-M4 (qwen2-moe-a2.7b "
           "train in fp32 and DML, mamba2-780m train, qwen3-4b DML with the "
-          "clients on pod) on the data x model meshes): "
+          "clients on pod) on the data x model meshes, the legacy facades "
+          "(FederatedTrainer, HeteroTrainer over the full-width and the "
+          "reduced fleet)): "
           + json.dumps(paths))
     for row in kernels:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)

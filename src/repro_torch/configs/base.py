@@ -112,6 +112,10 @@ class ModelConfig:
                              f"divisible by period {len(self.period)}")
         return self.n_layers // len(self.period)
 
+    @property
+    def attn_free(self) -> bool:
+        return all(s.mixer != "attn" for s in self.period)
+
     def pdtype(self) -> torch.dtype:
         return _DTYPES[self.param_dtype]
 

@@ -18,6 +18,8 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+
 from repro_torch import checkpoint
 from repro_torch.data.federated import sample_participants
 
@@ -170,6 +172,14 @@ class Federation:
 
 def _round_kwargs(d: Dict[str, Any]) -> Dict[str, Any]:
     """Accept round dicts of any schema generation: unknown keys are
-    dropped."""
+    dropped.  A loss that was a numpy float32 when it was saved was written
+    as its string (``json.dump(..., default=str)``, in either package: the
+    VisionNet rounds' ``client_loss``); it is read back as that float32's
+    value."""
     fields = {f.name for f in dataclasses.fields(RoundLog)}
-    return {k: v for k, v in d.items() if k in fields}
+    out = {k: v for k, v in d.items() if k in fields}
+    for k in ("client_loss", "kl_loss", "public_ce"):
+        if out.get(k) is not None:
+            out[k] = [float(np.float32(x)) if isinstance(x, str) else x
+                      for x in out[k]]
+    return out

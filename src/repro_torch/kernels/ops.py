@@ -4,9 +4,13 @@ impl values:
   - "ref":  the plain PyTorch version (``kernels/ref.py``); runs anywhere.
   - "cuda": the hand-written CUDA kernels; CUDA tensors only.
 
-There is no ambient default: an entry point (an engine, a CLI) resolves
-its impl ONCE from its device with ``resolve_impl`` and passes it down as a
-plain argument to every call that can reach a kernel.
+There is no ambient default below the entry points: an entry point (an
+engine, a CLI) resolves its impl ONCE with ``resolve_impl`` (an explicit
+value, else ``REPRO_KERNEL_IMPL``, else its device's default) and passes
+it down as a plain argument to every call that can reach a kernel.  The
+JAX package's ``get_impl``/``set_impl``/``use_impl``, an ambient impl for
+tests and tooling, have no counterpart: the port's tests and dry-run pass
+their impl explicitly.
 
 On a data x model mesh (``sharding.use_mesh``) the arguments are DTensors,
 and each entry point runs its kernel (or, at "ref", its plain version) on
@@ -29,6 +33,7 @@ plain version under a mesh: the impl the caller passed runs.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -68,10 +73,15 @@ def resolve_device(device=None) -> torch.device:
 
 
 def resolve_impl(impl: Optional[str], device) -> str:
-    """Resolve the kernel impl once for an entry point on ``device``:
-    ``None`` gives "cuda" on a CUDA device and "ref" on the CPU.  Asking
-    for "cuda" on the CPU raises."""
+    """Resolve the kernel impl once for an entry point on ``device``, as
+    the JAX package's ``resolve_impl``: an explicit value first, then
+    ``REPRO_KERNEL_IMPL``, then the device's default ("cuda" on a CUDA
+    device, "ref" on the CPU).  ``None`` and "auto" defer.  A value
+    outside ``IMPLS`` raises, and so does "cuda" on the CPU, whichever of
+    the two named it."""
     device = torch.device(device)
+    if impl is None or impl == "auto":
+        impl = os.environ.get("REPRO_KERNEL_IMPL") or None
     if impl is None:
         return "cuda" if device.type == "cuda" else "ref"
     _check_impl(impl)

@@ -271,9 +271,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' "
                          "runs the plain versions on the CPU)")
-    ap.add_argument("--kernel-impl", default=None, choices=["ref", "cuda"],
-                    help="kernel implementation (default: cuda on a CUDA "
-                         "device, ref on the CPU)")
+    ap.add_argument("--kernel-impl", default="auto",
+                    choices=["auto", "ref", "cuda"],
+                    help="kernel implementation: 'auto' resolves per device "
+                         "(cuda on a CUDA device, ref on the CPU; "
+                         "REPRO_KERNEL_IMPL overrides)")
     ap.add_argument("--save", default=None, help="checkpoint path")
     ap.add_argument("--mesh", default=None, metavar="clients=N",
                     help="shard the DML client axis over a 'clients' mesh "

@@ -344,14 +344,31 @@ def forward_clients(sparams, cfg: ModelConfig, tokens, prefix_emb=None, *,
     return _unembed(sparams, cfg, x)
 
 
+def forward_hidden(params, cfg: ModelConfig, tokens, prefix_emb=None, *,
+                   window: Optional[int] = None, remat: bool = True,
+                   unroll: bool = False, slot_remat: bool = False,
+                   impl: str):
+    """One model's backbone: tokens (B, S) [, prefix (B, P, pd)] -> the
+    final hidden states (B, P + S, d), before the final norm, and the aux
+    losses {"load_balance", "router_z"} as scalars.  ``unroll`` is
+    accepted for the JAX signature and changes nothing: the layers run as
+    a Python loop either way."""
+    del unroll
+    x, aux = forward_hidden_clients(_stack1(params), cfg, tokens, prefix_emb,
+                                    window=window, remat=remat,
+                                    slot_remat=slot_remat, impl=impl)
+    return x[0], {k: v[0] for k, v in aux.items()}
+
+
 def forward(params, cfg: ModelConfig, tokens, prefix_emb=None, *,
             window: Optional[int] = None, remat: bool = True,
             slot_remat: bool = False, impl: str):
     """One model: tokens (B, S) [, prefix (B, P, pd)] -> logits
-    (B, P + S, V)."""
-    return forward_clients(_stack1(params), cfg, tokens, prefix_emb,
-                           window=window, remat=remat, slot_remat=slot_remat,
-                           impl=impl)[0]
+    (B, P + S, V).  (The JAX ``forward`` also returns the aux losses; they
+    are ``forward_hidden``'s.)"""
+    x, _ = forward_hidden(params, cfg, tokens, prefix_emb, window=window,
+                          remat=remat, slot_remat=slot_remat, impl=impl)
+    return _unembed(_stack1(params), cfg, x[None])[0]
 
 
 def _head(params, cfg: ModelConfig):

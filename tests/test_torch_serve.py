@@ -347,7 +347,8 @@ TRAINING_MODULES = (
     "repro_torch.launch.mesh", "repro_torch.launch.specs",
     "repro_torch.launch.dryrun", "repro_torch.analysis",
     "repro_torch.analysis.roofline", "repro_torch.launch.quickstart",
-    "repro_torch.launch.serve_lm")
+    "repro_torch.launch.serve_lm", "repro_torch.core.federated",
+    "repro_torch.core.hetero")
 
 
 def test_port_imports_no_jax_and_no_repro():
