@@ -180,15 +180,13 @@ Phases, each fatal on failure:
   23. phase 9's VisionNet protocol over two entries of the card: 2 rounds
      each of DML, FedAvg and async against the unsharded engine from the
      same state, and each weight sync alone bit for bit;
-  24. the dry-run and the roofline against the card: phase 4's round
-     counted on the meta device (``launch.dryrun.count``) and run on the
-     card at impl "ref" under ``FlopCounterMode`` (the FLOP counts agree to
-     1e-6; the dry-run's peak bytes within 0.8-1.25x of the card's
-     ``max_memory_allocated``); ``analysis.roofline.roofline_terms`` at
-     ``launch.mesh.H100``'s peaks for phase 4's round and phase 19's step
-     against their measured walls (the bound's share of the wall, the
-     MFU); then ``launch.quickstart`` and ``launch.serve_lm`` on the card
-     (the flash, square Eq.-2 and SSD kernels launched).
+  24. the dry-run against the card: phase 4's round counted on the meta
+     device (``launch.dryrun.count``) and run on the card at impl "ref"
+     under ``FlopCounterMode`` (the FLOP counts agree to 1e-6; the
+     dry-run's peak bytes within 0.8-1.25x of the card's
+     ``max_memory_allocated``); then ``launch.quickstart`` and
+     ``launch.serve_lm`` on the card (the flash, square Eq.-2 and SSD
+     kernels launched).
   25. the data x model mesh (``sharding.use_mesh``, DTensor programs):
      four ranks as a (data 2, model 2) and a (pod 2, data 1, model 2)
      DeviceMesh, sharing the card over gloo (which collectives gloo takes
@@ -286,8 +284,7 @@ KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd",
                   "kl_mutual_pair", "ssd_scan_fwd", "ssd_scan_bwd",
                   "sparse_kl")
 BF16 = torch.bfloat16
-# the unprofiled walls (s) of phase 4's round and phase 19's step, kept
-# for phase 24's shares of the card
+# what phases 17 and 18 ran, kept for the phases that check it later
 MEASURED: dict = {}
 # the SSD sweep of phase 2: (H, P, N, G), sequence lengths, chunks
 SSD_SWEEP = dict(heads=((48, 64, 128, 1), (8, 32, 16, 2), (4, 16, 8, 4)),
@@ -2067,8 +2064,7 @@ def _round1_parity(population, cfg, K: int, strategy, bf16_limit, loss_kw,
 
 def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
                 rounds: int = 3, bf16_limit: float | None = 2e-2,
-                strategy=None, eq2=None, check=None,
-                record: str | None = None) -> dict:
+                strategy=None, eq2=None, check=None) -> dict:
     """The port's training path: ``Federation(LMClients(cfg, K), strategy)``
     (``DML()`` by default) at the full width of ``cfg`` (depth as given),
     ``rounds`` fused rounds through the kernels, then Eq. 2 of the final
@@ -2090,9 +2086,8 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
     logits differ in rounding, so their top-k sets can differ at
     near-ties: the SparseDML round 1 of each impl shares its own sets, but
     every gradient of the parity runs on one (idx, logp) computed once,
-    from the kernel path's logits.  ``record`` names the path in
-    ``MEASURED``, which keeps its unprofiled round's wall for phase 24.
-    Returns the kernels' launch counts over the training run."""
+    from the kernel path's logits.  Returns the kernels' launch counts
+    over the training run."""
     from repro_torch.api import DML, Federation, LMClients
     from repro_torch.core import distributed as D
     from repro_torch.configs import get_config
@@ -2234,8 +2229,6 @@ def phase_train(card: str, cfg, mixer, K: int = 3, B: int = 4, S: int = 512,
     busy_us = sum(us for us, _ in by_name.values())
     n_kernels = sum(cnt for _, cnt in by_name.values())
     steady = walls[-1]
-    if record:
-        MEASURED[record] = steady
     behind = (f"; {positions} positions with the prefixes, "
               f"{positions / steady:.0f} a second"
               if cfg.prefix_tokens else "")
@@ -3160,7 +3153,6 @@ def phase_single(card: str, cfg, B: int = 4, S: int = 512, steps: int = 3,
         toks = batch(i)
         (params, opt, m), secs = _timed(lambda: step(params, opt, toks))
         ce, gn = float(m["ce"]), float(m["grad_norm"])
-        MEASURED["phase 19"] = secs            # the last step's wall
         print(f"step {i}: {secs:.3f} s wall, {B * S / secs:.0f} trained "
               f"tok/s; ce {ce:.4f} grad_norm {gn:.3f}; peak memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
@@ -4272,48 +4264,21 @@ def phase_vision_mesh(card: str, cfg=None, K: int = 5, n_rounds: int = 2,
 
 
 # ---------------------------------------------------------------------------
-# phase 24: the dry-run and the roofline against the card, the examples
+# phase 24: the dry-run against the card, the examples
 
-def _shares(card: str, what: str, counts, wall: float, n_active: int,
-            tokens: int) -> None:
-    """The roofline of a program's meta counts at ``launch.mesh.H100``'s
-    peaks against its measured wall: the bound's share of the wall and the
-    MFU (6 * active params * trained tokens / (wall * bf16 peak))."""
-    from repro_torch.analysis.roofline import roofline_terms
-    t = roofline_terms(counts.flops, counts.bytes, 0.0)
-    mfu = 6 * n_active * tokens / (wall * H100.peak_flops_bf16)
-    print(f"{what} on {card}: counted on the meta device at impl ref "
-          f"{counts.flops / 1e12:.3f} TFLOP (matmul-class), "
-          f"{counts.bytes / 1e9:.1f} GB of op traffic (unfused); at "
-          f"{H100.name}'s published peaks t_compute {t['t_compute']:.4f} s, "
-          f"t_memory {t['t_memory']:.4f} s, t_collective "
-          f"{t['t_collective']:.4f} s, dominant {t['dominant']}; measured "
-          f"wall at impl cuda (unprofiled) {wall:.3f} s: bound "
-          f"{t['t_bound']:.4f} s = {t['t_bound'] / wall:.1%} of the wall; "
-          f"MFU {mfu:.2%} (6 x {n_active / 1e9:.3f} B active params x "
-          f"{tokens} trained tokens / (wall x "
-          f"{H100.peak_flops_bf16 / 1e12:.0f} TFLOP/s))")
-    if not (np.isfinite(mfu) and 0 < mfu < 1 and t["t_bound"] > 0):
-        raise AssertionError(f"{what}: no share of the card ({mfu})")
-
-
-def phase_tooling(card: str, cfg, tcfg, K: int, B: int, S: int,
-                  single_B: int = 4, single_S: int = 512) -> dict:
+def phase_tooling(card: str, tcfg, K: int, B: int, S: int) -> dict:
     """Phase 24.  (a) Phase 4's round (``make_dml_train_step`` of K
     ``tcfg`` clients, batch B, public B // 2, seq S, LMClients' AdamW and
     DML()'s weight) counted on the meta device by ``launch.dryrun.count``
     and run on the card at impl "ref" under ``FlopCounterMode``: the FLOP
     counts agree to 1e-6 (one aten program).  (b) The dry-run's peak bytes
     against the card's ``max_memory_allocated`` over that round, less
-    what was allocated before it: within 0.8-1.25x.  (c) The roofline of
-    phase 4's round and of phase 19's full-depth ``make_train_step`` step
-    (``cfg``, single_B x single_S) against their measured walls.  (d)
+    what was allocated before it: within 0.8-1.25x.  (c)
     ``launch.quickstart`` and ``launch.serve_lm`` on the card, whose
-    kernel launches are this path's.  Returns (d)'s launch counts."""
+    kernel launches are this path's.  Returns (c)'s launch counts."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.api import DML
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun, quickstart, serve_lm
     from repro_torch.optim import AdamWConfig
     from repro_torch.tree import tree_leaves
@@ -4361,20 +4326,6 @@ def phase_tooling(card: str, cfg, tcfg, K: int, B: int, S: int,
           f"{ratio:.3f}x (limit 0.8-1.25x)")
     if not 0.8 <= ratio <= 1.25:
         raise AssertionError("the dry-run's peak memory is off the card's")
-
-    tokens = K * (B + pub) * S
-    _shares(card, f"phase 4's DML round ({tokens} trained tokens)", meta,
-            MEASURED["phase 4"], tcfg.active_param_count(), tokens)
-    fn, args = dryrun.build_case(
-        cfg, ShapeConfig("phase19", single_S, single_B, "train"), "single",
-        "standard")
-    with dryrun.count() as step19:
-        fn(*args)
-    del fn, args
-    _shares(card, f"phase 19's make_train_step step ({cfg.name}, "
-            f"{cfg.n_layers} layers, {single_B} x {single_S})", step19,
-            MEASURED["phase 19"], cfg.active_param_count(),
-            single_B * single_S)
 
     _kernel_counts(zero=True)                       # the path starts here
     t0 = time.perf_counter()
@@ -5672,8 +5623,7 @@ def main() -> int:
     paths = []
     for phase in (
             lambda: phase_serve(env["card"], cfg, reqs, flash_fwd, K, B, S0),
-            lambda: phase_train(env["card"], tcfg, flash, TK, TB, TS,
-                                record="phase 4"),
+            lambda: phase_train(env["card"], tcfg, flash, TK, TB, TS),
             lambda: phase_serve(env["card"], mscfg, mreqs,
                                 ("ssd_scan_fwd", ssd_scan), MK, MB, MS0, 32,
                                 None),
@@ -5713,7 +5663,7 @@ def main() -> int:
             lambda: phase_sharded_train(env["card"], scfg, 4, HB, HS),
             lambda: phase_sharded_train(env["card"], scfg, 3, HB, HS),
             lambda: phase_vision_mesh(env["card"]),
-            lambda: phase_tooling(env["card"], cfg, tcfg, TK, TB, TS),
+            lambda: phase_tooling(env["card"], tcfg, TK, TB, TS),
             lambda: data_model(env["card"], scfg),
             lambda: phase_facades(env["card"], hcfgs)):
         gc.collect()

@@ -22,6 +22,7 @@ import numpy as np
 
 from repro_torch import checkpoint
 from repro_torch.data.federated import sample_participants
+from repro_torch.trace import count, span
 
 
 @dataclass
@@ -92,27 +93,29 @@ class Federation:
         return self.history
 
     def _run_round(self, r: int) -> None:
-        pop, strat = self.population, self.strategy
-        pop.begin_round(r)
-        part = self.participants(r)
-        pm = pop.part_mask(part)
-        local_losses = strat.local_phase(pop, r, part, pm)
-        payload = strat.round_payload(pop, r, part)
-        out = strat.combine(pop, r, part, pm, payload) or {}
-        comm = strat.comm_bytes(pop, part, payload, out)
-        K = self.n_clients
-        full = len(part) == K
-        self.history.total_comm_bytes += comm
-        self.history.rounds.append(RoundLog(
-            r,
-            out.get("client_loss", local_losses or [0.0] * K),
-            out.get("kl_loss", [0.0] * K),
-            comm,
-            layer=out.get("layer"),
-            participants=part if (not full or
-                                  pop.log_participants_always) else None,
-            public_ce=out.get("public_ce")))
-        self.round = r + 1
+        with span("repro.round"):
+            count("round")
+            pop, strat = self.population, self.strategy
+            pop.begin_round(r)
+            part = self.participants(r)
+            pm = pop.part_mask(part)
+            local_losses = strat.local_phase(pop, r, part, pm)
+            payload = strat.round_payload(pop, r, part)
+            out = strat.combine(pop, r, part, pm, payload) or {}
+            comm = strat.comm_bytes(pop, part, payload, out)
+            K = self.n_clients
+            full = len(part) == K
+            self.history.total_comm_bytes += comm
+            self.history.rounds.append(RoundLog(
+                r,
+                out.get("client_loss", local_losses or [0.0] * K),
+                out.get("kl_loss", [0.0] * K),
+                comm,
+                layer=out.get("layer"),
+                participants=part if (not full or
+                                      pop.log_participants_always) else None,
+                public_ce=out.get("public_ce")))
+            self.round = r + 1
 
     # -- eval ----------------------------------------------------------------
     def evaluate(self, split=None) -> History:

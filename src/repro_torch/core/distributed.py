@@ -44,6 +44,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                client_norms)
 from repro_torch.sharding import axes_map, axis_rules, constrain, map_entries
+from repro_torch.trace import span, to_host
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Any
@@ -86,8 +87,9 @@ def _public_ce_and_logits(sparams, cfg: ModelConfig, tokens, prefix,
     x, _ = tfm.forward_hidden_clients(sparams, cfg, tokens, prefix,
                                       remat=remat, impl=impl)
     prefixed = cfg.prefix_tokens > 0
-    logits = tfm.loss_logits(sparams, cfg, x)
-    ce = tfm.next_token_ce(logits, tokens, prefixed)
+    with span("repro.model.head"):
+        logits = tfm.loss_logits(sparams, cfg, x)
+        ce = tfm.next_token_ce(logits, tokens, prefixed)
     return ce, logits[:, :, 1:] if prefixed else logits
 
 
@@ -123,15 +125,18 @@ def _mutual_term(flat, temperature: float, sparse_k: int, part_mask,
     (``repro/core/distributed.py:118-131``).  The top-k sets are taken from
     the detached logits unless the caller passes the ``received`` (idx,
     logp) sets that crossed the wire."""
-    if not sparse_k:
-        return mutual_kl_loss(flat, temperature, part_mask=part_mask,
-                              impl=impl)
-    if part_mask is not None:
-        raise ValueError("sparse top-k sharing + partial participation is "
-                         "not supported by the fused LM step")
-    if received is None:
-        received = topk_predictions(flat.detach(), sparse_k, temperature)
-    return sparse_mutual_kl_loss(flat, *received, temperature, impl=impl)
+    with span("repro.eq2"):
+        if not sparse_k:
+            return mutual_kl_loss(flat, temperature, part_mask=part_mask,
+                                  impl=impl)
+        if part_mask is not None:
+            raise ValueError("sparse top-k sharing + partial participation "
+                             "is not supported by the fused LM step")
+        if received is None:
+            received = topk_predictions(flat.detach(), sparse_k,
+                                        temperature)
+        return sparse_mutual_kl_loss(flat, *received, temperature,
+                                     impl=impl)
 
 
 def local_total_loss(sparams, cfg: ModelConfig, tokens, part_mask=None,
@@ -197,8 +202,10 @@ def value_and_grad(loss: Callable, sparams: Params, *args, **kw):
         t.requires_grad_(True)
     try:
         with torch.enable_grad():
-            total, aux = loss(sparams, *args, **kw)
-            grads = iter(torch.autograd.grad(total, leaves))
+            with span("repro.step.forward"):
+                total, aux = loss(sparams, *args, **kw)
+            with span("repro.step.backward"):
+                grads = iter(torch.autograd.grad(total, leaves))
     finally:
         for t in leaves:
             t.requires_grad_(False)
@@ -362,10 +369,11 @@ class ShardedDMLStep:
         """One entry's private CE (K_loc,), public CE (K_loc,) and public
         logits (K_loc, B_pub * S, V), on the autograd tape."""
         cfg = self.cfg
-        priv, _ = tfm.loss_fn_clients(params, cfg, tokens, None,
-                                      remat=self.remat, impl=self.impl)
-        ce_pub, fwd = _public_ce_and_logits(params, cfg, public_tokens,
-                                            None, self.remat, self.impl)
+        with span("repro.step.forward"):
+            priv, _ = tfm.loss_fn_clients(params, cfg, tokens, None,
+                                          remat=self.remat, impl=self.impl)
+            ce_pub, fwd = _public_ce_and_logits(params, cfg, public_tokens,
+                                                None, self.remat, self.impl)
         k, b, s, v = fwd.shape
         return [priv, ce_pub, fwd.reshape(k, b * s, v)]
 
@@ -377,7 +385,7 @@ class ShardedDMLStep:
         ``part_mask`` (K,) in natural order; returns the natural metrics
         ((K,) on the first entry's device, "lr" a 0-d tensor).  The shared
         step is read on the host once a round."""
-        step = int(opts[0]["step"])
+        step = to_host(opts[0]["step"])
         metrics = self._run(params, tokens, public_tokens, part_mask,
                             lambda d, grads, pm_loc: self._update(
                                 params[d], opts[d], grads, pm_loc, step))
@@ -427,12 +435,14 @@ class ShardedDMLStep:
             priv, ce_pub, flat = fwd
             fwd.clear()                  # the logits die with this entry
             w = w_loc[d]
-            kl = torch.mean(ops.mutual_kl_pair(
-                flat, gathered[dev], pair_loc[d],
-                temperature=self.temperature, impl=self.impl), dim=-1)
-            total = torch.sum(priv * w) + torch.sum(ce_pub * w) \
-                + self.kl_weight * torch.sum(kl)
-            it = iter(torch.autograd.grad(total, ls))
+            with span("repro.step.forward"), span("repro.eq2"):
+                kl = torch.mean(ops.mutual_kl_pair(
+                    flat, gathered[dev], pair_loc[d],
+                    temperature=self.temperature, impl=self.impl), dim=-1)
+                total = torch.sum(priv * w) + torch.sum(ce_pub * w) \
+                    + self.kl_weight * torch.sum(kl)
+            with span("repro.step.backward"):
+                it = iter(torch.autograd.grad(total, ls))
             del total, flat
             with torch.no_grad():
                 norms = on_grads(d, tree_map(lambda _: next(it), p),
@@ -449,17 +459,20 @@ class ShardedDMLStep:
                     p, tokens.index_select(0, rows[d]).to(dev),
                     public_tokens.to(dev)), params)
                 shards = [f[2].detach() for f in fwd]
-                gathered = {dev: stacking.gather_clients(shards, K,
-                                                         self.n_dev, dev)
-                            for dev in set(mesh.devices)}
+                with span("repro.step.gather"):
+                    gathered = {dev: stacking.gather_clients(
+                        shards, K, self.n_dev, dev)
+                        for dev in set(mesh.devices)}
                 del shards
                 out = map_entries(mesh, entry_grads, params, fwd, leaves)
         finally:
             for t in (t for ls in leaves for t in ls):
                 t.requires_grad_(False)
-        return {key: stacking.gather_clients(
-            [m[key] for m in out], K, self.n_dev, mesh.devices[0])[:K]
-            for key in ("private_loss", "public_ce", "kld_avg", "grad_norm")}
+        with span("repro.step.gather"):
+            return {key: stacking.gather_clients(
+                [m[key] for m in out], K, self.n_dev, mesh.devices[0])[:K]
+                for key in ("private_loss", "public_ce", "kld_avg",
+                            "grad_norm")}
 
     def _update(self, params, opt, grads, pm_loc, step: int):
         """AdamW on an entry's participating slots, each client's gradient

@@ -43,6 +43,7 @@ from repro_torch.data.synthetic import make_token_stream
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import AdamWConfig
+from repro_torch.trace import count, span, to_host
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -87,22 +88,28 @@ class LMClients(MeshState, Population):
 
     # -- data -------------------------------------------------------------
     def _tokens(self, toks: np.ndarray) -> torch.Tensor:
+        """The host's tokens on the device: a synchronous copy from
+        pageable memory, so a ``host_sync``."""
+        count("host_sync")
         return torch.as_tensor(toks, dtype=torch.long, device=self.device)
 
     def _private_batch(self, r: int) -> torch.Tensor:
         """(K, B, S) tokens -- each client has its own bigram domain."""
-        return self._tokens(np.stack([
-            make_token_stream(self.batch, self.seq + 1, self.cfg.vocab_size,
-                              seed=1000 * r + self.seed,
-                              domain=d)[:, :self.seq]
-            for d in range(self.n_clients)]))
+        with span("repro.lm.private_batch"):
+            return self._tokens(np.stack([
+                make_token_stream(self.batch, self.seq + 1,
+                                  self.cfg.vocab_size,
+                                  seed=1000 * r + self.seed,
+                                  domain=d)[:, :self.seq]
+                for d in range(self.n_clients)]))
 
     def _public_batch(self, r: int) -> torch.Tensor:
         """(B_pub, S) fresh public tokens from an unseen domain."""
-        return self._tokens(make_token_stream(
-            max(1, self.batch // 2), self.seq + 1, self.cfg.vocab_size,
-            seed=1000 * (10_000 + r) + self.seed,
-            domain=self.n_clients)[:, :self.seq])
+        with span("repro.lm.public_batch"):
+            return self._tokens(make_token_stream(
+                max(1, self.batch // 2), self.seq + 1, self.cfg.vocab_size,
+                seed=1000 * (10_000 + r) + self.seed,
+                domain=self.n_clients)[:, :self.seq])
 
     def _prefix(self, r: int, batch: int):
         """(B, P, pd) fp32 conditioning embeddings for a prefix-token arch
@@ -111,6 +118,7 @@ class LMClients(MeshState, Population):
         if not self.cfg.prefix_tokens:
             return None
         rng = np.random.default_rng(r)
+        count("host_sync")
         return torch.as_tensor(rng.normal(
             0, 1, (batch, self.cfg.prefix_tokens, self.cfg.prefix_dim)
         ).astype(np.float32), device=self.device)
@@ -149,7 +157,7 @@ class LMClients(MeshState, Population):
             self.client_params, self.client_opts, self._private_batch(r),
             self._private_prefix(r), part_mask)
         self._last_metrics = m
-        return [float(x) * w for x, w in zip(m["ce"].tolist(), pm)]
+        return [float(x) * w for x, w in zip(to_host(m["ce"]), pm)]
 
     def public_payload(self, r: int):
         return self._public_batch(r)
@@ -180,16 +188,17 @@ class LMClients(MeshState, Population):
         self._last_metrics = m
         return {"ran": True,
                 "positions": int(pub.shape[0]) * int(pub.shape[1]),
-                "client_loss": m["private_loss"].tolist(),
-                "public_ce": m["public_ce"].tolist(),
-                "kl_loss": m["kld_avg"].tolist()}
+                "client_loss": to_host(m["private_loss"]),
+                "public_ce": to_host(m["public_ce"]),
+                "kl_loss": to_host(m["kld_avg"])}
 
     def fedavg_combine(self, part: List[int], pm) -> None:
         full = len(part) == self.n_clients
         D.fedavg_sync(self.client_params, None if full else pm)
 
     def async_combine(self, r, part, pm, delta, min_round, pub) -> str:
-        ce = self._last_metrics["ce"].float().cpu().numpy()
+        ce = np.asarray(to_host(self._last_metrics["ce"].float()),
+                        dtype=np.float32)
         # weighting metric: inverse local loss, masked so absentees
         # contribute no weight and receive nothing back
         scores = (1.0 / (1.0 + np.maximum(ce, 0.0))) * pm

@@ -44,6 +44,7 @@ from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
 from repro_torch.sharding import (axes_map, checkpoint_context, constrain,
                                   distribute_tree)
 from repro_torch.sharding.local import keep_shards, local_call, replicated
+from repro_torch.trace import span
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
@@ -172,11 +173,12 @@ def _ffn(sp, cfg: ModelConfig, spec, x):
     {"load_balance", "router_z"} of (K,), or None."""
     if spec.ffn == "none":
         return x, None
-    h = rms_norm(x, per_client(sp["norm2"], x), cfg.rms_eps)
-    if spec.ffn == "mlp":
-        return x + apply_mlp(sp["ffn"], h), None
-    y, aux = moe_mod.apply_moe(sp["ffn"], cfg, h)
-    return x + y, aux
+    with span("repro.model.ffn"):
+        h = rms_norm(x, per_client(sp["norm2"], x), cfg.rms_eps)
+        if spec.ffn == "mlp":
+            return x + apply_mlp(sp["ffn"], h), None
+        y, aux = moe_mod.apply_moe(sp["ffn"], cfg, h)
+        return x + y, aux
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens):
@@ -262,11 +264,12 @@ def _slot(sp, cfg: ModelConfig, i: int, x, positions,
     router_z), the aux losses (K,) zero without an MoE FFN."""
     spec = cfg.period[i]
     h = rms_norm(x, per_client(sp["norm1"], x), cfg.rms_eps)
-    if spec.mixer == "attn":
-        h = attn_mod.attention_forward(sp["mixer"], cfg, h, positions,
-                                       window=window, impl=impl)
-    else:
-        h = ssm_mod.mamba_forward(sp["mixer"], cfg, h, impl=impl)
+    with span("repro.model.mixer"):
+        if spec.mixer == "attn":
+            h = attn_mod.attention_forward(sp["mixer"], cfg, h, positions,
+                                           window=window, impl=impl)
+        else:
+            h = ssm_mod.mamba_forward(sp["mixer"], cfg, h, impl=impl)
     x, aux = _ffn(sp, cfg, spec, x + h)
     x = constrain(x, "client", "batch", "res_seq", "embed_act")
     if aux is None:
@@ -310,7 +313,8 @@ def forward_hidden_clients(sparams, cfg: ModelConfig, tokens,
     keeps one slot's activations at a time in the backward), when autograd
     records a gradient of the params (not in serving or under
     ``torch.no_grad``).  Neither changes the numbers."""
-    x = _embed(sparams, cfg, tokens, prefix_emb)
+    with span("repro.model.embed"):
+        x = _embed(sparams, cfg, tokens, prefix_emb)
     K, B, S = x.shape[:3]
     positions = torch.arange(S, device=x.device).expand(B, S)
     grad = torch.is_grad_enabled() and any(
@@ -484,16 +488,19 @@ def loss_fn_clients(sparams, cfg: ModelConfig, tokens, prefix_emb=None, *,
                                     window=window, remat=remat,
                                     slot_remat=slot_remat, impl=impl)
     prefixed = cfg.prefix_tokens > 0
-    if ce_impl == "chunked":
-        x = loss_rows(x, cfg.prefix_tokens)
-        x = rms_norm(x, per_client(sparams["final_norm"], x), cfg.rms_eps)
-        ce = chunked_ce(x[:, :, :-1], _head(sparams, cfg),
-                        _labels(tokens, x.shape[0], prefixed))
-    elif ce_impl == "dense":
-        ce = next_token_ce(loss_logits(sparams, cfg, x), tokens, prefixed)
-    else:
-        raise ValueError(f"unknown ce_impl {ce_impl!r}; expected 'dense' or "
-                         "'chunked'")
+    with span("repro.model.head"):
+        if ce_impl == "chunked":
+            x = loss_rows(x, cfg.prefix_tokens)
+            x = rms_norm(x, per_client(sparams["final_norm"], x),
+                         cfg.rms_eps)
+            ce = chunked_ce(x[:, :, :-1], _head(sparams, cfg),
+                            _labels(tokens, x.shape[0], prefixed))
+        elif ce_impl == "dense":
+            ce = next_token_ce(loss_logits(sparams, cfg, x), tokens,
+                               prefixed)
+        else:
+            raise ValueError(f"unknown ce_impl {ce_impl!r}; expected "
+                             "'dense' or 'chunked'")
     total = ce + aux["load_balance"] + aux["router_z"]
     return total, {"ce": ce, **aux}
 
@@ -548,7 +555,8 @@ def prefill_clients(sparams, cfg: ModelConfig, tokens, prefix_emb=None, *,
     (last-token logits (K, B, V), cache (K, n_periods, B, ...))."""
     if window is None:
         window = cfg.sliding_window
-    x = _embed(sparams, cfg, tokens, prefix_emb)
+    with span("repro.model.embed"):
+        x = _embed(sparams, cfg, tokens, prefix_emb)
     K, B = x.shape[:2]
     cache = init_cache(cfg, B, max_seq, window, n_models=K, device=x.device)
     if isinstance(x, DTensor):          # on a mesh: the ring's shards

@@ -24,6 +24,7 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.trace import span, to_host
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -202,37 +203,40 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
     int, which spares the read of a device step.  Returns (params, state,
     {"grad_norm", "lr"}); params and state are the objects passed in.
     """
-    gnorm, scale = None, client_scale
-    if client_scale is None:
-        gnorm = global_norm(grads)
-        if cfg.clip_norm is not None:
-            scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
-                                max=1.0)
-    state["step"] += 1
-    step = int(state["step"])
-    lr = cfg.make_schedule()(step)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - b1 ** step
-    bc2 = 1 - b2 ** step
-    for path, leaf in _leaves_with_path(params):
-        decay = cfg.weight_decay and _wd_mask(path)
-        for (p, g, mu, nu), s in _client_runs(scale, *_shards(
-                leaf, _at(grads, path), _at(state["mu"], path),
-                _at(state["nu"], path))):
-            g = g.float()
-            if s is not None:
-                g = g * s                    # never scales the caller's grads
-            mu.mul_(b1).add_(g, alpha=1 - b1)
-            nu.mul_(b2).addcmul_(g, g, value=1 - b2)
-            del g
-            u = torch.sqrt(nu / bc2).add_(cfg.eps)
-            u = torch.div(mu, bc1).div_(u)
-            if decay:
-                u.add_(p.float(), alpha=cfg.weight_decay)
-            p.copy_(u.mul_(-lr).add_(p.float()))      # p - lr * u
-            del u
-    return params, state, {"grad_norm": gnorm,
-                           "lr": torch.tensor(lr, dtype=torch.float32)}
+    with span("repro.optim.adamw"):
+        gnorm, scale = None, client_scale
+        if client_scale is None:
+            gnorm = global_norm(grads)
+            if cfg.clip_norm is not None:
+                scale = torch.clamp(
+                    cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+        state["step"] += 1
+        step = state["step"]
+        if torch.is_tensor(step):
+            step = to_host(step)
+        lr = cfg.make_schedule()(step)
+        b1, b2 = cfg.b1, cfg.b2
+        bc1 = 1 - b1 ** step
+        bc2 = 1 - b2 ** step
+        for path, leaf in _leaves_with_path(params):
+            decay = cfg.weight_decay and _wd_mask(path)
+            for (p, g, mu, nu), s in _client_runs(scale, *_shards(
+                    leaf, _at(grads, path), _at(state["mu"], path),
+                    _at(state["nu"], path))):
+                g = g.float()
+                if s is not None:
+                    g = g * s            # never scales the caller's grads
+                mu.mul_(b1).add_(g, alpha=1 - b1)
+                nu.mul_(b2).addcmul_(g, g, value=1 - b2)
+                del g
+                u = torch.sqrt(nu / bc2).add_(cfg.eps)
+                u = torch.div(mu, bc1).div_(u)
+                if decay:
+                    u.add_(p.float(), alpha=cfg.weight_decay)
+                p.copy_(u.mul_(-lr).add_(p.float()))      # p - lr * u
+                del u
+        return params, state, {"grad_norm": gnorm,
+                               "lr": torch.tensor(lr, dtype=torch.float32)}
 
 
 # ---------------------------------------------------------------------------
