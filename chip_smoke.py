@@ -34,7 +34,9 @@ Phases, each fatal on failure:
      phase 21's, against J = 3, and at phase 22's, Kl = 2 against the
      gathered J = 4 with zero self weights (K = 3 adds a pad column of
      zero weight; K = 4 weights every column, and there the pair kernels'
-     rows are timed);
+     rows are timed); and the fused AdamW (norm pass and multi-tensor
+     update) at phase 4's tree, one step against the plain version, timed
+     beside its bound, the plain version and ``torch._fused_adamw_``;
   3. the serving path at the full width and depth of qwen3-4b: a K=2
      client ensemble from seeded random weights serves ``generate``, continuous batching
      and route mode, and the flash kernel's launch count shows that it ran
@@ -282,7 +284,7 @@ BF16_TFLOPS = H100.peak_flops_bf16 / 1e12
 HBM_TBS = H100.hbm_bandwidth / 1e12
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd",
                   "kl_mutual_pair", "ssd_scan_fwd", "ssd_scan_bwd",
-                  "sparse_kl")
+                  "sparse_kl", "adamw_fused")
 BF16 = torch.bfloat16
 # what phases 17 and 18 ran, kept for the phases that check it later
 MEASURED: dict = {}
@@ -1621,6 +1623,135 @@ def _ssd_times(shape, gen) -> tuple:
     return fwd_ms, bwd_ms, plain_fwd, plain_bwd, fb, bb
 
 
+def bf16_steps(got, want, old):
+    """|got - want| in bf16 steps at the operands' scale of p - lr u: the
+    step of bf16 numbers as large as the largest of |old|, |want| and
+    |got|."""
+    scale = torch.maximum(torch.maximum(old.float().abs(),
+                                        want.float().abs()),
+                          got.float().abs())
+    step = torch.ldexp(torch.ones_like(scale), torch.frexp(scale)[1] - 8)
+    return (got.float() - want.float()).abs() / step
+
+
+def phase_adamw(cfg, K: int) -> list:
+    """The fused AdamW at a training path's tree: K clients of ``cfg``
+    (bf16 params and gradients, fp32 moments; a tied embedding's gradient
+    transposed, as the head gives it), clip 1.0, lr 1e-3, the weight
+    decay 0.1 on matrices.  One step through the kernels against
+    the plain version on a copy: ``grad_norm`` within 1e-6 relative,
+    moments within 1e-6 (relative, and 1e-6 of the leaf's largest value
+    absolute), bf16 params one bf16 step apart at most (``bf16_steps``),
+    on at most 1e-4 of their elements.  Then the kernels' time (the norm pass and the
+    update, a host-int step: no sync between launches) beside the bound,
+    24 bytes a parameter at the HBM rate (the gradient read for the
+    norm; p, g, mu and nu read and p, mu and nu written once), the
+    plain version's, and ``torch._fused_adamw_``'s as a yardstick the
+    port never calls (no norm or clip; it takes one dtype for params,
+    gradients and moments, so it runs on an fp32 copy of the tree: 28
+    bytes a parameter).  Returns the kernel's row."""
+    from repro_torch import optim
+    from repro_torch.kernels import adamw as fused
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import tree_leaves, tree_map
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = tfm.init_model(0, cfg, n_clients=K, device="cuda")
+    grads = tree_map(lambda t: (torch.randn(
+        t.shape, generator=gen, device="cuda") * 1e-3).to(t.dtype), params)
+    if cfg.tie_embeddings:       # the head's gradient comes back transposed
+        e = params["embed"]
+        grads["embed"] = (torch.randn(
+            e.shape[:-2] + e.shape[:-3:-1], generator=gen, device="cuda")
+            * 1e-3).to(e.dtype).transpose(-1, -2)
+    ocfg = AdamWConfig(lr=1e-3, warmup=5, total_steps=10_000, clip_norm=1.0)
+    n = sum(t.numel() for t in tree_leaves(params))
+    want_p = tree_map(torch.clone, params)
+    opt, want_o = adamw_init(params), adamw_init(want_p)
+    opt["step"] = want_o["step"] = 0
+    old = tree_map(torch.clone, params)
+
+    def plain(p, o):
+        gnorm = optim._plain_norm(tree_leaves(grads))
+        scale = optim._clip_scale(gnorm, ocfg.clip_norm)
+        o["step"] += 1
+        lr, step = ocfg.make_schedule()(o["step"]), o["step"]
+        for *leaf, decay in optim._update_leaves(p, grads, o, ocfg):
+            optim._plain_update(leaf, scale, lr, 1 - ocfg.b1 ** step,
+                                1 - ocfg.b2 ** step, ocfg, decay)
+        return gnorm
+
+    before = fused.launches
+    om = adamw_update(params, grads, opt, ocfg)[2]
+    launched = fused.launches - before
+    gnorm = plain(want_p, want_o)
+    torch.cuda.synchronize()
+    norm_rel = abs(om["grad_norm"].item() / gnorm.item() - 1)
+    mom_rel, mom_bits, flips, n16 = 0.0, {"mu": 0, "nu": 0}, 0, 0
+    for m in mom_bits:
+        for got, want in zip(tree_leaves(opt[m]), tree_leaves(want_o[m])):
+            floor = 1e-6 * want.abs().max()
+            for a, b in zip(got.view(-1).split(1 << 26),
+                            want.view(-1).split(1 << 26)):      # memory
+                mom_rel = max(mom_rel, ((a - b).abs() / (b.abs() + floor))
+                              .max().item())
+                mom_bits[m] += int((a != b).sum())
+    steps = 0.0
+    for got, want, was in zip(tree_leaves(params), tree_leaves(want_p),
+                              tree_leaves(old)):
+        for a, b, o in zip(*(t.view(-1).split(1 << 26)
+                             for t in (got, want, was))):   # memory
+            steps = max(steps, bf16_steps(a, b, o).max().item())
+            flips += int((a != b).sum())
+        n16 += got.numel()
+    print(f"fused AdamW vs plain, one step of {K} x {cfg.name} "
+          f"({n / 1e9:.3f} G params, {launched} launches): grad_norm "
+          f"relative {norm_rel:.3g}, moments worst relative {mom_rel:.3g} "
+          f"(not bit-equal: mu {mom_bits['mu']}, nu {mom_bits['nu']} of "
+          f"{n} elements each), bf16 params "
+          f"apart on {flips} of {n16}, by at most {steps:.3g} bf16 steps")
+    if not (norm_rel <= 1e-6 and mom_rel <= 1e-6 and steps <= 1
+            and flips <= 1e-4 * n16):
+        raise AssertionError("fused AdamW departs from the plain version")
+    del want_p, want_o, old
+    torch.cuda.empty_cache()
+
+    leaves = tree_leaves(grads)
+    ms = time_ms(lambda: adamw_update(params, grads, opt, ocfg), iters=10)
+    norm_ms = time_ms(lambda: fused.sumsq(leaves, clip=1.0), iters=10)
+    plain_ms = time_ms(lambda: plain(params, opt), iters=3, warmup=1)
+    bound_ms = 24 * n / PEAK_BYTES * 1e3
+    del params, grads, opt, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = [t.shape for t in tree_leaves(
+        tfm.init_model(0, cfg, n_clients=K, device="meta"))]
+    ps = [torch.randn(s, generator=gen, device="cuda") * 0.02
+          for s in shapes]
+    gs = [torch.randn(s, generator=gen, device="cuda") * 1e-3
+          for s in shapes]
+    ms_ = [torch.zeros(s, device="cuda") for s in shapes]
+    vs = [torch.zeros(s, device="cuda") for s in shapes]
+    steps = [torch.ones((), device="cuda") for _ in shapes]
+    library_ms = time_ms(lambda: torch._fused_adamw_(
+        ps, gs, ms_, vs, [], steps, lr=1e-3, beta1=0.9, beta2=0.95,
+        weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False),
+        iters=10)
+    del ps, gs, ms_, vs, steps
+    torch.cuda.empty_cache()
+    print(f"fused AdamW at {K} x {cfg.name}'s tree: {ms:.4f} ms (norm pass "
+          f"{norm_ms:.4f} ms), {24 * n / ms / 1e9:.2f} TB/s of the "
+          f"24 B a parameter; bound {bound_ms:.4f} ms by bytes "
+          f"({24 * n / 1e9:.1f} GB / {HBM_TBS} TB/s); plain {plain_ms:.4f} "
+          f"ms; torch._fused_adamw_ (fp32 tree, no norm) {library_ms:.4f} ms")
+    return [{"name": "adamw_fused", "route": "cuda", "launches": None,
+             "source": "src/repro_torch/kernels/csrc/adamw_fused.cu",
+             "replaces": "none: XLA fuses repro/optim/__init__.py's update",
+             "max_abs_err": mom_rel, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": "bytes",
+             "library_ms": library_ms}]
+
+
 # ---------------------------------------------------------------------------
 # phase 3
 
@@ -2408,6 +2539,7 @@ KERNEL_COUNTERS = {
     "ssd_scan_bwd": ("ssd_scan", "bwd_launches"),
     "sparse_kl_fwd": ("sparse_kl", "launches"),
     "sparse_kl_bwd": ("sparse_kl", "bwd_launches"),
+    "adamw_fused": ("adamw", "launches"),
 }
 
 
@@ -4016,14 +4148,15 @@ def phase_sharded_train(card: str, cfg, K: int, B: int = 4, S: int = 512,
     need = {"flash_attention_fwd": n * 2 * 2 * cfg.n_layers * rounds,
             "flash_attention_bwd": n * 2 * cfg.n_layers * rounds,
             "kl_mutual_pair_fwd": n * rounds,
-            "kl_mutual_pair_bwd": n * rounds}
+            "kl_mutual_pair_bwd": n * rounds,
+            "adamw_fused": n * rounds}
+    exact = ("kl_mutual_pair_fwd", "kl_mutual_pair_bwd", "adamw_fused")
     ran = {k: v for k, v in counts.items() if v}
     print(f"sharded training launches {ran}; need {need} exactly for the "
-          f"pair kernels (one a round per entry) and at least for flash, "
-          f"and no square or sparse kernel")
+          f"pair kernels and the fused AdamW's update (one a round per "
+          f"entry) and at least for flash, and no square or sparse kernel")
     if any(counts[k] < v for k, v in need.items()) or \
-            counts["kl_mutual_pair_fwd"] != need["kl_mutual_pair_fwd"] or \
-            counts["kl_mutual_pair_bwd"] != need["kl_mutual_pair_bwd"] or \
+            any(counts[k] != need[k] for k in exact) or \
             set(ran) - set(need):
         raise AssertionError("the sharded round left its kernels")
     hist = fed.history.rounds
@@ -5610,6 +5743,9 @@ def main() -> int:
     kernels += phase_sparse_kl([(max(1, TB // 2) * TS, cfg.vocab_size),
                                 (max(1, MTB // 2) * MTS, mcfg.vocab_size)],
                                TK)
+    # the optimizer step of the benchmark's qwen3-4b cell: its tree ties
+    # the head to the embedding, as the published config does
+    kernels += phase_adamw(tcfg.replace(tie_embeddings=True), TK)
     flash = ("flash_attention_fwd", "flash_attention_bwd", fa)
     flash_fwd = ("flash_attention_fwd", fa)
     local: dict = {}

@@ -4,16 +4,20 @@ for the LM path, and SGD with momentum for the VisionNet path: the port of
 
 State is a plain dict of trees ({"mu", "nu", "step"}) so it checkpoints in
 the JAX package's schema.  Unlike the JAX version, ``adamw_update`` updates
-the params and the fp32 moments IN PLACE, one leaf at a time and a large
-leaf in runs of ``CHUNK`` elements, so its fp32 temporaries are at most
-256 MB each (a whole leaf's would be 5.4 GB for each MLP matrix of K = 3
+the params and the fp32 moments IN PLACE.  On CUDA leaves the global norm
+and the update run in the fused kernels of ``kernels/adamw.py``: one pass
+over the gradients for the norm and one over every leaf for the update,
+each byte read and written once.  On CPU and meta leaves the update runs
+eagerly, the kernels' plain version: one leaf at a time and a large leaf
+in runs of ``CHUNK`` elements, so its fp32 temporaries are at most 256 MB
+each (a whole leaf's would be 5.4 GB for each MLP matrix of K = 3
 full-depth musicgen-medium clients) instead of the whole tree's.
 ``sgd_update`` takes a client-stacked tree and clips each client by its
 own global norm, as the JAX package's ``sgd_update`` does under ``vmap``.
 
 On a data x model mesh the trees are DTensors: the global norm reduces
 over every rank's shards (one norm for the whole tree, as unsharded), and
-each leaf's update runs on the rank's shards in place, in the same runs.
+each leaf's update runs on the rank's shards in place.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.trace import span, to_host
+from repro_torch.kernels import adamw as fused
+from repro_torch.trace import count, span, to_host
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -49,8 +54,8 @@ def constant_schedule(base_lr: float) -> Callable[[int], float]:
 # ---------------------------------------------------------------------------
 # gradient transforms
 
-# elements of a leaf that one elementwise pass of the optimizer takes at a
-# time (its fp32 temporaries are this size)
+# elements of a leaf that one elementwise pass of the plain (CPU and meta)
+# optimizer takes at a time (its fp32 temporaries are this size)
 CHUNK = 1 << 26
 
 
@@ -78,27 +83,76 @@ def _client_runs(scale, *ts):
             for r in _runs(*(t[c] for t in ts))]
 
 
+def _on_cuda(x) -> bool:
+    return (x.to_local() if isinstance(x, DTensor) else x).is_cuda
+
+
+def _mesh_key(x: DTensor) -> tuple:
+    """The mesh and the pattern of its dims that shard ``x``: one
+    all-reduce completes the partial sums of the leaves that share it."""
+    return x.device_mesh, tuple(isinstance(p, Shard) for p in x.placements)
+
+
+def _complete(local: torch.Tensor, key: tuple) -> torch.Tensor:
+    mesh, sharded = key
+    return DTensor.from_local(
+        local, mesh,
+        [Partial() if s else Replicate() for s in sharded]).full_tensor()
+
+
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32 (a 0-d tensor).
     DTensor leaves add their ranks' shards once each: a rank's sum of
     squares is a partial sum over the mesh dims that shard the leaf, and
-    one all-reduce a pattern of such dims completes it."""
+    one all-reduce a pattern of such dims completes it.  CUDA leaves go
+    to the fused norm pass (``_fused_norm``)."""
+    leaves = tree_leaves(tree)
+    if leaves and _on_cuda(leaves[0]):
+        return _fused_norm(leaves)[0]
+    return _plain_norm(leaves)
+
+
+def _plain_norm(leaves) -> torch.Tensor:
+    """The fused norm pass's plain version: ``global_norm`` by eager
+    passes over runs of at most ``CHUNK`` elements."""
     sq, parts = [], {}
-    for x in tree_leaves(tree):
+    for x in leaves:
         if isinstance(x, DTensor):
             x = _unpartial(x)
-            key = (x.device_mesh,
-                   tuple(isinstance(p, Shard) for p in x.placements))
-            parts.setdefault(key, []).extend(
+            parts.setdefault(_mesh_key(x), []).extend(
                 torch.sum(torch.square(r.float()))
                 for (r,) in _runs(x.to_local()))
         else:
             sq.extend(torch.sum(torch.square(r.float())) for (r,) in _runs(x))
-    for (mesh, sharded), local in parts.items():
-        sq.append(DTensor.from_local(
-            torch.sum(torch.stack(local)), mesh,
-            [Partial() if s else Replicate() for s in sharded]).full_tensor())
+    for key, local in parts.items():
+        sq.append(_complete(torch.sum(torch.stack(local)), key))
     return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def _fused_norm(leaves, max_norm: Optional[float] = None):
+    """(``global_norm`` of CUDA leaves, the clip scale for ``max_norm`` or
+    None) through the fused kernels: of plain tensors, one pass writes
+    both; DTensors' local sums of squares are completed over their mesh
+    as in ``global_norm``."""
+    plain, parts = [], {}
+    for x in leaves:
+        if isinstance(x, DTensor):
+            x = _unpartial(x)
+            parts.setdefault(_mesh_key(x), []).append(x.to_local())
+        else:
+            plain.append(x)
+    if not parts:
+        out = fused.sumsq(plain, clip=max_norm)
+        return out[1], None if max_norm is None else out[2]
+    sq = [fused.sumsq(plain, norm=False)[0]] if plain else []
+    sq += [_complete(fused.sumsq(local, norm=False)[0], key)
+           for key, local in parts.items()]
+    norm = torch.sqrt(torch.sum(torch.stack(sq)))
+    return norm, None if max_norm is None else _clip_scale(norm, max_norm)
 
 
 def _unpartial(x):
@@ -122,7 +176,7 @@ def _shards(p, g, mu, nu):
 def clip_by_global_norm(grads, max_norm: float) -> Tuple[dict, torch.Tensor]:
     """(grads * min(1, max_norm / norm) in fp32, norm); a new tree."""
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = _clip_scale(norm, max_norm)
     return tree_map(lambda g: g.float() * scale, grads), norm
 
 
@@ -190,6 +244,36 @@ def _at(tree, path):
     return tree
 
 
+def _update_leaves(params, grads, state: dict, cfg: AdamWConfig):
+    """(p, g, mu, nu, decay) of each leaf of ``params``, in order: a
+    DTensor's as its rank's shards (``_shards``); decay where
+    ``cfg.weight_decay`` is set and ``_wd_mask`` takes the path."""
+    for path, leaf in _leaves_with_path(params):
+        yield (*_shards(leaf, _at(grads, path), _at(state["mu"], path),
+                        _at(state["nu"], path)),
+               bool(cfg.weight_decay and _wd_mask(path)))
+
+
+def _plain_update(leaf, scale, lr: float, bc1: float, bc2: float,
+                  cfg: AdamWConfig, decay) -> None:
+    """The fused update's plain version on one leaf's (p, g, mu, nu):
+    eager passes over runs of at most ``CHUNK`` elements, in place."""
+    b1, b2 = cfg.b1, cfg.b2
+    for (p, g, mu, nu), s in _client_runs(scale, *leaf):
+        g = g.float()
+        if s is not None:
+            g = g * s            # never scales the caller's grads
+        mu.mul_(b1).add_(g, alpha=1 - b1)
+        nu.mul_(b2).addcmul_(g, g, value=1 - b2)
+        del g
+        u = torch.sqrt(nu / bc2).add_(cfg.eps)
+        u = torch.div(mu, bc1).div_(u)
+        if decay:
+            u.add_(p.float(), alpha=cfg.weight_decay)
+        p.copy_(u.mul_(-lr).add_(p.float()))      # p - lr * u
+        del u
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
                  client_scale: Optional[torch.Tensor] = None):
@@ -200,41 +284,41 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
     (K,) ``client_scale`` instead multiplies each client's gradient by its
     entry, in fp32 (the sharded step's per-client clip); no global norm is
     then taken and "grad_norm" is None.  ``state["step"]`` may be a host
-    int, which spares the read of a device step.  Returns (params, state,
-    {"grad_norm", "lr"}); params and state are the objects passed in.
+    int, which spares the read of a device step.  CUDA leaves take the
+    fused kernels (two launches a table of leaves), counted as
+    ``trace.counts["adamw_fused"]``; CPU and meta leaves the plain
+    version.  Returns (params, state, {"grad_norm", "lr"}); params and
+    state are the objects passed in.
     """
     with span("repro.optim.adamw"):
+        first = tree_leaves(params)
+        on_cuda = bool(first) and _on_cuda(first[0])
+        if on_cuda:      # a leaf the kernels refuse raises before a launch
+            leaves = list(_update_leaves(params, grads, state, cfg))
+            fused.plan_update(leaves, client_scale)
         gnorm, scale = None, client_scale
         if client_scale is None:
-            gnorm = global_norm(grads)
-            if cfg.clip_norm is not None:
-                scale = torch.clamp(
-                    cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+            if on_cuda:
+                gnorm, scale = _fused_norm(tree_leaves(grads), cfg.clip_norm)
+            else:
+                gnorm = global_norm(grads)
+                if cfg.clip_norm is not None:
+                    scale = _clip_scale(gnorm, cfg.clip_norm)
         state["step"] += 1
         step = state["step"]
         if torch.is_tensor(step):
             step = to_host(step)
         lr = cfg.make_schedule()(step)
-        b1, b2 = cfg.b1, cfg.b2
-        bc1 = 1 - b1 ** step
-        bc2 = 1 - b2 ** step
-        for path, leaf in _leaves_with_path(params):
-            decay = cfg.weight_decay and _wd_mask(path)
-            for (p, g, mu, nu), s in _client_runs(scale, *_shards(
-                    leaf, _at(grads, path), _at(state["mu"], path),
-                    _at(state["nu"], path))):
-                g = g.float()
-                if s is not None:
-                    g = g * s            # never scales the caller's grads
-                mu.mul_(b1).add_(g, alpha=1 - b1)
-                nu.mul_(b2).addcmul_(g, g, value=1 - b2)
-                del g
-                u = torch.sqrt(nu / bc2).add_(cfg.eps)
-                u = torch.div(mu, bc1).div_(u)
-                if decay:
-                    u.add_(p.float(), alpha=cfg.weight_decay)
-                p.copy_(u.mul_(-lr).add_(p.float()))      # p - lr * u
-                del u
+        bc1 = 1 - cfg.b1 ** step
+        bc2 = 1 - cfg.b2 ** step
+        if on_cuda:
+            count("adamw_fused")
+            fused.update(leaves, scale, lr=lr, b1=cfg.b1, b2=cfg.b2,
+                         eps=cfg.eps, weight_decay=cfg.weight_decay,
+                         bc1=bc1, bc2=bc2)
+        else:
+            for *leaf, decay in _update_leaves(params, grads, state, cfg):
+                _plain_update(leaf, scale, lr, bc1, bc2, cfg, decay)
         return params, state, {"grad_norm": gnorm,
                                "lr": torch.tensor(lr, dtype=torch.float32)}
 
